@@ -1,0 +1,558 @@
+"""SVHM BSP engine (paper §4), simulator backend on one device.
+
+Executes a ``VertexProgram`` over a ``PartitionedGraph`` in bulk-synchronous
+supersteps:
+
+  superstep =  apply merged frontier data (paper: incoming messages M_i)
+             → iterate local sweeps to a fixed point    ["think like a graph"]
+             → emit frontier contributions ΔD_i
+             → SBS combine over the stacked partitions (§4.3)
+             → vote-to-halt when no partition changed anything and no
+               messages are pending.
+
+``mode='vc'`` bounds local iteration at one hop — the vertex-centric
+baseline; ``mode='sc'`` iterates to the local fixed point.
+
+All P partitions live stacked on one device as ``[P, ...]`` tensors. The
+local phase is the stacked loop with select-frozen partitions
+(``_batched_local_phase``): every sweep runs the whole stack — the semiring
+product flattened over P into one scatter (``coo``) or one kernel launch
+(``pallas_tiles``: ``bsp_spmv``; ``pallas_windows``:
+``segment_combine_windowed``) — and a partition whose local fixed point is
+reached keeps its state while the others continue, so per-partition sweep
+counts equal those of the JAX package's vmapped ``_local_phase``. The
+``while`` loops are Python loops; each local sweep and each superstep reads
+one flag from the device (``ExecutionStats.host_syncs`` counts them).
+
+The backend names ``pallas_tiles``/``pallas_windows`` are kept from the
+reference so configurations carry across; here they select the CUDA
+kernels. ``backend='shard_map'`` and ``edge_backend='auto'`` are accepted by
+``EngineConfig`` (same values and validation as the reference) but not
+implemented yet: using them raises ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Callable, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import sbs
+from repro_torch.core.api import (DeviceSubgraph, SemiringSweep,
+                                  VertexProgram, numpy_dtype)
+from repro_torch.core.layouts import EdgeLayouts, TileBlock, WindowBlock
+from repro_torch.core.metrics import ExecutionStats
+from repro_torch.core.subgraph import PartitionedGraph
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels.bsp_spmv import TM, TN, bsp_spmv
+from repro_torch.kernels.ref import combine_identity, tile_pad_identity
+from repro_torch.kernels.segment_combine import W, segment_combine_windowed
+
+__all__ = ["EngineConfig", "EdgeCombine", "run", "run_sim",
+           "make_sim_runner", "resolve_edge_backend",
+           "normalize_edge_backend"]
+
+_SHARD_MAP_TODO = ("backend='shard_map' is not ported yet (ROADMAP Queue 1: "
+                   "multi-GPU backend over torch.distributed)")
+_AUTO_TODO = ("edge_backend='auto' is not ported yet (ROADMAP Queue 1: "
+              "edge_backend='auto')")
+
+
+@dataclasses.dataclass(frozen=True)
+class EdgeCombine:
+    """Merges edge-parallel partial aggregates inside a partition. On one
+    device every partition's edges are local, so this is the identity; a
+    multi-device backend would reduce over the devices sharding the edge
+    list."""
+
+    axis_names: tuple = ()
+
+    def sum(self, x):
+        return x
+
+    def min(self, x):
+        return x
+
+    def max(self, x):
+        return x
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    """Static engine configuration — the reference's fields, values and
+    validation."""
+
+    mode: str = "sc"                  # 'sc' | 'vc'
+    max_local_iters: int = 10_000     # straggler bound
+    max_supersteps: int = 100_000
+    backend: str = "sim"              # 'sim' | 'shard_map'
+    edge_backend: str = "coo"         # 'coo' | 'pallas_tiles' |
+                                      # 'pallas_windows' | 'auto'
+    trace: bool = False               # per-superstep stats
+    sparse_sync_capacity: int = 0     # shard_map only
+    shard_slots: bool = False         # shard_map only
+    lean_frontier: bool = False       # shard_map only
+    subgraph_axes: tuple = ("sub",)   # shard_map only
+    edge_axes: tuple = ()             # shard_map only
+    checkpoint_every: int = 0         # supersteps; 0 = off
+    checkpoint_dir: Optional[str] = None
+
+    _MODES = ("sc", "vc")
+    _BACKENDS = ("sim", "shard_map")
+    _CONCRETE_EDGE_BACKENDS = ("coo", "pallas_tiles", "pallas_windows")
+    _EDGE_BACKENDS = _CONCRETE_EDGE_BACKENDS + ("auto",)
+
+    def __post_init__(self):
+        if self.mode not in self._MODES:
+            raise ValueError(
+                f"EngineConfig.mode={self.mode!r}: allowed values are "
+                f"{self._MODES}")
+        if self.backend not in self._BACKENDS:
+            raise ValueError(
+                f"EngineConfig.backend={self.backend!r}: allowed values are "
+                f"{self._BACKENDS}")
+        if self.edge_backend not in self._EDGE_BACKENDS:
+            raise ValueError(
+                f"EngineConfig.edge_backend={self.edge_backend!r}: allowed "
+                f"values are {self._EDGE_BACKENDS}")
+        for name in ("subgraph_axes", "edge_axes"):
+            axes = getattr(self, name)
+            if isinstance(axes, str) or not all(
+                    isinstance(a, str) for a in tuple(axes)):
+                raise ValueError(
+                    f"EngineConfig.{name}={axes!r} must be a tuple of mesh "
+                    f"axis names, e.g. ('pod', 'data')")
+            object.__setattr__(self, name, tuple(axes))
+        for name in ("max_local_iters", "max_supersteps"):
+            if getattr(self, name) < 1:
+                raise ValueError(f"EngineConfig.{name} must be >= 1, got "
+                                 f"{getattr(self, name)}")
+        for name in ("sparse_sync_capacity", "checkpoint_every"):
+            if getattr(self, name) < 0:
+                raise ValueError(f"EngineConfig.{name} must be >= 0, got "
+                                 f"{getattr(self, name)}")
+
+    @property
+    def local_bound(self) -> int:
+        return 1 if self.mode == "vc" else self.max_local_iters
+
+
+def _check_supported(cfg: EngineConfig, edge_backend: str) -> None:
+    if cfg.backend != "sim":
+        raise NotImplementedError(_SHARD_MAP_TODO)
+    if edge_backend == "auto":
+        raise NotImplementedError(_AUTO_TODO)
+    if cfg.checkpoint_every:
+        raise NotImplementedError(
+            "BSP checkpointing is not ported yet (ROADMAP Queue 1: "
+            "streaming and session mutation)")
+
+
+# --------------------------------------------------------------------------- #
+def _device_subgraph(pg: PartitionedGraph, device) -> DeviceSubgraph:
+    """Stacked [P, ...] DeviceSubgraph on ``device``."""
+    if pg.n_vertices >= 2**31:
+        raise ValueError("vertex ids must fit int32 on the device")
+    vid32 = pg.gvid.astype(np.int64).copy()
+    vid32[~pg.vmask] = np.iinfo(np.int32).max
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return DeviceSubgraph(
+        esrc=t(pg.esrc), edst=t(pg.edst), ew=t(pg.ew), emask=t(pg.emask),
+        slot=t(pg.slot), vmask=t(pg.vmask),
+        vid32=t(vid32.astype(np.int32)), is_frontier=t(pg.is_frontier),
+        out_deg=t(pg.out_deg), in_deg=t(pg.in_deg),
+        is_master=t(pg.is_master),
+        vlabel=None if pg.vlabel is None else t(pg.vlabel),
+    )
+
+
+# --------------------------------------------------------------------------- #
+# Edge-compute backends
+# --------------------------------------------------------------------------- #
+def resolve_edge_backend(program: VertexProgram, cfg: EngineConfig) -> str:
+    """The backend this (program, config) pair actually runs: declarative
+    ``sweep_spec`` programs run on ``cfg.edge_backend``; hand-rolled sweeps
+    run on the first backend they declare unless they support the asked
+    one; a hand-rolled sweep that declares nothing is refused."""
+    declared = program.supports_edge_backends
+    if declared is not None:
+        allowed = EngineConfig._CONCRETE_EDGE_BACKENDS
+        unknown = tuple(b for b in declared if b not in allowed)
+        if unknown or not declared:
+            raise ValueError(
+                f"{type(program).__name__}.supports_edge_backends={declared!r}"
+                f" contains unknown backends {unknown!r}; allowed values are "
+                f"{allowed}")
+        if cfg.edge_backend in declared:
+            return cfg.edge_backend
+        return declared[0]
+    if program.sweep_spec is not None:
+        return cfg.edge_backend
+    raise ValueError(
+        f"{type(program).__name__} overrides sweep but does not declare "
+        "supports_edge_backends: a hand-rolled sweep must name the edge "
+        "backends it implements (e.g. supports_edge_backends = ('coo',))")
+
+
+def normalize_edge_backend(program: VertexProgram,
+                           cfg: EngineConfig) -> tuple:
+    """``(resolved backend, config rewritten to it)``."""
+    eb = resolve_edge_backend(program, cfg)
+    if eb != cfg.edge_backend:
+        cfg = dataclasses.replace(cfg, edge_backend=eb)
+    return eb, cfg
+
+
+def _tile_inputs(blk: TileBlock, vals: torch.Tensor, spec: SemiringSweep,
+                 v_max: int) -> tuple:
+    """The ``bsp_spmv`` arguments for the stacked [P, v_max, K] values:
+    every partition's tile list goes into ONE launch, its ids offset by
+    ``p * n_tiles_per_partition`` — each list is dst-major sorted, so the
+    concatenation is too, and no two partitions share a dst row. Returns
+    ``(tiles, tile_dst, tile_src, vals, n_dst_tiles)``."""
+    ident = tile_pad_identity(spec.semiring, numpy_dtype(vals.dtype)).item()
+    if not vals.dtype.is_floating_point:
+        # integer min_plus: pads are ADDED to values — clamp so that
+        # ident + ident cannot wrap (sound below 2**30)
+        vals = torch.clamp(vals, max=ident)
+    ndt = max(-(-v_max // TM), 1)
+    nst = max(-(-v_max // TN), 1)
+    P, _, K = vals.shape
+    t_max = blk.tiles.shape[1]
+    v = torch.full((P, nst * TN, K), ident, dtype=vals.dtype,
+                   device=vals.device)
+    v[:, :v_max] = vals
+    offs = torch.arange(P, dtype=torch.int32, device=vals.device)[:, None]
+    return (blk.tiles.reshape(P * t_max, TM, TN),
+            (blk.tile_dst + offs * ndt).reshape(-1),
+            (blk.tile_src + offs * nst).reshape(-1),
+            v.reshape(P * nst, TN, K), P * ndt)
+
+
+def _tile_product(blk: TileBlock, vals: torch.Tensor, spec: SemiringSweep,
+                  v_max: int) -> torch.Tensor:
+    """Semiring product of the stacked [P, v_max, K] values through one
+    ``bsp_spmv`` launch."""
+    P, _, K = vals.shape
+    tiles, td, ts, v, n_dst = _tile_inputs(blk, vals, spec, v_max)
+    out = bsp_spmv(tiles, td, ts, v, n_dst_tiles=n_dst,
+                   semiring=spec.semiring)
+    return out.reshape(P, -1, K)[:, :v_max]
+
+
+def _edge_messages(sg: DeviceSubgraph, spec: SemiringSweep,
+                   vals: torch.Tensor, esrc, ew) -> torch.Tensor:
+    """Per-edge semiring messages ``vals[src] (+|*) ev`` ([P, e_max, K];
+    padding edges are computed too — their buffer slot is dropped)."""
+    sv = sg.gather(vals, esrc)
+    if spec.edge_values == "weight":
+        ev = ew.to(vals.dtype)[..., None]
+        return sv + ev if spec.semiring == "min_plus" else sv * ev
+    if spec.edge_values == "zero":
+        return sv if spec.semiring == "min_plus" else torch.zeros_like(sv)
+    # 'one': * 1 is the identity, but + 1 is NOT — min_plus over unit edge
+    # values is hop counting; the COO product and the tile layouts add it
+    return sv + 1 if spec.semiring == "min_plus" else sv
+
+
+def _window_inputs(sg: DeviceSubgraph, blk: WindowBlock,
+                   vals: torch.Tensor, spec: SemiringSweep,
+                   v_max: int) -> tuple:
+    """The ``segment_combine_windowed`` arguments for the stacked
+    [P, v_max, K] values: the per-edge messages are copied into the
+    identity-filled block buffer at their slots (padding edges go to a dump
+    row past the end — the reference's ``mode="drop"`` scatter), and window
+    ids are offset by ``p * n_windows`` so ONE launch reduces all P
+    partitions. Returns ``(msgs, local_dst, block_window, n_windows)``."""
+    ident = combine_identity(spec.combiner, numpy_dtype(vals.dtype)).item()
+    nw = max(-(-v_max // W), 1)
+    msgs = _edge_messages(sg, spec, vals, sg.esrc, sg.ew)
+    P, _, K = vals.shape
+    n_buf = blk.ldst.shape[-1]
+    offs = torch.arange(P, dtype=torch.int64, device=vals.device)[:, None]
+    slot = torch.where(blk.eslot >= 0, blk.eslot.long() + offs * n_buf,
+                       P * n_buf)
+    buf = torch.full((P * n_buf + 1, K), ident, dtype=vals.dtype,
+                     device=vals.device)
+    buf.index_copy_(0, slot.reshape(-1), msgs.reshape(-1, K))
+    bwin = (blk.bwin + offs.to(torch.int32) * nw).reshape(-1)
+    return buf[:-1], blk.ldst.reshape(-1), bwin, P * nw
+
+
+def _window_product(sg: DeviceSubgraph, blk: WindowBlock,
+                    vals: torch.Tensor, spec: SemiringSweep,
+                    v_max: int) -> torch.Tensor:
+    """Semiring product of the stacked [P, v_max, K] values through one
+    ``segment_combine_windowed`` launch."""
+    P, _, K = vals.shape
+    msgs, ldst, bwin, nw = _window_inputs(sg, blk, vals, spec, v_max)
+    out = segment_combine_windowed(msgs, ldst, bwin, n_windows=nw,
+                                   combiner=spec.combiner)
+    return out.reshape(P, -1, K)[:, :v_max]
+
+
+def _layout_block_from(lay: EdgeLayouts, pg: PartitionedGraph,
+                       program: VertexProgram, edge_backend: str, device):
+    """Device layout tensors a kernel-backend runner takes as input."""
+    spec = program.sweep_spec
+    if edge_backend == "pallas_tiles":
+        if not np.issubdtype(numpy_dtype(program.dtype), np.floating) \
+                and pg.n_vertices >= 2**30:
+            raise ValueError(
+                "integer min_plus through the tile kernel clamps values to "
+                "iinfo.max >> 1 (kernels/ref.py tile_pad_identity); ids "
+                "must stay below 2**30")
+        return lay.device_tiles(pg, spec.semiring, spec.edge_values,
+                                program.dtype, device)
+    return lay.device_windows(device)
+
+
+def _state_where(live: torch.Tensor, new: dict, old: dict) -> dict:
+    """Per-partition select over a state dict: ``new`` where ``live``."""
+    out = {}
+    for k, b in new.items():
+        a = old[k]
+        out[k] = torch.where(live.reshape((-1,) + (1,) * (b.dim() - 1)),
+                             b, a)
+    return out
+
+
+def _batched_local_phase(program: VertexProgram, sgs: DeviceSubgraph,
+                         lay_blk, params, state, merged_v,
+                         ec: EdgeCombine, bound: int, first: bool,
+                         edge_backend: str):
+    """apply incoming -> sweep the whole stack to every partition's local
+    fixed point (or one hop). A partition whose fixed point is reached is
+    select-frozen while the others continue, giving the per-partition sweep
+    counts of the reference's vmapped ``_local_phase``. Returns
+    ``(state, out, sweeps [P], last_changed [P], host_syncs)``."""
+    if not first:       # superstep 0 has no incoming messages (Alg. 1)
+        state = program.apply_frontier(sgs, params, state, merged_v, ec)[0]
+    spec = program.sweep_spec
+    v_max = sgs.v_max
+
+    def sweep_all(st):
+        if edge_backend == "coo":
+            return program.sweep(sgs, params, st, ec)
+        vals = program.sweep_values(sgs, params, st)
+        squeeze = vals.dim() == 2
+        v = vals[..., None] if squeeze else vals
+        if edge_backend == "pallas_tiles":
+            agg = _tile_product(lay_blk, v, spec, v_max)
+        else:
+            agg = _window_product(sgs, lay_blk, v, spec, v_max)
+        agg = ec.min(agg) if spec.semiring == "min_plus" else ec.sum(agg)
+        if squeeze:
+            agg = agg[..., 0]
+        return program.sweep_fold(sgs, params, st, agg)
+
+    state, ch = sweep_all(state)
+    i = torch.ones(sgs.n_parts, dtype=torch.int32, device=sgs.device)
+    syncs = 0
+    while True:
+        live = (ch > 0) & (i < bound)
+        syncs += 1
+        if not bool(live.any()):
+            break
+        st2, ch2 = sweep_all(state)
+        state = _state_where(live, st2, state)
+        i = torch.where(live, i + 1, i)
+        ch = torch.where(live, ch2, ch)
+    out = program.frontier_out(sgs, params, state)
+    return state, out, i, ch, syncs
+
+
+def _warm_block(program: VertexProgram, pg: PartitionedGraph,
+                init_state) -> np.ndarray:
+    """Map a previous *global* converged result [n_vertices(, K)] into the
+    [P, v_max, K] local layout — combiner identity at padded rows, cast to
+    the program dtype on entry. Shorter arrays (the graph grew) are padded
+    with the identity."""
+    K = program.payload
+    ident = program.identity
+    dt = numpy_dtype(program.dtype)
+    warm = np.asarray(init_state)
+    if warm.ndim == 1:
+        warm = warm[:, None]
+    warm = warm.astype(dt, copy=False)
+    if warm.shape[0] < pg.n_vertices:
+        warm = np.concatenate(
+            [warm, np.full((pg.n_vertices - warm.shape[0], warm.shape[1]),
+                           ident, dtype=dt)])
+    wv = np.full((pg.n_parts, pg.v_max, K), ident, dtype=dt)
+    wv[pg.vmask] = warm[pg.gvid[pg.vmask]]
+    return wv
+
+
+def _flops_per_sweep(program: VertexProgram, edge_backend: str,
+                     pg: PartitionedGraph,
+                     lay: Optional[EdgeLayouts]) -> np.ndarray:
+    """[P] semiring ops one local sweep issues per partition: 2*K per
+    resident edge on COO, the dense tile/block work on the kernels."""
+    K = program.payload
+    if edge_backend == "coo" or lay is None:
+        return 2 * K * pg.edges_per_part.astype(np.int64)
+    return lay.flops_per_sweep(edge_backend, K)
+
+
+# --------------------------------------------------------------------------- #
+# Simulator backend
+# --------------------------------------------------------------------------- #
+def _make_sim_superstep(program: VertexProgram, cfg: EngineConfig,
+                        n_slots: int, edge_backend: str = "coo"):
+    """One BSP superstep over the stacked [P, ...] graph."""
+    ident = program.identity
+    ec = EdgeCombine(())
+    ex = sbs.SimExchange()
+
+    def superstep(sgs, lay, params, state, last_out, merged_buf, first):
+        merged_v = sbs.gather_merged(merged_buf, sgs.slot)
+        state, out, sweeps, last_ch, syncs = _batched_local_phase(
+            program, sgs, lay, params, state, merged_v, ec,
+            cfg.local_bound, first, edge_backend)
+        changed = program.changed_mask(out, last_out) & sgs.frontier
+        bufs = sbs.scatter_combine(out, sgs.slot, changed, n_slots,
+                                   program.combiner, ident)
+        merged_buf = ex.all_combine(bufs, program.combiner)
+        merged_buf[n_slots] = ident.item()
+        msgs = changed.sum(dtype=torch.int32)
+        active = (last_ch > 0).sum(dtype=torch.int32)
+        return state, out, merged_buf, msgs, active, sweeps, syncs
+
+    return superstep
+
+
+def make_sim_runner(program: VertexProgram, cfg: EngineConfig, n_slots: int,
+                    *, warm_start: bool = False,
+                    batch: bool = False) -> Callable:
+    """Build the simulator BSP loop
+
+        runner(sgs, lay, params, warm=None, on_step=None) ->
+            (results, supersteps, total_messages, sweeps_per_part,
+             host_syncs)
+
+    ``sgs`` is the stacked DeviceSubgraph, ``lay`` the device layout
+    (``TileBlock``/``WindowBlock``; None on ``coo``), ``warm``
+    (``warm_start=True``) a [P, v_max, K] previous-result tensor threaded
+    into ``program.warm_init``. ``on_step(msgs, active, sweeps)`` is called
+    after every superstep (trace mode). ``results`` stays on the device;
+    the counts are host ints (``sweeps_per_part`` a [P] int64 array)."""
+    if batch:
+        raise NotImplementedError(
+            "batched runners are not ported yet (ROADMAP Queue 1: "
+            "serving/batching)")
+    edge_backend = resolve_edge_backend(program, cfg)
+    _check_supported(cfg, edge_backend)
+    K = program.payload
+    ident = program.identity.item()
+    ec = EdgeCombine(())
+    superstep = _make_sim_superstep(program, cfg, n_slots, edge_backend)
+
+    def runner(sgs: DeviceSubgraph, lay, params, warm=None,
+               on_step: Optional[Callable] = None):
+        if (warm is not None) != warm_start:
+            raise ValueError(f"this runner was built with warm_start="
+                             f"{warm_start}; pass warm accordingly")
+        dev = sgs.device
+        dt = program.torch_dtype
+        state = program.init(sgs, params, ec)
+        if warm_start:
+            state = program.warm_init(sgs, params, state, warm)
+        last_out = torch.full((sgs.n_parts, sgs.v_max, K), ident, dtype=dt,
+                              device=dev)
+        merged_buf = torch.full((n_slots + 1, K), ident, dtype=dt,
+                                device=dev)
+        step = tot_msgs = syncs = 0
+        tot_sweeps = torch.zeros(sgs.n_parts, dtype=torch.int32, device=dev)
+        msgs = active = 1
+        while step == 0 or ((msgs > 0 or active > 0)
+                            and step < cfg.max_supersteps):
+            state, last_out, merged_buf, m, a, sweeps, s = superstep(
+                sgs, lay, params, state, last_out, merged_buf, step == 0)
+            tot_sweeps += sweeps
+            msgs, active = torch.stack([m, a]).tolist()
+            syncs += s + 1
+            tot_msgs += msgs
+            step += 1
+            if on_step is not None:
+                on_step(msgs, active, sweeps.cpu().numpy())
+        results = program.result(sgs, params, state)
+        return (results, step, tot_msgs,
+                tot_sweeps.cpu().numpy().astype(np.int64), syncs)
+
+    return runner
+
+
+def run_sim(program: VertexProgram, pg: PartitionedGraph, params=None,
+            cfg: EngineConfig = EngineConfig(), *, init_state=None,
+            resume_from=None, device: DeviceLike = None):
+    """One-shot simulator job: upload ``pg`` to ``device``, build the
+    runner, execute. Returns ``(numpy results [P, v_max(, K)],
+    ExecutionStats)``.
+
+    ``init_state``: global per-vertex values [n_vertices(, K)] from a
+    previous converged run — a warm start, used only for monotone programs
+    (non-monotone programs such as PageRank start cold). ``cfg.trace``
+    fills the per-superstep lists of the stats."""
+    if resume_from is not None:
+        raise NotImplementedError(
+            "checkpoint resume is not ported yet (ROADMAP Queue 1: "
+            "streaming and session mutation)")
+    dev = resolve_device(device)
+    edge_backend = resolve_edge_backend(program, cfg)
+    _check_supported(cfg, edge_backend)
+    sgs = _device_subgraph(pg, dev)
+    n_slots, K = pg.n_slots, program.payload
+    warm = init_state is not None and program.monotone
+    lay = lay_blk = None
+    if edge_backend != "coo":
+        lay = pg.ensure_edge_layouts()
+        lay_blk = _layout_block_from(lay, pg, program, edge_backend, dev)
+
+    stats = ExecutionStats(edge_backend=edge_backend)
+    epp_host = pg.edges_per_part.astype(np.int64)
+    flops_pp = _flops_per_sweep(program, edge_backend, pg, lay)
+    if edge_backend == "pallas_tiles":
+        spec = program.sweep_spec
+        stats.tile_density = lay.density(pg, spec.semiring, spec.edge_values,
+                                         program.dtype)
+        stats.partition_tile_density = list(lay.partition_density(
+            pg, spec.semiring, spec.edge_values, program.dtype))
+    itemsize = numpy_dtype(program.dtype).itemsize
+    step_bytes = (n_slots + 1) * K * itemsize * pg.n_parts
+
+    def on_step(msgs, active, sweeps):
+        stats.messages_per_step.append(msgs)
+        stats.active_parts_per_step.append(active)
+
+    runner = make_sim_runner(program, cfg, n_slots, warm_start=warm)
+    wblk = None
+    if warm:
+        wblk = torch.from_numpy(_warm_block(program, pg, init_state)).to(dev)
+    t0 = time.perf_counter()
+    results, steps, tot_msgs, sweeps_h, syncs = runner(
+        sgs, lay_blk, params, wblk, on_step=on_step if cfg.trace else None)
+    results = results.cpu().numpy()
+    stats.wall_time = time.perf_counter() - t0
+    stats.supersteps = steps
+    stats.total_messages = tot_msgs
+    stats.host_syncs = syncs
+    stats.processed_edges = int((sweeps_h * epp_host).sum())
+    stats.backend_flops = int((sweeps_h * flops_pp).sum())
+    stats.total_bytes = steps * step_bytes
+    return results, stats
+
+
+def run(program: VertexProgram, pg: PartitionedGraph, params=None,
+        cfg: EngineConfig = EngineConfig(), mesh: Any = None, *,
+        init_state=None, resume_from=None, device: DeviceLike = None):
+    """Dispatch on ``cfg.backend``; only the simulator is ported."""
+    if cfg.backend != "sim":
+        raise NotImplementedError(_SHARD_MAP_TODO)
+    return run_sim(program, pg, params, cfg, init_state=init_state,
+                   resume_from=resume_from, device=device)

@@ -1,0 +1,335 @@
+"""Engine-facing edge-compute layouts: stacked [P, ...] tile/window
+decompositions of a ``PartitionedGraph``'s per-partition adjacencies,
+feeding the CUDA semiring kernels (``repro_torch.kernels``) from inside the
+BSP sweep.
+
+  - **stacked + padded** — per-partition quantities are padded to a shared
+    capacity (``t_max`` tiles, ``b_max`` edge blocks), so the simulator
+    flattens all P partitions into a single kernel launch (tile/window ids
+    offset by ``p * n_dst_tiles``). Padding tiles hold the semiring identity
+    and point at the last dst tile (keeping the dst-major sort); padding
+    blocks point at the last window.
+  - **program-independent geometry, per-program realization** — the
+    edge -> tile/slot assignment depends only on the graph and is built
+    once; dense tile *values* depend on the program's ``SemiringSweep``
+    (semiring x edge-value map x dtype) and are realized lazily per key.
+    Window layouts bake no values (messages are computed in the sweep).
+  - **ShapePolicy-bucketed capacities** — ``t_max``/``b_max`` land on the
+    policy's buckets, as ``v_max``/``e_max`` do.
+
+Layout invariants the kernels rely on: tile lists are (dst, src)-sorted per
+partition with every dst tile row covered at least once; ``bwin`` is
+ascending and covers every window; padded edge slots are ``-1``; values at
+padded positions are the semiring/combiner identity. Host arrays are
+bit-identical to the JAX package's layouts.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.bsp_spmv import TM, TN
+from repro_torch.kernels.ref import tile_pad_identity
+from repro_torch.kernels.segment_combine import W
+
+__all__ = ["EdgeLayouts", "TileBlock", "WindowBlock", "build_edge_layouts",
+           "EDGE_VALUE_KINDS"]
+
+EDGE_VALUE_KINDS = ("weight", "zero", "one")
+DEFAULT_BLOCK_EDGES = 512
+
+
+class TileBlock(NamedTuple):
+    """Device tensors for the ``pallas_tiles`` backend (stacked [P, ...])."""
+    tiles: torch.Tensor      # [P, t_max, TM, TN] program dtype
+    tile_dst: torch.Tensor   # [P, t_max] int32, partition-local dst tile ids
+    tile_src: torch.Tensor   # [P, t_max] int32
+
+
+class WindowBlock(NamedTuple):
+    """Device tensors for the ``pallas_windows`` backend (stacked [P, ...])."""
+    eslot: torch.Tensor      # [P, e_max] int32 buffer slot per edge (-1 pad)
+    ldst: torch.Tensor       # [P, b_max*Be] int32 dst row within the window
+    bwin: torch.Tensor       # [P, b_max] int32 window id per block
+
+
+def _edge_values(kind: str, ew: np.ndarray, dtype) -> np.ndarray:
+    """What each edge contributes to the semiring product (SSSP relaxes by
+    the weight, CC propagates over 0-weight edges, PageRank pushes
+    unweighted)."""
+    if kind == "weight":
+        return ew.astype(dtype)
+    if kind == "zero":
+        return np.zeros(ew.shape[0], dtype)
+    if kind == "one":
+        return np.ones(ew.shape[0], dtype)
+    raise ValueError(f"unknown edge-value kind {kind!r}; "
+                     f"expected one of {EDGE_VALUE_KINDS}")
+
+
+def _tile_geometry(ls, ld, ndt: int, nst: int):
+    """(local src, local dst) -> (tile_dst, tile_src, edge_tile, r, c).
+
+    Tile list sorted (dst, src)-major with identity fillers covering every
+    dst tile row; ``edge_tile[e]`` indexes the final sorted list."""
+    key = (ld.astype(np.int64) // TM) * nst + (ls.astype(np.int64) // TN)
+    uniq = np.unique(key)
+    covered = np.zeros(ndt, bool)
+    covered[(uniq // nst).astype(np.int64)] = True
+    missing = np.nonzero(~covered)[0]
+    T = uniq.shape[0] + missing.shape[0]
+
+    tile_dst = np.zeros(T, np.int32)
+    tile_src = np.zeros(T, np.int32)
+    tile_dst[:uniq.shape[0]] = (uniq // nst).astype(np.int32)
+    tile_src[:uniq.shape[0]] = (uniq % nst).astype(np.int32)
+    tile_dst[uniq.shape[0]:] = missing.astype(np.int32)
+
+    final = np.lexsort((tile_src, tile_dst))
+    inv = np.empty(T, np.int64)
+    inv[final] = np.arange(T)
+    edge_tile = inv[np.searchsorted(uniq, key)].astype(np.int32)
+    return (tile_dst[final], tile_src[final], edge_tile,
+            (ld % TM).astype(np.int32), (ls % TN).astype(np.int32))
+
+
+def _window_geometry(ld, nw: int, Be: int):
+    """Ascending-dst local edges -> (eslot, ldst, bwin, n_blocks)."""
+    win = ld.astype(np.int64) // W
+    counts = np.bincount(win, minlength=nw)
+    blocks = np.maximum(-(-counts // Be), 1)          # >= 1 block per window
+    n_blocks = int(blocks.sum())
+    bwin = np.repeat(np.arange(nw, dtype=np.int32), blocks)
+    woff = np.concatenate([[0], np.cumsum(blocks)])[:-1] * Be
+    estart = np.concatenate([[0], np.cumsum(counts)])[:-1]
+    eslot = (woff[win] + (np.arange(ld.shape[0]) - estart[win])).astype(
+        np.int32)
+    ldst = np.zeros(n_blocks * Be, np.int32)
+    ldst[eslot] = (ld % W).astype(np.int32)
+    return eslot, ldst, bwin, n_blocks
+
+
+@dataclasses.dataclass
+class EdgeLayouts:
+    """Host-side stacked layout state attached to a ``PartitionedGraph``
+    (``PartitionedGraph.ensure_edge_layouts``). All arrays are numpy; the
+    ``device_tiles``/``device_windows`` accessors return cached tensors on
+    the requested device."""
+
+    n_parts: int
+    v_max: int
+    e_max: int
+    t_max: int                    # padded tiles per partition (bucketed)
+    b_max: int                    # padded edge blocks per partition
+    block_edges: int
+    policy: object                # ShapePolicy governing t_max/b_max
+
+    tile_dst: np.ndarray          # [P, t_max] int32
+    tile_src: np.ndarray          # [P, t_max] int32
+    n_tiles: np.ndarray           # [P] int64 real (content) tiles
+    edge_tile: np.ndarray         # [P, e_max] int32 (-1 = padding edge)
+    edge_r: np.ndarray            # [P, e_max] int32 row within tile
+    edge_c: np.ndarray            # [P, e_max] int32 col within tile
+    eslot: np.ndarray             # [P, e_max] int32 (-1 = padding edge)
+    ldst: np.ndarray              # [P, b_max*Be] int32
+    bwin: np.ndarray              # [P, b_max] int32
+    n_blocks: np.ndarray          # [P] int64 real blocks
+
+    _tiles: Dict[Tuple, np.ndarray] = dataclasses.field(default_factory=dict)
+    _filled: Dict[Tuple, np.ndarray] = dataclasses.field(
+        default_factory=dict)             # [P] non-identity entries per part
+    _density: Dict[Tuple, float] = dataclasses.field(default_factory=dict)
+    _device: Dict[Tuple, object] = dataclasses.field(default_factory=dict)
+
+    @property
+    def n_dst_tiles(self) -> int:
+        return max(-(-self.v_max // TM), 1)
+
+    @property
+    def n_src_tiles(self) -> int:
+        return max(-(-self.v_max // TN), 1)
+
+    @property
+    def n_windows(self) -> int:
+        return max(-(-self.v_max // W), 1)
+
+    def shape_key(self, backend: str) -> tuple:
+        """What a runner is additionally specialized to on a kernel
+        backend — joins the session's padded-shape key."""
+        if backend == "pallas_tiles":
+            return ("tiles", self.t_max, self.n_dst_tiles, self.n_src_tiles)
+        return ("windows", self.b_max, self.block_edges, self.n_windows)
+
+    # ------------------------------------------------------------------ #
+    # realization: dense tile values per (semiring, edge-value map, dtype)
+    # ------------------------------------------------------------------ #
+    def _realize_tiles(self, pg, key):
+        semiring, kind, dtype_str = key
+        dtype = np.dtype(dtype_str)
+        ident = tile_pad_identity(semiring, dtype)
+        tiles = np.full((self.n_parts, self.t_max, TM, TN), ident, dtype)
+        filled = np.zeros(self.n_parts, np.int64)
+        for p in range(self.n_parts):
+            valid = self.edge_tile[p] >= 0
+            vals = _edge_values(kind, pg.ew[p][valid], dtype)
+            idx = (self.edge_tile[p][valid], self.edge_r[p][valid],
+                   self.edge_c[p][valid])
+            if semiring == "plus_times":
+                np.add.at(tiles[p], idx, vals)
+            else:
+                np.minimum.at(tiles[p], idx, vals)
+            filled[p] = int((tiles[p] != ident).sum())
+        self._tiles[key] = tiles
+        self._filled[key] = filled
+        self._density[key] = int(filled.sum()) / max(
+            int(self.n_tiles.sum()) * TM * TN, 1)
+        return tiles
+
+    def tile_values(self, pg, semiring: str, kind: str, dtype) -> np.ndarray:
+        key = (semiring, kind, np.dtype(dtype).str)
+        if key not in self._tiles:
+            self._realize_tiles(pg, key)
+        return self._tiles[key]
+
+    def density(self, pg, semiring: str, kind: str, dtype) -> float:
+        """Fraction of non-identity entries across the real tiles."""
+        key = (semiring, kind, np.dtype(dtype).str)
+        if key not in self._density:
+            self._realize_tiles(pg, key)
+        return self._density[key]
+
+    def partition_density(self, pg, semiring: str, kind: str,
+                          dtype) -> np.ndarray:
+        """[P] per-partition tile density."""
+        key = (semiring, kind, np.dtype(dtype).str)
+        if key not in self._filled:
+            self._realize_tiles(pg, key)
+        denom = np.maximum(self.n_tiles * (TM * TN), 1).astype(np.float64)
+        return self._filled[key].astype(np.float64) / denom
+
+    # ------------------------------------------------------------------ #
+    # device tensors (cached per device)
+    # ------------------------------------------------------------------ #
+    def device_tiles(self, pg, semiring: str, kind: str, dtype,
+                     device) -> TileBlock:
+        dev = torch.device(device)
+        key = ("tiles", semiring, kind, np.dtype(dtype).str, str(dev))
+        blk = self._device.get(key)
+        if blk is None:
+            vals = self.tile_values(pg, semiring, kind, dtype)
+            blk = TileBlock(tiles=torch.from_numpy(vals).to(dev),
+                            tile_dst=torch.from_numpy(self.tile_dst).to(dev),
+                            tile_src=torch.from_numpy(self.tile_src).to(dev))
+            self._device[key] = blk
+        return blk
+
+    def device_windows(self, device) -> WindowBlock:
+        dev = torch.device(device)
+        key = ("windows", str(dev))
+        blk = self._device.get(key)
+        if blk is None:
+            blk = WindowBlock(eslot=torch.from_numpy(self.eslot).to(dev),
+                              ldst=torch.from_numpy(self.ldst).to(dev),
+                              bwin=torch.from_numpy(self.bwin).to(dev))
+            self._device[key] = blk
+        return blk
+
+    # ------------------------------------------------------------------ #
+    # accounting
+    # ------------------------------------------------------------------ #
+    def flops_per_sweep(self, backend: str, K: int) -> np.ndarray:
+        """[P] semiring ops one local sweep costs per partition: the dense
+        work the kernels issue, identity padding inside real tiles/blocks
+        included."""
+        if backend == "pallas_tiles":
+            return (self.n_tiles * (2 * TM * TN * K)).astype(np.int64)
+        return (self.n_blocks * (2 * W * self.block_edges * K)).astype(
+            np.int64)
+
+    # ------------------------------------------------------------------ #
+    # build
+    # ------------------------------------------------------------------ #
+    def _build_partition(self, pg, p: int):
+        """Compute partition ``p``'s geometry rows (caps must fit)."""
+        m = pg.emask[p]
+        ls, ld = pg.esrc[p][m], pg.edst[p][m]
+        ne = ls.shape[0]
+        ndt, nst, nw = self.n_dst_tiles, self.n_src_tiles, self.n_windows
+        td, ts, et, er, ec = _tile_geometry(ls, ld, ndt, nst)
+        T = td.shape[0]
+        self.tile_dst[p] = ndt - 1       # padding tiles: last dst row
+        self.tile_src[p] = nst - 1
+        self.tile_dst[p, :T] = td
+        self.tile_src[p, :T] = ts
+        self.n_tiles[p] = T
+        self.edge_tile[p] = -1
+        self.edge_r[p] = 0
+        self.edge_c[p] = 0
+        self.edge_tile[p, :ne] = et
+        self.edge_r[p, :ne] = er
+        self.edge_c[p, :ne] = ec
+
+        es, ldst, bw, nb = _window_geometry(ld, nw, self.block_edges)
+        self.eslot[p] = -1
+        self.eslot[p, :ne] = es
+        self.ldst[p] = 0
+        self.ldst[p, :ldst.shape[0]] = ldst
+        self.bwin[p] = nw - 1            # padding blocks: last window
+        self.bwin[p, :nb] = bw
+        self.n_blocks[p] = nb
+
+    def _partition_caps(self, pg, p: int) -> Tuple[int, int]:
+        """(tiles, blocks) partition ``p`` needs at the current shapes."""
+        m = pg.emask[p]
+        ls, ld = pg.esrc[p][m], pg.edst[p][m]
+        nst, nw = self.n_src_tiles, self.n_windows
+        key = (ld.astype(np.int64) // TM) * nst + (ls.astype(np.int64) // TN)
+        uniq = np.unique(key)
+        covered = np.zeros(self.n_dst_tiles, bool)
+        covered[(uniq // nst).astype(np.int64)] = True
+        T = uniq.shape[0] + int((~covered).sum())
+        counts = np.bincount(ld.astype(np.int64) // W, minlength=nw)
+        B = int(np.maximum(-(-counts // self.block_edges), 1).sum())
+        return T, B
+
+    def matches(self, pg) -> bool:
+        """False when the graph's padded shapes moved since the build."""
+        return (self.n_parts == pg.n_parts and self.v_max == pg.v_max
+                and self.e_max == pg.e_max)
+
+
+def build_edge_layouts(pg, policy,
+                       block_edges: int = DEFAULT_BLOCK_EDGES) -> EdgeLayouts:
+    """Full build for all partitions of ``pg``; capacities land on
+    ``policy`` buckets."""
+    P, v_max, e_max = pg.n_parts, pg.v_max, pg.e_max
+    lay = EdgeLayouts(
+        n_parts=P, v_max=v_max, e_max=e_max, t_max=0, b_max=0,
+        block_edges=int(block_edges), policy=policy,
+        tile_dst=np.zeros((P, 0), np.int32),
+        tile_src=np.zeros((P, 0), np.int32),
+        n_tiles=np.zeros(P, np.int64),
+        edge_tile=np.full((P, e_max), -1, np.int32),
+        edge_r=np.zeros((P, e_max), np.int32),
+        edge_c=np.zeros((P, e_max), np.int32),
+        eslot=np.full((P, e_max), -1, np.int32),
+        ldst=np.zeros((P, 0), np.int32),
+        bwin=np.zeros((P, 0), np.int32),
+        n_blocks=np.zeros(P, np.int64),
+    )
+    need_t = need_b = 1
+    for p in range(P):
+        t, b = lay._partition_caps(pg, p)
+        need_t, need_b = max(need_t, t), max(need_b, b)
+    lay.t_max = policy.bucket(need_t)
+    lay.b_max = policy.bucket(need_b)
+    lay.tile_dst = np.full((P, lay.t_max), lay.n_dst_tiles - 1, np.int32)
+    lay.tile_src = np.full((P, lay.t_max), lay.n_src_tiles - 1, np.int32)
+    lay.bwin = np.full((P, lay.b_max), lay.n_windows - 1, np.int32)
+    lay.ldst = np.zeros((P, lay.b_max * lay.block_edges), np.int32)
+    for p in range(P):
+        lay._build_partition(pg, p)
+    return lay

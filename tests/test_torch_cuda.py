@@ -1,0 +1,120 @@
+"""On-card checks of the CUDA kernels and the port's main path. They need
+a CUDA GPU and ``nvcc`` and skip without them; on the card run
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.algos import SSSP, ConnectedComponents, PageRank
+from repro_torch.core import EngineConfig
+from repro_torch.graphgen import kronecker_graph
+from repro_torch.kernels import bsp_spmv as tb
+from repro_torch.kernels import segment_combine as ts
+from repro_torch.kernels.ops import WindowLayout
+from repro_torch.kernels.ref import combine_identity, tile_pad_identity
+from repro_torch.session import GraphSession
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from repro_torch.kernels import _build
+    try:
+        _build._nvcc()
+    except RuntimeError:
+        if not all(_build.library_path(n).exists() for n in _build.SOURCES):
+            pytest.skip("needs nvcc to build the kernels")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("semiring,dtype", [("plus_times", np.float32),
+                                            ("min_plus", np.float32),
+                                            ("min_plus", np.int32)])
+@pytest.mark.parametrize("T,n_dst,n_src,K", [(4, 2, 2, 1), (40, 8, 5, 3),
+                                             (5, 5, 1, 128)])
+def test_bsp_spmv_kernel_matches_plain(cuda, semiring, dtype, T, n_dst,
+                                       n_src, K):
+    rng = np.random.default_rng(T + K)
+    tiles = np.full((T, 128, 128), tile_pad_identity(semiring, dtype), dtype)
+    mask = rng.random(tiles.shape) < 0.2
+    tiles[mask] = rng.integers(0, 50, size=int(mask.sum()))
+    td = np.sort(np.concatenate([np.arange(n_dst), rng.integers(
+        0, n_dst, size=T - n_dst)]).astype(np.int32))
+    tsrc = rng.integers(0, n_src, size=T).astype(np.int32)
+    vals = rng.integers(0, 1000, size=(n_src, 128, K)).astype(dtype)
+    args = [torch.from_numpy(a).to(cuda) for a in (tiles, td, tsrc, vals)]
+    before = tb.bsp_spmv.launches
+    got = tb.bsp_spmv(*args, n_dst_tiles=n_dst, semiring=semiring)
+    want = tb.bsp_spmv_plain(*args, n_dst_tiles=n_dst, semiring=semiring)
+    torch.cuda.synchronize()
+    assert tb.bsp_spmv.launches == before + 1
+    if semiring == "min_plus":
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("combiner,dtype", [("sum", np.float32),
+                                            ("min", np.float32),
+                                            ("max", np.int32)])
+@pytest.mark.parametrize("E,n_rows,K,Be", [(3000, 500, 8, 512),
+                                           (50, 400, 1, 128),
+                                           (5000, 300, 2, 1024)])
+def test_segment_combine_kernel_matches_plain(cuda, combiner, dtype, E,
+                                              n_rows, K, Be):
+    rng = np.random.default_rng(E + K)
+    dst = np.sort(rng.integers(0, n_rows, size=E))
+    msgs = rng.integers(-50, 50, size=(E, K)).astype(dtype)
+    lay = WindowLayout(dst, n_rows, block_edges=Be)
+    buf = np.full((lay.n_blocks * Be, K), combine_identity(combiner, dtype),
+                  dtype)
+    buf[lay.edge_slot] = msgs[lay.order]
+    args = [torch.from_numpy(a).to(cuda)
+            for a in (buf, lay.local_dst, lay.block_window)]
+    before = ts.segment_combine_windowed.launches
+    got = ts.segment_combine_windowed(*args, n_windows=lay.n_windows,
+                                      combiner=combiner)
+    want = ts.segment_combine_plain(*args, n_windows=lay.n_windows,
+                                    combiner=combiner)
+    torch.cuda.synchronize()
+    assert ts.segment_combine_windowed.launches == before + 1
+    if combiner == "sum":
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        assert torch.equal(got, want)
+
+
+def test_non_contiguous_input_raises(cuda):
+    vals = torch.zeros((1, 128, 2), device=cuda)[..., :1]
+    with pytest.raises(ValueError, match="contiguous"):
+        tb.bsp_spmv(torch.zeros((1, 128, 128), device=cuda),
+                    torch.zeros(1, dtype=torch.int32, device=cuda),
+                    torch.zeros(1, dtype=torch.int32, device=cuda), vals,
+                    n_dst_tiles=1)
+
+
+@pytest.mark.parametrize("eb", ["coo", "pallas_tiles", "pallas_windows"])
+def test_session_query_on_card_matches_cpu(cuda, eb):
+    g = kronecker_graph(11, seed=7, weighted=True)
+    on_card = GraphSession.from_graph(g, 8)
+    on_cpu = GraphSession.from_graph(g, 8, device="cpu")
+    counters = (tb.bsp_spmv.launches, ts.segment_combine_windowed.launches)
+    for prog, params in ((SSSP(), {"source": 1}),
+                         (ConnectedComponents(), None),
+                         (PageRank(), {"n_vertices": g.n_vertices})):
+        got, gst = on_card.query(prog, params,
+                                 cfg=EngineConfig(edge_backend=eb))
+        want, wst = on_cpu.query(prog, params, cfg=EngineConfig())
+        if prog.delta_based:
+            assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+        else:
+            np.testing.assert_array_equal(got, want)
+            assert gst.supersteps == wst.supersteps
+    after = (tb.bsp_spmv.launches, ts.segment_combine_windowed.launches)
+    assert (after[0] > counters[0]) == (eb == "pallas_tiles")
+    assert (after[1] > counters[1]) == (eb == "pallas_windows")

@@ -1,0 +1,86 @@
+"""The port stands alone: importing it loads neither JAX nor the JAX
+package, no source file imports them, and entry points refuse to fall back
+to the CPU silently."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+
+def test_import_leaves_jax_and_reference_out():
+    code = ("import sys, repro_torch, repro_torch.session, "
+            "repro_torch.interop, repro_torch.kernels.ops, repro_torch.algos;"
+            "bad = [m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'repro' or "
+            "m.startswith('repro.')]; print(bad); assert not bad, bad")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr + out.stdout
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(PORT)))
+def test_no_jax_or_reference_import(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for n in names:
+            assert n.split(".")[0] not in ("jax", "jaxlib", "repro"), \
+                f"{path}: imports {n}"
+
+
+def test_entry_points_refuse_missing_gpu(monkeypatch):
+    from repro_torch.core import EngineConfig, partition_and_build, run_sim
+    from repro_torch.algos import SSSP
+    from repro_torch.device import resolve_device
+    from repro_torch.graphgen import ring_graph
+    from repro_torch.kernels.ops import spmv
+    from repro_torch.session import GraphSession
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    g = ring_graph(64)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        GraphSession.from_graph(g, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_sim(SSSP(), partition_and_build(g, 2), {"source": 0},
+                EngineConfig())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        spmv(g.src, g.dst, g.weights, [[1.0]] * 64, 64)
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_unported_paths_raise_not_implemented():
+    from repro_torch.algos import SSSP
+    from repro_torch.core import EngineConfig, partition_and_build, run_sim
+    from repro_torch.graphgen import ring_graph
+    from repro_torch.session import GraphSession
+
+    g = ring_graph(64)
+    pg = partition_and_build(g, 2)
+    for cfg in (EngineConfig(backend="shard_map"),
+                EngineConfig(edge_backend="auto")):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            run_sim(SSSP(), pg, {"source": 0}, cfg, device="cpu")
+    sess = GraphSession.from_graph(g, 2, device="cpu")
+    for call in (lambda: sess.update(adds=([0], [1])), sess.flush,
+                 sess.compact, sess.rebalance,
+                 lambda: sess.query_batch(SSSP(), [{"source": 0}]),
+                 lambda: sess.query(SSSP(), {"source": 0},
+                                    cfg=EngineConfig(edge_backend="auto"))):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            call()
