@@ -9,9 +9,12 @@ Phases (the run exits non-zero if any of them fails):
      ``src/repro_torch/csrc`` in parallel; ptxas' register and spill report
      is printed.
   2. Each kernel against its plain PyTorch version on the card, on the case
-     grid of the kernel tests: bit-exact for min/max; for sums, each
-     output within 1e-5 of the same sum taken over the inputs' absolute
-     values (the scale of a reordered float sum's rounding).
+     grid of the kernel tests and on heavy rows (a window of 2,100 blocks,
+     2,000 identity padding blocks on one window, windows whose block ends
+     in identity slots with ldst 0, unsorted rows, a dst row of 1,100
+     tiles): bit-exact for min/max; for sums, each output within 1e-5 of
+     the same sum taken over the inputs' absolute values (the scale of a
+     reordered float sum's rounding), and two launches give the same bits.
   3. The windows path at full size: ``GraphSession.from_graph(
      kronecker_graph(20, seed=7), 16, "cdbh")``; SSSP from two sources and
      a warm repeat, CC and PageRank on ``pallas_windows``, each held against
@@ -19,12 +22,18 @@ Phases (the run exits non-zero if any of them fails):
   4. The tiles path: ``grid_graph(1024, weighted=True, seed=9)`` with the
      ``range`` vertex-cut (P=16), SSSP, CC and PageRank on ``pallas_tiles``
      against ``coo``; then the quickstart graph (``kronecker_graph(14)``,
-     ``cdbh``, P=16) on ``pallas_tiles``.
+     ``cdbh``, P=16) on ``pallas_tiles``. SSSP and CC must also take the
+     supersteps and host syncs of ``coo``; the peak device memory of each
+     path is printed.
   5. Kernel confirmation: both kernels' launch counters, reset just before
      phase 3 and read just after phase 4, must be positive. Each kernel is
      then checked and timed against its plain version at the
-     shapes phases 3 and 4 gave it, beside its bound on the card and, where
-     one PyTorch call computes the same function, that call's time.
+     shapes phases 3 and 4 gave it (the compact device lists), beside its
+     bound on the card and, where one PyTorch call computes the same
+     function, that call's time; and timed again on the padded JAX-layout
+     input, where every padding block / tile sits on a partition's last
+     window / dst row. ``bsp_spmv`` plus_times is also timed at the grid
+     PageRank shape beside ``torch.sparse.mm`` of a BSR matrix.
 
 A small-graph check holds the three programs against independent numpy
 oracles on all three backends. The line before the last is the card's name
@@ -135,8 +144,6 @@ def segment_magnitude(msgs, ldst, bwin, nw, combiner):
 def kernel_case_grid(sm: Smoke, errs: dict) -> None:
     import numpy as np
     import torch
-    from repro_torch.kernels import bsp_spmv as bk
-    from repro_torch.kernels import segment_combine as sk
     from repro_torch.kernels.ops import WindowLayout
     from repro_torch.kernels.ref import combine_identity, tile_pad_identity
 
@@ -168,15 +175,8 @@ def kernel_case_grid(sm: Smoke, errs: dict) -> None:
             else:
                 vals = rng.uniform(0, 3, size=(nst, 128, K)).astype(dtype)
             args = [torch.from_numpy(a).to(dev) for a in (tiles, td, ts, vals)]
-            got = bk.bsp_spmv(*args, n_dst_tiles=ndt, semiring=semiring)
-            want = bk.bsp_spmv_plain(*args, n_dst_tiles=ndt,
-                                     semiring=semiring)
-            torch.cuda.synchronize()
-            ok, err = compare(got, want, spmv_magnitude(
-                *args, ndt, semiring))
-            errs["bsp_spmv"] = max(errs["bsp_spmv"], err)
-            sm.check(ok, f"bsp_spmv {semiring} {np.dtype(dtype).name} "
-                         f"T={T} K={K} vs plain (max err {err:.3g})")
+            check_spmv(sm, errs, args, ndt, semiring,
+                       f"T={T} K={K}")
 
     seg_cases = [(100, 64, 1, 128), (1000, 300, 4, 256), (3000, 500, 8, 512),
                  (50, 400, 1, 128)]
@@ -196,16 +196,123 @@ def kernel_case_grid(sm: Smoke, errs: dict) -> None:
             buf[lay.edge_slot] = msgs[lay.order]
             args = [torch.from_numpy(a).to(dev)
                     for a in (buf, lay.local_dst, lay.block_window)]
-            got = sk.segment_combine_windowed(*args, n_windows=lay.n_windows,
-                                              combiner=combiner)
-            want = sk.segment_combine_plain(*args, n_windows=lay.n_windows,
-                                            combiner=combiner)
-            torch.cuda.synchronize()
-            ok, err = compare(got, want, segment_magnitude(
-                *args, lay.n_windows, combiner))
-            errs["segment_combine"] = max(errs["segment_combine"], err)
-            sm.check(ok, f"segment_combine {combiner} {np.dtype(dtype).name} "
-                         f"E={E} K={K} Be={Be} vs plain (max err {err:.3g})")
+            check_segment(sm, errs, args, lay.n_windows, combiner,
+                          f"E={E} K={K} Be={Be}")
+    heavy_case_grid(sm, errs)
+
+
+def check_spmv(sm: Smoke, errs: dict, args, ndt: int, semiring: str,
+               what: str) -> None:
+    """bsp_spmv against its plain version on the card; a plus_times sum
+    must also give the same bits on a second launch."""
+    import torch
+    from repro_torch.kernels import bsp_spmv as bk
+    got = bk.bsp_spmv(*args, n_dst_tiles=ndt, semiring=semiring)
+    want = bk.bsp_spmv_plain(*args, n_dst_tiles=ndt, semiring=semiring)
+    again = bk.bsp_spmv(*args, n_dst_tiles=ndt, semiring=semiring)
+    torch.cuda.synchronize()
+    ok, err = compare(got, want, spmv_magnitude(*args, ndt, semiring))
+    errs["bsp_spmv"] = max(errs["bsp_spmv"], err)
+    dt = str(args[0].dtype).replace("torch.", "")
+    sm.check(ok, f"bsp_spmv {semiring} {dt} {what} vs plain (max err "
+                 f"{err:.3g})")
+    if semiring == "plus_times":
+        sm.check(torch.equal(got, again), f"bsp_spmv {semiring} {dt} "
+                                          f"{what}: two launches, same bits")
+
+
+def check_segment(sm: Smoke, errs: dict, args, nw: int, combiner: str,
+                  what: str) -> None:
+    """segment_combine against its plain version on the card; a sum must
+    also give the same bits on a second launch."""
+    import torch
+    from repro_torch.kernels import segment_combine as sk
+    got = sk.segment_combine_windowed(*args, n_windows=nw, combiner=combiner)
+    want = sk.segment_combine_plain(*args, n_windows=nw, combiner=combiner)
+    again = sk.segment_combine_windowed(*args, n_windows=nw,
+                                        combiner=combiner)
+    torch.cuda.synchronize()
+    ok, err = compare(got, want, segment_magnitude(*args, nw, combiner))
+    errs["segment_combine"] = max(errs["segment_combine"], err)
+    dt = str(args[0].dtype).replace("torch.", "")
+    sm.check(ok, f"segment_combine {combiner} {dt} {what} vs plain (max err "
+                 f"{err:.3g})")
+    if combiner == "sum":
+        sm.check(torch.equal(got, again), f"segment_combine {combiner} {dt} "
+                                          f"{what}: two launches, same bits")
+
+
+def heavy_case_grid(sm: Smoke, errs: dict) -> None:
+    """Rows far longer than a chunk: a window of 2,100 blocks, the JAX
+    layout's 2,000 identity padding blocks on the last window, windows of a
+    few edges whose block ends in identity slots with ldst 0, rows in random
+    order inside each block; a dst row of 1,100 tiles."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.ops import WindowLayout
+    from repro_torch.kernels.ref import combine_identity, tile_pad_identity
+
+    dev = torch.device(DEVICE)
+    Be = 128
+    for combiner, dtype in (("sum", np.float32), ("min", np.float32),
+                            ("max", np.float32), ("min", np.int32),
+                            ("max", np.int32)):
+        ident = combine_identity(combiner, dtype)
+        for kind in ("heavy", "padded", "tail", "unsorted"):
+            rng = np.random.default_rng(11)
+            if kind == "heavy":
+                dst = np.sort(np.concatenate([
+                    rng.integers(0, 128, 2100 * Be - 7),
+                    rng.integers(128, 600, 900)]))
+            elif kind == "tail":
+                dst = np.sort(rng.choice([0, 3, 130, 131, 300], size=23))
+            else:
+                dst = np.sort(rng.integers(0, 700, size=20_000))
+            lay = WindowLayout(dst, 700, block_edges=Be)
+            K = 3 if kind == "unsorted" else 1
+            if np.dtype(dtype) == np.int32:
+                msgs = rng.integers(-50, 50, size=(dst.shape[0], K))
+            else:
+                msgs = rng.uniform(-2, 2, size=(dst.shape[0], K))
+            buf = np.full((lay.n_blocks * Be, K), ident, dtype)
+            buf[lay.edge_slot] = msgs[lay.order].astype(dtype)
+            ldst, bwin = lay.local_dst, lay.block_window
+            if kind == "padded":
+                buf = np.concatenate([buf, np.full((2000 * Be, K), ident,
+                                                   dtype)])
+                ldst = np.concatenate([ldst, np.zeros(2000 * Be, np.int32)])
+                bwin = np.concatenate([bwin, np.full(
+                    2000, lay.n_windows - 1, np.int32)])
+            if kind == "unsorted":
+                ldst = ldst.reshape(-1, Be).copy()
+                for row in ldst:
+                    rng.shuffle(row)
+                ldst = ldst.reshape(-1)
+            args = [torch.from_numpy(a).to(dev) for a in (buf, ldst, bwin)]
+            check_segment(sm, errs, args, lay.n_windows, combiner,
+                          f"{kind} ({bwin.shape[0]} blocks, longest window "
+                          f"{int(np.bincount(bwin).max())}) K={K}")
+
+    for semiring, dtype in (("plus_times", np.float32),
+                            ("min_plus", np.float32),
+                            ("min_plus", np.int32)):
+        for K in (1, 5):
+            rng = np.random.default_rng(K)
+            T, ndt, nst = 1104, 3, 6
+            tiles = np.full((T, 128, 128), tile_pad_identity(semiring, dtype),
+                            dtype)
+            live = rng.random(tiles.shape) < 0.01
+            tiles[live] = rng.integers(0, 50, size=int(live.sum()))
+            td = np.array([0, 0, 1] + [2] * (T - 3), np.int32)
+            ts = rng.integers(0, nst, size=T).astype(np.int32)
+            if np.dtype(dtype) == np.int32:
+                vals = rng.integers(0, 1000, size=(nst, 128, K))
+            else:
+                vals = rng.uniform(0, 3, size=(nst, 128, K))
+            args = [torch.from_numpy(a).to(dev)
+                    for a in (tiles, td, ts, vals.astype(dtype))]
+            check_spmv(sm, errs, args, ndt, semiring,
+                       f"heavy row ({T - 3} tiles) K={K}")
 
 
 # --------------------------------------------------------------------------- #
@@ -297,13 +404,14 @@ def run_queries(sm: Smoke, sess, label: str, kernel_eb: str, queries,
     def launches():
         return bk.bsp_spmv.launches + sk.segment_combine_windowed.launches
 
-    results = {}
+    results, counts = {}, {}
     for eb in (kernel_eb, "coo"):
         cfg = EngineConfig(edge_backend=eb)
         for name, prog, params, warm in queries:
             before = launches()
             res, st = sess.query(prog, params, warm=warm, cfg=cfg)
             results[(eb, name)] = res
+            counts[(eb, name)] = (st.supersteps, st.host_syncs)
             rec = dict(graph=label, query=name, edge_backend=eb,
                        wall_s=round(st.wall_time, 4),
                        build_s=round(st.compile_time, 6),
@@ -327,6 +435,9 @@ def run_queries(sm: Smoke, sess, label: str, kernel_eb: str, queries,
             sm.check(bool(np.array_equal(got, want) and finite),
                      f"{label} {name}: {kernel_eb} bit-identical to coo "
                      f"{got.shape} {got.dtype}")
+            sm.check(counts[(kernel_eb, name)] == counts[("coo", name)],
+                     f"{label} {name}: {kernel_eb} supersteps and host "
+                     f"syncs {counts[(kernel_eb, name)]} equal coo's")
     return results
 
 
@@ -388,8 +499,75 @@ def tiles_path(sm: Smoke, log: list):
 # --------------------------------------------------------------------------- #
 # phase 5: kernels at the main path's shapes
 # --------------------------------------------------------------------------- #
-def main_path_kernels(sm: Smoke, errs: dict, win, tile) -> list:
+def padded_window_inputs(sess, sgs, prog, vals):
+    """The same messages in the JAX package's padded stacked layout: every
+    partition padded to b_max blocks, its padding blocks on its last
+    window (the input the engine fed the kernel before the layouts became
+    compact). Returns ``(msgs, ldst, bwin, n_windows)``."""
     import numpy as np
+    import torch
+    from repro_torch.core.engine import _edge_messages
+    from repro_torch.kernels.ref import combine_identity, numpy_dtype
+    lay, spec, dev = sess.pg.edge_layouts, prog.sweep_spec, vals.device
+    P, K = lay.n_parts, vals.shape[-1]
+    n_buf = lay.ldst.shape[-1]
+    offs = np.arange(P)[:, None]
+    slot = np.where(lay.eslot >= 0, lay.eslot + offs * n_buf, P * n_buf)
+    msgs = _edge_messages(sgs, spec, vals, sgs.esrc, sgs.ew)
+    ident = combine_identity(spec.combiner, numpy_dtype(vals.dtype)).item()
+    buf = torch.full((P * n_buf + 1, K), ident, dtype=vals.dtype, device=dev)
+    buf.index_copy_(0, torch.from_numpy(slot.reshape(-1).astype(np.int64))
+                    .to(dev), msgs.reshape(-1, K))
+    bwin = (lay.bwin + offs * lay.n_windows).reshape(-1).astype(np.int32)
+    return (buf[:-1], torch.from_numpy(lay.ldst.reshape(-1)).to(dev),
+            torch.from_numpy(bwin).to(dev), P * lay.n_windows)
+
+
+def padded_tile_inputs(sess, prog, dev):
+    """The tile list in the JAX package's padded stacked layout: every
+    partition padded to t_max identity tiles on its last dst row. Returns
+    ``(tiles, tile_dst, tile_src)``."""
+    import numpy as np
+    import torch
+    lay, spec = sess.pg.edge_layouts, prog.sweep_spec
+    offs = np.arange(lay.n_parts)[:, None]
+    tiles = lay.tile_values(sess.pg, spec.semiring, spec.edge_values,
+                            prog.dtype)
+    td = (lay.tile_dst + offs * lay.n_dst_tiles).reshape(-1)
+    ts = (lay.tile_src + offs * lay.n_src_tiles).reshape(-1)
+    return (torch.from_numpy(tiles.reshape(-1, 128, 128)).to(dev),
+            torch.from_numpy(td.astype(np.int32)).to(dev),
+            torch.from_numpy(ts.astype(np.int32)).to(dev))
+
+
+def bsr_yardstick(tiles, td, ts, v, ndt):
+    """One PyTorch call for the plus_times product: ``torch.sparse.mm`` of
+    a block-sparse (BSR, 128x128 fp32 blocks) matrix and the values.
+    Returns ``(fn, None)`` or ``(None, the error)`` if the card refuses."""
+    import torch
+    try:
+        crow = torch.searchsorted(
+            td, torch.arange(ndt + 1, dtype=torch.int32, device=td.device),
+            out_int32=True)
+        A = torch.sparse_bsr_tensor(crow, ts, tiles,
+                                    size=(ndt * 128, v.shape[0] * 128))
+        x = v.reshape(-1, v.shape[-1])
+
+        def fn():
+            return torch.sparse.mm(A, x)
+        fn()
+        torch.cuda.synchronize()
+        return fn, None
+    except Exception as e:      # the yardstick is optional: report why
+        return None, f"{type(e).__name__}: {e}"
+
+
+def main_path_kernels(sm: Smoke, errs: dict, win, tile) -> list:
+    """Each kernel at the shapes the main path gave it: held against its
+    plain version for all three programs, then timed for SSSP on the
+    compact device lists the engine feeds it and on the padded JAX-layout
+    input (the same work plus the padding), beside its bound and a library
+    call."""
     import torch
     from repro_torch.algos import SSSP, ConnectedComponents, PageRank
     from repro_torch.core.engine import (_layout_block_from, _tile_inputs,
@@ -411,11 +589,11 @@ def main_path_kernels(sm: Smoke, errs: dict, win, tile) -> list:
         key = ("pallas_windows", "sssp_a" if name == "sssp" else name)
         vals = torch.from_numpy(res[key]).to(dev)[..., None]
         blk = _layout_block_from(lay, sess.pg, prog, "pallas_windows", dev)
-        msgs, ldst, bwin, nw = _window_inputs(sgs, blk, vals,
-                                              prog.sweep_spec, sgs.v_max)
+        msgs, ldst, bwin, nw, plan = _window_inputs(
+            sgs, blk, vals, prog.sweep_spec, sgs.v_max)
         comb = prog.sweep_spec.combiner
         got = sk.segment_combine_windowed(msgs, ldst, bwin, n_windows=nw,
-                                          combiner=comb)
+                                          combiner=comb, plan=plan)
         want = sk.segment_combine_plain(msgs, ldst, bwin, n_windows=nw,
                                         combiner=comb)
         torch.cuda.synchronize()
@@ -425,8 +603,20 @@ def main_path_kernels(sm: Smoke, errs: dict, win, tile) -> list:
         sm.check(ok, f"segment_combine {comb} {msgs.dtype} at kron-20 "
                      f"shape {tuple(msgs.shape)} vs plain (max err {err:.3g})")
         if name == "sssp":
-            timing = (msgs, ldst, bwin, nw, comb)
-    msgs, ldst, bwin, nw, comb = timing
+            timing = (msgs, ldst, bwin, nw, comb, plan, got)
+            pad = padded_window_inputs(sess, sgs, prog, vals)
+    msgs, ldst, bwin, nw, comb, plan, got = timing
+    pm, pl, pb, pnw = pad
+    pplan = sk.plan_windows(pb, pnw)
+    got_p = sk.segment_combine_windowed(pm, pl, pb, n_windows=pnw,
+                                        combiner=comb, plan=pplan)
+    want_p = sk.segment_combine_plain(pm, pl, pb, n_windows=pnw,
+                                      combiner=comb)
+    torch.cuda.synchronize()
+    sm.check(torch.equal(got_p, want_p) and torch.equal(got_p, got),
+             f"segment_combine on the padded kron-20 input {tuple(pm.shape)}"
+             f" (longest window {int(torch.bincount(pb).max())} blocks) "
+             f"equals its plain version and the compact result")
     Be = lay.block_edges
     K = msgs.shape[1]
     real_edges = int(lay.n_blocks.sum()) * Be
@@ -441,26 +631,31 @@ def main_path_kernels(sm: Smoke, errs: dict, win, tile) -> list:
         source="src/repro_torch/csrc/segment_combine.cu",
         replaces="src/repro/kernels/segment_combine.py:79",
         ms=time_ms(lambda: sk.segment_combine_windowed(
-            msgs, ldst, bwin, n_windows=nw, combiner=comb)),
+            msgs, ldst, bwin, n_windows=nw, combiner=comb, plan=plan)),
+        padded_ms=time_ms(lambda: sk.segment_combine_windowed(
+            pm, pl, pb, n_windows=pnw, combiner=comb, plan=pplan)),
         plain_ms=time_ms(lambda: sk.segment_combine_plain(
             msgs, ldst, bwin, n_windows=nw, combiner=comb)),
         library_ms=time_ms(lambda: lib_out.scatter_reduce_(
             0, row, msgs, "amin", include_self=True)),
         bytes=nbytes, ops=ops, shape=f"msgs {tuple(msgs.shape)} f32 min, "
-        f"{nw} windows (kron-20 SSSP)")
+        f"{nw} windows, {plan.n_chunks} chunks (kron-20 SSSP); padded "
+        f"input {tuple(pm.shape)}")
     out.append(rec)
+    del pad, pm, pl, pb, got_p, want_p, row, lib_out
 
     # tile kernel on the grid graph
     sess, res = tile
     lay = sess.pg.edge_layouts
-    timing = None
+    timing = pr = None
     for name, prog in programs:
         vals = torch.from_numpy(res[("pallas_tiles", name)]).to(dev)[..., None]
         blk = _layout_block_from(lay, sess.pg, prog, "pallas_tiles", dev)
-        tiles, td, ts, v, ndt = _tile_inputs(blk, vals, prog.sweep_spec,
-                                             sess.pg.v_max)
+        tiles, td, ts, v, ndt, plan = _tile_inputs(
+            blk, vals, prog.sweep_spec, sess.pg.v_max)
         semi = prog.sweep_spec.semiring
-        got = bk.bsp_spmv(tiles, td, ts, v, n_dst_tiles=ndt, semiring=semi)
+        got = bk.bsp_spmv(tiles, td, ts, v, n_dst_tiles=ndt, semiring=semi,
+                          plan=plan)
         want = bk.bsp_spmv_plain(tiles, td, ts, v, n_dst_tiles=ndt,
                                  semiring=semi)
         torch.cuda.synchronize()
@@ -470,24 +665,62 @@ def main_path_kernels(sm: Smoke, errs: dict, win, tile) -> list:
         sm.check(ok, f"bsp_spmv {semi} {v.dtype} at grid shape "
                      f"T={tiles.shape[0]} vs plain (max err {err:.3g})")
         if name == "sssp":
-            timing = (tiles, td, ts, v, ndt, semi)
-    tiles, td, ts, v, ndt, semi = timing
+            timing = (tiles, td, ts, v, ndt, semi, plan, got, prog)
+        if name == "pagerank":
+            pr = (tiles, td, ts, v, ndt, semi, plan, got)
+    tiles, td, ts, v, ndt, semi, plan, got, prog = timing
+    ptiles, ptd, pts = padded_tile_inputs(sess, prog, dev)
+    pplan = bk.plan_tiles(ptd, ndt)
+    got_p = bk.bsp_spmv(ptiles, ptd, pts, v, n_dst_tiles=ndt, semiring=semi,
+                        plan=pplan)
+    want_p = bk.bsp_spmv_plain(ptiles, ptd, pts, v, n_dst_tiles=ndt,
+                               semiring=semi)
+    torch.cuda.synchronize()
+    sm.check(torch.equal(got_p, want_p) and torch.equal(got_p, got),
+             f"bsp_spmv on the padded grid input ({ptiles.shape[0]} tiles, "
+             f"longest dst row {int(torch.bincount(ptd).max())} tiles) "
+             f"equals its plain version and the compact result")
+    padded_ms = time_ms(lambda: bk.bsp_spmv(
+        ptiles, ptd, pts, v, n_dst_tiles=ndt, semiring=semi, plan=pplan))
+    del ptiles, ptd, pts, got_p, want_p
     T_real = int(lay.n_tiles.sum())
     K = v.shape[-1]
     nbytes = T_real * 128 * 128 * 4 + 2 * T_real * 4 + v.numel() * 4 \
         + ndt * 128 * K * 4
     ops = 2 * T_real * 128 * 128 * K
+
+    # plus_times (grid PageRank) beside one PyTorch call
+    t2, td2, ts2, v2, ndt2, semi2, plan2, got2 = pr
+    pt_ms = time_ms(lambda: bk.bsp_spmv(t2, td2, ts2, v2, n_dst_tiles=ndt2,
+                                        semiring=semi2, plan=plan2))
+    lib_fn, lib_err = bsr_yardstick(t2, td2, ts2, v2, ndt2)
+    pt_lib_ms = None
+    if lib_fn is not None:
+        y = lib_fn().reshape(got2.shape)
+        torch.cuda.synchronize()
+        ok, err = compare(got2, y, spmv_magnitude(t2, td2, ts2, v2, ndt2,
+                                                  semi2))
+        sm.note(f"torch.sparse.mm (BSR) agrees with bsp_spmv plus_times: "
+                f"{ok} (max err {err:.3g})")
+        pt_lib_ms = time_ms(lib_fn)
+    else:
+        sm.note(f"torch.sparse.mm (BSR) refused on the card: {lib_err}")
     rec = dict(
         name="bsp_spmv", route="cuda",
         source="src/repro_torch/csrc/bsp_spmv.cu",
         replaces="src/repro/kernels/bsp_spmv.py:82",
         ms=time_ms(lambda: bk.bsp_spmv(tiles, td, ts, v, n_dst_tiles=ndt,
-                                       semiring=semi)),
+                                       semiring=semi, plan=plan)),
+        padded_ms=padded_ms,
         plain_ms=time_ms(lambda: bk.bsp_spmv_plain(
             tiles, td, ts, v, n_dst_tiles=ndt, semiring=semi), max_iters=5),
-        library_ms=None, bytes=nbytes, ops=ops,
-        shape=f"tiles [{tiles.shape[0]}, 128, 128] f32 min_plus "
-        f"({T_real} real), K={K} (grid SSSP)")
+        library_ms=None, plus_times_ms=pt_ms,
+        plus_times_library_ms=pt_lib_ms, plus_times_library_error=lib_err,
+        bytes=nbytes, ops=ops,
+        shape=f"tiles [{tiles.shape[0]}, 128, 128] f32 min_plus, K={K}, "
+        f"{plan.n_chunks} chunks (grid SSSP); padded input "
+        f"{lay.n_parts * lay.t_max} tiles; plus_times at the grid PageRank "
+        f"shape")
     out.append(rec)
     return out
 
@@ -531,9 +764,17 @@ def main() -> int:
     log: list = []
     bk.bsp_spmv.launches = 0
     sk.segment_combine_windowed.launches = 0
+    peak = {}
+    torch.cuda.reset_peak_memory_stats()
     win = windows_path(sm, log)
+    peak["windows path"] = torch.cuda.max_memory_allocated()
     w_launch = (bk.bsp_spmv.launches, sk.segment_combine_windowed.launches)
+    torch.cuda.reset_peak_memory_stats()
     tile = tiles_path(sm, log)
+    peak["tiles path"] = torch.cuda.max_memory_allocated()
+    for path, nbytes in peak.items():
+        sm.note(f"peak device memory, {path}: {nbytes} bytes "
+                f"({nbytes / 2**30:.2f} GiB; torch.cuda.max_memory_allocated)")
     launches = {"bsp_spmv": bk.bsp_spmv.launches,
                 "segment_combine_windowed":
                     sk.segment_combine_windowed.launches}
@@ -553,17 +794,22 @@ def main() -> int:
         err_key = "bsp_spmv" if r["name"] == "bsp_spmv" else "segment_combine"
         sm.note(f"{r['name']}: {r['shape']}; {r['bytes']} bytes, {r['ops']} "
                 f"ops")
+        extra = {k: r[k] for k in ("padded_ms", "plus_times_ms",
+                                   "plus_times_library_ms") if k in r}
         kernels.append(dict(
             name=r["name"], route=r["route"], source=r["source"],
             replaces=r["replaces"], launches=launches[r["name"]],
             max_abs_err=errs[err_key], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
-            library_ms=r["library_ms"]))
+            library_ms=r["library_ms"], **extra))
     Path(ROOT / "chiprun_out").mkdir(exist_ok=True)
     (ROOT / "chiprun_out" / "chip_smoke_queries.json").write_text(
-        json.dumps(dict(gpu=ident, queries=log, kernels=kernels),
-                   indent=1))
+        json.dumps(dict(gpu=ident, queries=log, kernels=kernels,
+                        peak_memory_bytes=peak,
+                        kernel_shapes={r["name"]: r["shape"] for r in recs},
+                        plus_times_library_error=recs[-1].get(
+                            "plus_times_library_error")), indent=1))
     sm.note(f"total {time.perf_counter() - sm.t0:.1f}s")
     if sm.failures:
         print(f"chip_smoke: {len(sm.failures)} check(s) failed:",

@@ -210,11 +210,11 @@ def normalize_edge_backend(program: VertexProgram,
 
 def _tile_inputs(blk: TileBlock, vals: torch.Tensor, spec: SemiringSweep,
                  v_max: int) -> tuple:
-    """The ``bsp_spmv`` arguments for the stacked [P, v_max, K] values:
-    every partition's tile list goes into ONE launch, its ids offset by
-    ``p * n_tiles_per_partition`` — each list is dst-major sorted, so the
-    concatenation is too, and no two partitions share a dst row. Returns
-    ``(tiles, tile_dst, tile_src, vals, n_dst_tiles)``."""
+    """The ``bsp_spmv`` arguments for the stacked [P, v_max, K] values: the
+    compact tile list of every partition goes into ONE launch (its ids are
+    offset by partition in the layout), and the values are padded to whole
+    source tiles with the semiring's absorbing pad. Returns ``(tiles,
+    tile_dst, tile_src, vals, n_dst_tiles, plan)``."""
     ident = tile_pad_identity(spec.semiring, numpy_dtype(vals.dtype)).item()
     if not vals.dtype.is_floating_point:
         # integer min_plus: pads are ADDED to values — clamp so that
@@ -223,15 +223,11 @@ def _tile_inputs(blk: TileBlock, vals: torch.Tensor, spec: SemiringSweep,
     ndt = max(-(-v_max // TM), 1)
     nst = max(-(-v_max // TN), 1)
     P, _, K = vals.shape
-    t_max = blk.tiles.shape[1]
     v = torch.full((P, nst * TN, K), ident, dtype=vals.dtype,
                    device=vals.device)
     v[:, :v_max] = vals
-    offs = torch.arange(P, dtype=torch.int32, device=vals.device)[:, None]
-    return (blk.tiles.reshape(P * t_max, TM, TN),
-            (blk.tile_dst + offs * ndt).reshape(-1),
-            (blk.tile_src + offs * nst).reshape(-1),
-            v.reshape(P * nst, TN, K), P * ndt)
+    return (blk.tiles, blk.tile_dst, blk.tile_src, v.reshape(P * nst, TN, K),
+            P * ndt, blk.plan)
 
 
 def _tile_product(blk: TileBlock, vals: torch.Tensor, spec: SemiringSweep,
@@ -239,9 +235,9 @@ def _tile_product(blk: TileBlock, vals: torch.Tensor, spec: SemiringSweep,
     """Semiring product of the stacked [P, v_max, K] values through one
     ``bsp_spmv`` launch."""
     P, _, K = vals.shape
-    tiles, td, ts, v, n_dst = _tile_inputs(blk, vals, spec, v_max)
+    tiles, td, ts, v, n_dst, plan = _tile_inputs(blk, vals, spec, v_max)
     out = bsp_spmv(tiles, td, ts, v, n_dst_tiles=n_dst,
-                   semiring=spec.semiring)
+                   semiring=spec.semiring, plan=plan)
     return out.reshape(P, -1, K)[:, :v_max]
 
 
@@ -264,24 +260,20 @@ def _window_inputs(sg: DeviceSubgraph, blk: WindowBlock,
                    vals: torch.Tensor, spec: SemiringSweep,
                    v_max: int) -> tuple:
     """The ``segment_combine_windowed`` arguments for the stacked
-    [P, v_max, K] values: the per-edge messages are copied into the
-    identity-filled block buffer at their slots (padding edges go to a dump
-    row past the end — the reference's ``mode="drop"`` scatter), and window
-    ids are offset by ``p * n_windows`` so ONE launch reduces all P
-    partitions. Returns ``(msgs, local_dst, block_window, n_windows)``."""
+    [P, v_max, K] values: the per-edge messages are copied into an
+    identity-filled buffer of the compact block list at the slots the
+    layout precomputed (padding edges go to a dump row past the end — the
+    reference's ``mode="drop"`` scatter); the window ids are already offset
+    by partition, so ONE launch reduces all P partitions. Returns ``(msgs,
+    local_dst, block_window, n_windows, plan)``."""
     ident = combine_identity(spec.combiner, numpy_dtype(vals.dtype)).item()
     nw = max(-(-v_max // W), 1)
     msgs = _edge_messages(sg, spec, vals, sg.esrc, sg.ew)
     P, _, K = vals.shape
-    n_buf = blk.ldst.shape[-1]
-    offs = torch.arange(P, dtype=torch.int64, device=vals.device)[:, None]
-    slot = torch.where(blk.eslot >= 0, blk.eslot.long() + offs * n_buf,
-                       P * n_buf)
-    buf = torch.full((P * n_buf + 1, K), ident, dtype=vals.dtype,
+    buf = torch.full((blk.ldst.shape[0] + 1, K), ident, dtype=vals.dtype,
                      device=vals.device)
-    buf.index_copy_(0, slot.reshape(-1), msgs.reshape(-1, K))
-    bwin = (blk.bwin + offs.to(torch.int32) * nw).reshape(-1)
-    return buf[:-1], blk.ldst.reshape(-1), bwin, P * nw
+    buf.index_copy_(0, blk.slot, msgs.reshape(-1, K))
+    return buf[:-1], blk.ldst, blk.bwin, P * nw, blk.plan
 
 
 def _window_product(sg: DeviceSubgraph, blk: WindowBlock,
@@ -290,9 +282,9 @@ def _window_product(sg: DeviceSubgraph, blk: WindowBlock,
     """Semiring product of the stacked [P, v_max, K] values through one
     ``segment_combine_windowed`` launch."""
     P, _, K = vals.shape
-    msgs, ldst, bwin, nw = _window_inputs(sg, blk, vals, spec, v_max)
+    msgs, ldst, bwin, nw, plan = _window_inputs(sg, blk, vals, spec, v_max)
     out = segment_combine_windowed(msgs, ldst, bwin, n_windows=nw,
-                                   combiner=spec.combiner)
+                                   combiner=spec.combiner, plan=plan)
     return out.reshape(P, -1, K)[:, :v_max]
 
 

@@ -22,6 +22,13 @@ partition with every dst tile row covered at least once; ``bwin`` is
 ascending and covers every window; padded edge slots are ``-1``; values at
 padded positions are the semiring/combiner identity. Host arrays are
 bit-identical to the JAX package's layouts.
+
+The device form (``device_tiles`` / ``device_windows``) is NOT padded: it
+is the flat list of the real tiles / blocks of all P partitions
+(partition p's first ``n_tiles[p]`` tiles and ``n_blocks[p]`` blocks, ids
+offset by ``p * n_dst_tiles`` / ``p * n_windows``), with each edge's slot
+remapped into the compact message buffer and the kernels' chunk plans —
+all computed once per layout, so a sweep feeds the kernels no padding.
 """
 from __future__ import annotations
 
@@ -31,9 +38,10 @@ from typing import Dict, NamedTuple, Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels.bsp_spmv import TM, TN
-from repro_torch.kernels.ref import tile_pad_identity
-from repro_torch.kernels.segment_combine import W
+from repro_torch.kernels.bsp_spmv import TM, TN, plan_tiles
+from repro_torch.kernels.chunks import ChunkPlan
+from repro_torch.kernels.ref import tile_pad_identity, torch_dtype
+from repro_torch.kernels.segment_combine import W, plan_windows
 
 __all__ = ["EdgeLayouts", "TileBlock", "WindowBlock", "build_edge_layouts",
            "EDGE_VALUE_KINDS"]
@@ -43,17 +51,22 @@ DEFAULT_BLOCK_EDGES = 512
 
 
 class TileBlock(NamedTuple):
-    """Device tensors for the ``pallas_tiles`` backend (stacked [P, ...])."""
-    tiles: torch.Tensor      # [P, t_max, TM, TN] program dtype
-    tile_dst: torch.Tensor   # [P, t_max] int32, partition-local dst tile ids
-    tile_src: torch.Tensor   # [P, t_max] int32
+    """Device tensors for the ``pallas_tiles`` backend: the real tiles of
+    all partitions, T = sum(n_tiles), dst-major sorted."""
+    tiles: torch.Tensor      # [T, TM, TN] program dtype
+    tile_dst: torch.Tensor   # [T] int32, p * n_dst_tiles + local dst tile
+    tile_src: torch.Tensor   # [T] int32, p * n_src_tiles + local src tile
+    plan: ChunkPlan          # bsp_spmv's chunk plan of tile_dst
 
 
 class WindowBlock(NamedTuple):
-    """Device tensors for the ``pallas_windows`` backend (stacked [P, ...])."""
-    eslot: torch.Tensor      # [P, e_max] int32 buffer slot per edge (-1 pad)
-    ldst: torch.Tensor       # [P, b_max*Be] int32 dst row within the window
-    bwin: torch.Tensor       # [P, b_max] int32 window id per block
+    """Device tensors for the ``pallas_windows`` backend: the real blocks of
+    all partitions, B = sum(n_blocks), window-sorted."""
+    slot: torch.Tensor       # [P * e_max] int64 buffer row per edge
+                             # (padding edges: the dump row B * Be)
+    ldst: torch.Tensor       # [B * Be] int32 dst row within the window
+    bwin: torch.Tensor       # [B] int32, p * n_windows + local window
+    plan: ChunkPlan          # segment_combine's chunk plan of bwin
 
 
 def _edge_values(kind: str, ew: np.ndarray, dtype) -> np.ndarray:
@@ -68,6 +81,13 @@ def _edge_values(kind: str, ew: np.ndarray, dtype) -> np.ndarray:
         return np.ones(ew.shape[0], dtype)
     raise ValueError(f"unknown edge-value kind {kind!r}; "
                      f"expected one of {EDGE_VALUE_KINDS}")
+
+
+def _flatten(a: np.ndarray, counts: np.ndarray, step: int = 0) -> np.ndarray:
+    """The first ``counts[p]`` entries of each row ``a[p]``, plus
+    ``p * step``, concatenated over p (int32)."""
+    return np.concatenate([a[p, :counts[p]] + p * step
+                           for p in range(a.shape[0])]).astype(np.int32)
 
 
 def _tile_geometry(ls, ld, ndt: int, nst: int):
@@ -215,25 +235,47 @@ class EdgeLayouts:
     # ------------------------------------------------------------------ #
     def device_tiles(self, pg, semiring: str, kind: str, dtype,
                      device) -> TileBlock:
+        """The compact tile list on ``device`` (cached per device)."""
         dev = torch.device(device)
         key = ("tiles", semiring, kind, np.dtype(dtype).str, str(dev))
         blk = self._device.get(key)
         if blk is None:
             vals = self.tile_values(pg, semiring, kind, dtype)
-            blk = TileBlock(tiles=torch.from_numpy(vals).to(dev),
-                            tile_dst=torch.from_numpy(self.tile_dst).to(dev),
-                            tile_src=torch.from_numpy(self.tile_src).to(dev))
+            nt = self.n_tiles.astype(np.int64)
+            off = np.concatenate([[0], np.cumsum(nt)])
+            tiles = torch.empty((int(off[-1]), TM, TN),
+                                dtype=torch_dtype(vals.dtype),
+                                device=dev)
+            for p in range(self.n_parts):      # no compact host copy
+                tiles[off[p]:off[p + 1]] = torch.from_numpy(
+                    vals[p, :nt[p]]).to(dev)
+            tile_dst = torch.from_numpy(
+                _flatten(self.tile_dst, nt, self.n_dst_tiles)).to(dev)
+            blk = TileBlock(
+                tiles=tiles, tile_dst=tile_dst,
+                tile_src=torch.from_numpy(
+                    _flatten(self.tile_src, nt, self.n_src_tiles)).to(dev),
+                plan=plan_tiles(tile_dst, self.n_parts * self.n_dst_tiles))
             self._device[key] = blk
         return blk
 
     def device_windows(self, device) -> WindowBlock:
+        """The compact block list on ``device`` (cached per device)."""
         dev = torch.device(device)
         key = ("windows", str(dev))
         blk = self._device.get(key)
         if blk is None:
-            blk = WindowBlock(eslot=torch.from_numpy(self.eslot).to(dev),
-                              ldst=torch.from_numpy(self.ldst).to(dev),
-                              bwin=torch.from_numpy(self.bwin).to(dev))
+            Be, nw = self.block_edges, self.n_windows
+            nb = self.n_blocks.astype(np.int64)
+            row0 = (np.concatenate([[0], np.cumsum(nb)])[:-1] * Be)[:, None]
+            dump = int(nb.sum()) * Be
+            slot = np.where(self.eslot >= 0, self.eslot + row0, dump)
+            bwin = torch.from_numpy(_flatten(self.bwin, nb, nw)).to(dev)
+            blk = WindowBlock(
+                slot=torch.from_numpy(slot.reshape(-1).astype(np.int64))
+                .to(dev),
+                ldst=torch.from_numpy(_flatten(self.ldst, nb * Be)).to(dev),
+                bwin=bwin, plan=plan_windows(bwin, self.n_parts * nw))
             self._device[key] = blk
         return blk
 

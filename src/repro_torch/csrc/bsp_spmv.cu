@@ -2,162 +2,281 @@
 //
 // Replaces the Pallas TPU kernel `bsp_spmv` (src/repro/kernels/bsp_spmv.py,
 // body `_kernel`). A partition's adjacency is a list of dense 128x128 tiles
-// sorted by (tile_dst, tile_src); every dst tile row appears at least once.
+// sorted by (tile_dst, tile_src).
 //
 //   out[d] = (+)_{t: dst(t) = d}  tiles[t] (x) vals[src(t)]
 //
 //   plus_times : (+) = sum, (x) = matrix product      (float32)
 //   min_plus   : (+) = min, (x) = min_c (tile + val)  (float32, int32)
 //
-// Design. One CTA per dst tile row (and per group of KB payload lanes), so
-// no two CTAs write the same output and no atomics are needed: this takes
-// the place of the TPU's sequential grid that revisits one output block.
-// Row pointers into the dst-sorted tile list come from the wrapper. The CTA
-// walks its tiles in list order; each tile is staged in shared memory in
-// 128x32 column chunks (16.5 KB with padding against bank conflicts), and
-// thread `row` folds the chunk's columns in ascending order into its KB
-// partial results held in registers. The first tile of a row initializes
-// the output row and later tiles combine into it, as on the TPU. plus_times
-// is an fp32 multiply-add in a fixed order (no TF32, no atomics), so the
-// result is deterministic; min_plus is exact.
+// Bound on the H100: memory. Each 64 KB tile is read once and used for 2K
+// operations per 4-byte element; at the main path's K <= 8 that is at most
+// 4 operations per byte, against the card's float32 balance of about 20
+// (67 TFLOP/s over 3.35 TB/s). Tensor cores (wgmma) would not move a kernel
+// that waits on bytes, and TF32 could not hold PageRank's 1e-5 bar, so the
+// product stays in fp32 FMAs in a fixed order.
 //
-// Bound on the H100: memory. Each tile is read once (T * 128 * 128 * 4
-// bytes) and the work per tile byte is a few operations, far below the
-// card's operations-per-byte balance. The design reads every tile byte
-// exactly once, coalesced (a warp reads 32 consecutive floats of a row);
-// making it fast (TMA staging, a ring of tiles, wgmma for plus_times) is
-// later work.
-#include <cuda_runtime.h>
-
-#include <climits>
-#include <cstdint>
+// Design.
+// - Work split (chunked.cuh): a chunk plan cuts the dst-sorted tile list
+//   into chunks of at most `cap` tiles of one dst row, one CTA each (and per
+//   group of NK payload lanes). A dst row with a thousand tiles (the JAX
+//   layout's padding tiles all land on a partition's last row) spreads over
+//   many CTAs; the second pass folds its partials in chunk order.
+// - Streaming: a chunk's tiles are contiguous, so thread 0 streams them in
+//   quarter tiles (32 rows x 128 columns, 16 KB) with 1-D bulk async copies
+//   through a ring of NSTAGE buffers in dynamic shared memory (64 KB, hence
+//   cudaFuncSetAttribute), each completed on its mbarrier.
+// - Conflict-free reads: each tile row goes to one warp; lane l reads the
+//   row's columns 4l..4l+3 as one 16-byte vector (a warp reads 512
+//   consecutive bytes: no bank conflicts and no padding), combines them
+//   with the values of those columns held in registers, and a fixed-shape
+//   xor-shuffle tree reduces the row across the warp. The lane that owns
+//   the row (each lane owns one of the tile's 128 rows) folds it into its
+//   accumulator, so a CTA keeps NK accumulators per thread. The next tile's
+//   value block is loaded into registers while the current tile streams.
+#include "chunked.cuh"
 
 namespace {
 
-constexpr int TM = 128;  // dst rows per tile
-constexpr int TN = 128;  // src cols per tile
-constexpr int CC = 32;   // tile columns staged per step
-constexpr int KB = 8;    // payload lanes per CTA
+using namespace drone;
+
+constexpr int TN = 128;               // src cols per tile
+constexpr int QR = 32;                // tile rows per stage
+constexpr int NQ = kRows / QR;        // stages per tile
+constexpr int NT = 128;               // threads per CTA
+constexpr int NWARP = NT / 32;
+constexpr int RW = QR / NWARP;        // rows per warp per stage
+constexpr int NSTAGE = 4;             // ring depth
+constexpr int SMEM_HEAD = 128;        // mbarriers
+
+static_assert(NWARP * RW * NQ == kRows, "every lane owns one tile row");
+static_assert(RW * NQ == 32, "every lane owns one tile row");
 
 template <typename T>
-__device__ __forceinline__ T min_identity();
+struct Vec4;
 template <>
-__device__ __forceinline__ float min_identity<float>() {
-  return __int_as_float(0x7f800000);  // +inf
-}
+struct Vec4<float> {
+  using type = float4;
+};
 template <>
-__device__ __forceinline__ int32_t min_identity<int32_t>() {
-  return INT_MAX;
-}
+struct Vec4<int32_t> {
+  using type = int4;
+};
 
-template <typename T, bool PLUS_TIMES>
-__global__ void __launch_bounds__(TM)
-bsp_spmv_kernel(const T* __restrict__ tiles,
+template <typename T, bool PT, int NK>
+__global__ void __launch_bounds__(NT)
+bsp_spmv_chunks(const T* __restrict__ tiles,
                 const int32_t* __restrict__ tile_src,
-                const int32_t* __restrict__ row_ptr,
-                const T* __restrict__ vals, T* __restrict__ out, int K) {
-  __shared__ T s_tile[TM][CC + 1];
-  __shared__ T s_val[CC][KB];
+                const int32_t* __restrict__ chunk_ptr,
+                const int32_t* __restrict__ chunk_row,
+                const int32_t* __restrict__ chunk_slot,
+                const T* __restrict__ vals, T* __restrict__ out,
+                T* __restrict__ scratch, int K) {
+  constexpr int OP = PT ? kSum : kMin;
+  constexpr int QELEMS = QR * TN;
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  T* ring = reinterpret_cast<T*>(smem + SMEM_HEAD);
 
-  const int d = blockIdx.x;
-  const int k0 = blockIdx.y * KB;
-  const int kb = min(KB, K - k0);  // live payload lanes of this CTA
-  const int row = threadIdx.x;
-  const T ident = PLUS_TIMES ? T(0) : min_identity<T>();
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int k0 = blockIdx.y * NK;
+  const int kb = min(NK, K - k0);   // live payload lanes of this CTA
+  const int c = blockIdx.x;
+  const int t_beg = chunk_ptr[c];
+  const int n_tiles = chunk_ptr[c + 1] - t_beg;
+  const int n_st = n_tiles * NQ;
+  const T ident = identity<T, OP>();
+  const T* src0 = tiles + static_cast<size_t>(t_beg) * kRows * TN;
 
-  T acc[KB];
+  if (tid == 0) {
+    for (int b = 0; b < NSTAGE; ++b) mbar_init(&bar[b], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  auto load_stage = [&](int i) {
+    const int b = i % NSTAGE;
+    mbar_expect_tx(&bar[b], QELEMS * sizeof(T));
+    bulk_load(ring + b * QELEMS, src0 + static_cast<size_t>(i) * QELEMS,
+              QELEMS * sizeof(T), &bar[b]);
+  };
+  if (tid == 0) {
+    for (int i = 0; i < min(NSTAGE, n_st); ++i) load_stage(i);
+  }
+
+  // values of this lane's four columns for the current and the next tile
+  // (dead payload lanes hold 0: finite, and never stored)
+  T v[4][NK];
+  T nv[4][NK];
+  auto load_vals = [&](T(&dst)[4][NK], int t) {
+    const T* vp =
+        vals + static_cast<size_t>(tile_src[t_beg + t]) * TN * K + k0;
 #pragma unroll
-  for (int kk = 0; kk < KB; ++kk) acc[kk] = ident;
-
-  const int beg = row_ptr[d];
-  const int end = row_ptr[d + 1];
-  for (int t = beg; t < end; ++t) {
-    const T* tile = tiles + static_cast<size_t>(t) * TM * TN;
-    const T* v = vals + static_cast<size_t>(tile_src[t]) * TN * K;
-    T part[KB];
+    for (int j = 0; j < 4; ++j) {
 #pragma unroll
-    for (int kk = 0; kk < KB; ++kk) part[kk] = ident;
-
-    for (int c0 = 0; c0 < TN; c0 += CC) {
-      __syncthreads();  // previous chunk fully consumed
-#pragma unroll
-      for (int j = 0; j < CC; ++j) {
-        const int i = j * TM + threadIdx.x;
-        const int r = i / CC;
-        const int c = i % CC;
-        s_tile[r][c] = tile[static_cast<size_t>(r) * TN + c0 + c];
+      for (int kk = 0; kk < NK; ++kk) {
+        dst[j][kk] =
+            kk < kb ? vp[static_cast<size_t>(4 * lane + j) * K + kk] : T(0);
       }
-      for (int i = threadIdx.x; i < CC * kb; i += TM) {
-        const int c = i / kb;
-        const int kk = i % kb;
-        s_val[c][kk] = v[static_cast<size_t>(c0 + c) * K + k0 + kk];
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int c = 0; c < CC; ++c) {
-        const T a = s_tile[row][c];
+    }
+  };
+  load_vals(nv, 0);
+
+  T acc[NK];
 #pragma unroll
-        for (int kk = 0; kk < KB; ++kk) {
-          if constexpr (PLUS_TIMES) {
-            part[kk] = part[kk] + a * s_val[c][kk];
-          } else {
-            const T cand = a + s_val[c][kk];
-            part[kk] = cand < part[kk] ? cand : part[kk];
-          }
+  for (int kk = 0; kk < NK; ++kk) acc[kk] = ident;
+
+  for (int i = 0; i < n_st; ++i) {
+    const int q = i % NQ;
+    if (q == 0) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int kk = 0; kk < NK; ++kk) v[j][kk] = nv[j][kk];
+      }
+      if (i / NQ + 1 < n_tiles) load_vals(nv, i / NQ + 1);
+    }
+    const int b = i % NSTAGE;
+    mbar_wait(&bar[b], (i / NSTAGE) & 1);
+    const T* st = ring + b * QELEMS;
+#pragma unroll
+    for (int j = 0; j < RW; ++j) {
+      const int r = warp * RW + j;   // row within the quarter
+      const auto a = *reinterpret_cast<const typename Vec4<T>::type*>(
+          st + r * TN + 4 * lane);
+      T p[NK];
+#pragma unroll
+      for (int kk = 0; kk < NK; ++kk) {
+        if constexpr (PT) {
+          float s = a.x * v[0][kk];
+          s = fmaf(a.y, v[1][kk], s);
+          s = fmaf(a.z, v[2][kk], s);
+          s = fmaf(a.w, v[3][kk], s);
+          p[kk] = s;
+        } else {
+          T m = a.x + v[0][kk];
+          m = combine<T, OP>(m, a.y + v[1][kk]);
+          m = combine<T, OP>(m, a.z + v[2][kk]);
+          m = combine<T, OP>(m, a.w + v[3][kk]);
+          p[kk] = m;
+        }
+      }
+#pragma unroll
+      for (int d = 16; d >= 1; d >>= 1) {
+#pragma unroll
+        for (int kk = 0; kk < NK; ++kk) {
+          p[kk] = combine<T, OP>(p[kk], __shfl_xor_sync(kFull, p[kk], d));
+        }
+      }
+      if (lane == q * RW + j) {
+#pragma unroll
+        for (int kk = 0; kk < NK; ++kk) {
+          acc[kk] = combine<T, OP>(acc[kk], p[kk]);
         }
       }
     }
-#pragma unroll
-    for (int kk = 0; kk < KB; ++kk) {
-      if (t == beg) {
-        acc[kk] = part[kk];
-      } else if constexpr (PLUS_TIMES) {
-        acc[kk] = acc[kk] + part[kk];
-      } else {
-        acc[kk] = part[kk] < acc[kk] ? part[kk] : acc[kk];
-      }
-    }
+    __syncthreads();  // every warp is done with buffer b
+    if (tid == 0 && i + NSTAGE < n_st) load_stage(i + NSTAGE);
   }
 
-  T* o = out + (static_cast<size_t>(d) * TM + row) * K + k0;
+  // lane q*RW + j owns row QR*q + RW*warp + j of the tile
+  const int row = (lane / RW) * QR + warp * RW + (lane % RW);
+  const int slot = chunk_slot[c];
+  T* dst = slot < 0
+               ? out + (static_cast<size_t>(chunk_row[c]) * kRows + row) * K
+               : scratch + (static_cast<size_t>(slot) * kRows + row) * K;
 #pragma unroll
-  for (int kk = 0; kk < KB; ++kk) {
-    if (kk < kb) o[kk] = acc[kk];
+  for (int kk = 0; kk < NK; ++kk) {
+    if (kk < kb) dst[k0 + kk] = acc[kk];
   }
 }
 
-template <typename T, bool PLUS_TIMES>
-void launch(const void* tiles, const void* tile_src, const void* row_ptr,
-            const void* vals, void* out, int n_dst_tiles, int K,
-            cudaStream_t stream) {
-  const dim3 grid(n_dst_tiles, (K + KB - 1) / KB);
-  bsp_spmv_kernel<T, PLUS_TIMES><<<grid, TM, 0, stream>>>(
-      static_cast<const T*>(tiles), static_cast<const int32_t*>(tile_src),
-      static_cast<const int32_t*>(row_ptr), static_cast<const T*>(vals),
-      static_cast<T*>(out), K);
+template <typename T, bool PT, int NK>
+cudaError_t launch_nk(const void* tiles, const int32_t* tile_src,
+                      const int32_t* cptr, const int32_t* crow,
+                      const int32_t* cslot, int n_chunks,
+                      const int32_t* srow, const int32_t* sptr, int n_split,
+                      const void* vals, void* out, void* scratch, int K,
+                      cudaStream_t stream) {
+  static int allowed = 0;
+  constexpr int smem = SMEM_HEAD + NSTAGE * QR * TN * sizeof(T);
+  cudaError_t err = allow_smem(bsp_spmv_chunks<T, PT, NK>, smem, allowed);
+  if (err != cudaSuccess) return err;
+  if (n_chunks > 0) {
+    const dim3 grid(n_chunks, (K + NK - 1) / NK);
+    bsp_spmv_chunks<T, PT, NK><<<grid, NT, smem, stream>>>(
+        static_cast<const T*>(tiles), tile_src, cptr, crow, cslot,
+        static_cast<const T*>(vals), static_cast<T*>(out),
+        static_cast<T*>(scratch), K);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return launch_combine_partials<T, PT ? kSum : kMin>(
+      static_cast<const T*>(scratch), srow, sptr, static_cast<T*>(out),
+      n_split, K, stream);
+}
+
+template <typename T, bool PT>
+cudaError_t launch(const void* tiles, const int32_t* tile_src,
+                   const int32_t* cptr, const int32_t* crow,
+                   const int32_t* cslot, int n_chunks, const int32_t* srow,
+                   const int32_t* sptr, int n_split, const void* vals,
+                   void* out, void* scratch, int K, cudaStream_t stream) {
+  if (K <= 1) {
+    return launch_nk<T, PT, 1>(tiles, tile_src, cptr, crow, cslot, n_chunks,
+                               srow, sptr, n_split, vals, out, scratch, K,
+                               stream);
+  }
+  if (K <= 2) {
+    return launch_nk<T, PT, 2>(tiles, tile_src, cptr, crow, cslot, n_chunks,
+                               srow, sptr, n_split, vals, out, scratch, K,
+                               stream);
+  }
+  if (K <= 4) {
+    return launch_nk<T, PT, 4>(tiles, tile_src, cptr, crow, cslot, n_chunks,
+                               srow, sptr, n_split, vals, out, scratch, K,
+                               stream);
+  }
+  return launch_nk<T, PT, 8>(tiles, tile_src, cptr, crow, cslot, n_chunks,
+                             srow, sptr, n_split, vals, out, scratch, K,
+                             stream);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = int32. semiring: 0 = plus_times, 1 = min_plus.
-// Returns the CUDA error of the launch (0 on success).
+// tiles must be 16-byte aligned (the wrapper checks). Returns the CUDA error
+// of the launches (0 on success).
 extern "C" int drone_bsp_spmv(const void* tiles, const void* tile_src,
-                              const void* row_ptr, const void* vals,
-                              void* out, int n_dst_tiles, int K, int dtype,
-                              int semiring, void* stream) {
-  if (n_dst_tiles <= 0 || K <= 0) return static_cast<int>(cudaSuccess);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && semiring == 0) {
-    launch<float, true>(tiles, tile_src, row_ptr, vals, out, n_dst_tiles, K,
-                        s);
-  } else if (dtype == 0 && semiring == 1) {
-    launch<float, false>(tiles, tile_src, row_ptr, vals, out, n_dst_tiles,
-                         K, s);
-  } else if (dtype == 1 && semiring == 1) {
-    launch<int32_t, false>(tiles, tile_src, row_ptr, vals, out, n_dst_tiles,
-                           K, s);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+                              const void* chunk_ptr, const void* chunk_row,
+                              const void* chunk_slot, int n_chunks,
+                              const void* split_row, const void* split_ptr,
+                              int n_split, const void* vals, void* out,
+                              void* scratch, int K, int dtype, int semiring,
+                              void* stream) {
+  if (K <= 0 || (n_chunks <= 0 && n_split <= 0)) {
+    return static_cast<int>(cudaSuccess);
   }
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* ts = static_cast<const int32_t*>(tile_src);
+  const auto* cp = static_cast<const int32_t*>(chunk_ptr);
+  const auto* cr = static_cast<const int32_t*>(chunk_row);
+  const auto* cs = static_cast<const int32_t*>(chunk_slot);
+  const auto* sr = static_cast<const int32_t*>(split_row);
+  const auto* sp = static_cast<const int32_t*>(split_ptr);
+  cudaError_t err;
+  if (dtype == 0 && semiring == 0) {
+    err = launch<float, true>(tiles, ts, cp, cr, cs, n_chunks, sr, sp,
+                              n_split, vals, out, scratch, K, s);
+  } else if (dtype == 0 && semiring == 1) {
+    err = launch<float, false>(tiles, ts, cp, cr, cs, n_chunks, sr, sp,
+                               n_split, vals, out, scratch, K, s);
+  } else if (dtype == 1 && semiring == 1) {
+    err = launch<int32_t, false>(tiles, ts, cp, cr, cs, n_chunks, sr, sp,
+                                 n_split, vals, out, scratch, K, s);
+  } else {
+    err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
 }

@@ -3,21 +3,23 @@
 Each source in ``repro_torch/csrc`` is compiled by ``nvcc`` for ``sm_90a``
 into its own shared library with a plain C interface, on first use, into
 ``build/kernels/`` at the root of the checkout. The file name carries a
-hash of the source and the flags, so an edited source is rebuilt and a
-built one is reused. ``build()`` starts one ``nvcc`` per source, all at
-once, and waits for them; ``load()`` builds one source if needed and opens
-it with ``ctypes``. Nothing is compiled at import time.
+hash of the source, of the ``csrc`` headers it includes and of the flags,
+so an edited source or header is rebuilt and a built one is reused.
+``build()`` starts one ``nvcc`` per source, all at once, and waits for
+them; ``load()`` builds one source if needed and opens it with ``ctypes``.
+Nothing is compiled at import time.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List
 
 __all__ = ["SOURCES", "BUILD_DIR", "build", "load", "library_path"]
 
@@ -48,10 +50,33 @@ def _nvcc() -> str:
                        "to build the CUDA kernels")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def _sources_of(name: str) -> List[Path]:
+    """The source ``csrc/<name>.cu`` and every file of ``csrc`` it includes
+    with ``#include "..."``, directly or through another include."""
+    seen: List[Path] = []
+    todo = [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            dep = (path.parent / inc.decode()).resolve()
+            if dep.is_file() and CSRC in dep.parents:
+                todo.append(dep)
+    return seen
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}_{digest[:12]}.so"
+    """Where the library of ``name`` is built: the name carries a hash of
+    the source, of every ``csrc`` header it includes and of the flags."""
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(_sources_of(name)):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:12]}.so"
 
 
 def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:

@@ -14,28 +14,37 @@ dst tile row covered at least once, and
 
 Bound on the H100: memory — the kernel reads each tile once,
 ``T * 128 * 128 * 4`` bytes, and does a few operations per byte. The CUDA
-source explains the design: one CTA per dst tile row looping over its
-tiles in list order, tiles staged in shared memory in column chunks, a
-fixed fp32 multiply-add order and no atomics.
+source explains the design: a chunk plan (``kernels/chunks.py``) gives each
+CTA at most ``TILE_CHUNK`` tiles of one dst row, quarter tiles stream
+through a ring of shared-memory stages on bulk async copies, one warp reads
+each tile row as 16-byte vectors and reduces it with a fixed shuffle tree,
+and a second pass folds a split row's partials in chunk order — fp32 in a
+fixed order, no atomics.
 
 ``bsp_spmv`` dispatches by the device of its tensors and nothing else: a
 CUDA tensor launches the kernel (or the call raises), a CPU tensor runs
 ``bsp_spmv_plain``, the plain PyTorch version of the same function.
-``bsp_spmv.launches`` counts kernel launches.
+``bsp_spmv.launches`` counts kernel launches. A caller that multiplies by the
+same tile list many times passes its cached ``plan_tiles(tile_dst,
+n_dst_tiles)``.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.chunks import ChunkPlan, build_chunk_plan
 from repro_torch.kernels.ref import combine_identity, numpy_dtype
 
-__all__ = ["TM", "TN", "bsp_spmv", "bsp_spmv_plain", "SEMIRINGS"]
+__all__ = ["TM", "TN", "TILE_CHUNK", "bsp_spmv", "bsp_spmv_plain",
+           "plan_tiles", "SEMIRINGS"]
 
 TM = 128   # dst rows per tile
 TN = 128   # src cols per tile
+TILE_CHUNK = 4     # tiles per CTA at most (256 KB of float32)
 SEMIRINGS = ("plus_times", "min_plus")
 _DTYPE_CODES = {torch.float32: 0, torch.int32: 1}
 _PLAIN_CHUNK = 64        # tiles per step of the plain min_plus product
@@ -96,32 +105,53 @@ def bsp_spmv_plain(tiles, tile_dst, tile_src, vals, *, n_dst_tiles: int,
     return out
 
 
+def plan_tiles(tile_dst: torch.Tensor, n_dst_tiles: int) -> ChunkPlan:
+    """The kernel's chunk plan of a dst-sorted tile list: at most
+    ``TILE_CHUNK`` tiles of one dst row per CTA."""
+    return build_chunk_plan(tile_dst, n_dst_tiles, TILE_CHUNK)
+
+
 def _lib():
     lib = _build.load("bsp_spmv")
     fn = lib.drone_bsp_spmv
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 \
-        + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int]
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_int]
+                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def _bsp_spmv_cuda(tiles, tile_dst, tile_src, vals, n_dst_tiles, semiring):
+def _bsp_spmv_cuda(tiles, tile_dst, tile_src, vals, n_dst_tiles, semiring,
+                   plan):
     for name, t in (("tiles", tiles), ("tile_src", tile_src),
                     ("vals", vals)):
         if not t.is_contiguous():
             raise ValueError(f"bsp_spmv: {name} must be contiguous")
+    if tiles.data_ptr() % 16:
+        raise ValueError("bsp_spmv: tiles must be 16-byte aligned for the "
+                         "kernel's bulk copies")
+    if plan is None:
+        plan = plan_tiles(tile_dst, n_dst_tiles)
+    elif plan.chunk_ptr.device != tiles.device:
+        raise ValueError(f"bsp_spmv: the plan lies on "
+                         f"{plan.chunk_ptr.device}, the input on "
+                         f"{tiles.device}")
     K = vals.shape[-1]
-    bounds = torch.arange(n_dst_tiles + 1, dtype=torch.int32,
-                          device=tiles.device)
-    row_ptr = torch.searchsorted(tile_dst, bounds, out_int32=True)
     out = torch.empty((n_dst_tiles, TM, K), dtype=vals.dtype,
                       device=vals.device)
+    scratch = torch.empty((max(plan.n_slots, 1), TM, K), dtype=vals.dtype,
+                          device=vals.device)
     fn = _lib()
     with torch.cuda.device(tiles.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(tiles.data_ptr(), tile_src.data_ptr(), row_ptr.data_ptr(),
-                 vals.data_ptr(), out.data_ptr(), n_dst_tiles, K,
-                 _DTYPE_CODES[vals.dtype], SEMIRINGS.index(semiring), stream)
+        err = fn(tiles.data_ptr(), tile_src.data_ptr(),
+                 plan.chunk_ptr.data_ptr(), plan.chunk_row.data_ptr(),
+                 plan.chunk_slot.data_ptr(), plan.n_chunks,
+                 plan.split_row.data_ptr(), plan.split_ptr.data_ptr(),
+                 plan.n_split, vals.data_ptr(), out.data_ptr(),
+                 scratch.data_ptr(), K, _DTYPE_CODES[vals.dtype],
+                 SEMIRINGS.index(semiring), stream)
     if err != 0:
         raise RuntimeError(f"bsp_spmv kernel launch failed with CUDA error "
                            f"{err}")
@@ -130,13 +160,18 @@ def _bsp_spmv_cuda(tiles, tile_dst, tile_src, vals, n_dst_tiles, semiring):
 
 
 def bsp_spmv(tiles, tile_dst, tile_src, vals, *, n_dst_tiles: int,
-             semiring: str = "plus_times") -> torch.Tensor:
+             semiring: str = "plus_times",
+             plan: Optional[ChunkPlan] = None) -> torch.Tensor:
     """tiles [T,TM,TN], tile_dst/src [T] int32 (dst-major sorted),
-    vals [n_src_tiles, TN, K]  ->  [n_dst_tiles, TM, K] (dtype of vals)."""
+    vals [n_src_tiles, TN, K]  ->  [n_dst_tiles, TM, K] (dtype of vals).
+    ``plan`` is the kernel's chunk plan of ``tile_dst`` (``plan_tiles``),
+    built here when None; the plain version needs none."""
     _check(tiles, tile_dst, tile_src, vals, n_dst_tiles, semiring)
+    if plan is not None:
+        plan.check(tiles.shape[0], n_dst_tiles, "tiles")
     if vals.device.type == "cuda":
         return _bsp_spmv_cuda(tiles, tile_dst, tile_src, vals, n_dst_tiles,
-                              semiring)
+                              semiring, plan)
     if vals.device.type == "cpu":
         return bsp_spmv_plain(tiles, tile_dst, tile_src, vals,
                               n_dst_tiles=n_dst_tiles, semiring=semiring)

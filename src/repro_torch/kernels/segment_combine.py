@@ -13,29 +13,36 @@ least one block, padding edges carry the combiner identity, and
 with (+) one of ``sum`` (float32), ``min`` and ``max`` (float32 or int32).
 
 Bound on the H100: memory — ``B * Be * (K + 1) * 4`` bytes read once. The
-CUDA source explains the design: one CTA per window looping over its
-blocks, each block staged in shared memory and scanned in ascending edge
-order by one thread per output row, so ``sum`` is deterministic and
-``min``/``max`` are exact.
+CUDA source explains the design: a chunk plan (``kernels/chunks.py``) gives
+each CTA at most ``BLOCK_CHUNK`` blocks of one window, the blocks stream
+through a ring of shared-memory stages on bulk async copies, each warp
+reduces runs of equal destination rows with a fixed-shape shuffle scan, and
+a second pass folds a split window's partials in chunk order — so ``sum`` is
+deterministic and ``min``/``max`` are exact.
 
 ``segment_combine_windowed`` dispatches by the device of its tensors and
 nothing else: a CUDA tensor launches the kernel (or the call raises), a CPU
 tensor runs ``segment_combine_plain``. ``segment_combine_windowed.launches``
-counts kernel launches.
+counts kernel launches. A caller that reduces the same block list many times
+passes its cached ``plan_windows(block_window, n_windows)``.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.chunks import ChunkPlan, build_chunk_plan
 from repro_torch.kernels.ref import combine_identity, numpy_dtype
 
-__all__ = ["W", "segment_combine_windowed", "segment_combine_plain",
-           "COMBINERS"]
+__all__ = ["W", "BLOCK_CHUNK", "segment_combine_windowed",
+           "segment_combine_plain", "plan_windows", "COMBINERS"]
 
 W = 128       # output rows per window
+BLOCK_CHUNK = 16    # blocks per CTA at most (8,192 edges at Be = 512)
+MAX_K = 512         # payload lanes the kernel's shared-memory stages hold
 COMBINERS = ("sum", "min", "max")
 _DTYPE_CODES = {torch.float32: 0, torch.int32: 1}
 _REDUCE = {"min": "amin", "max": "amax"}
@@ -92,34 +99,59 @@ def segment_combine_plain(msgs, local_dst, block_window, *, n_windows: int,
     return out.reshape(n_windows, W, K)
 
 
+def plan_windows(block_window: torch.Tensor, n_windows: int) -> ChunkPlan:
+    """The kernel's chunk plan of an ascending block -> window list: at most
+    ``BLOCK_CHUNK`` blocks of one window per CTA."""
+    return build_chunk_plan(block_window, n_windows, BLOCK_CHUNK)
+
+
 def _lib():
     lib = _build.load("segment_combine")
     fn = lib.drone_segment_combine
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
-        + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int]
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_int]
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
 def _segment_combine_cuda(msgs, local_dst, block_window, n_windows,
-                          combiner):
-    for name, t in (("msgs", msgs), ("local_dst", local_dst)):
-        if not t.is_contiguous():
-            raise ValueError(f"segment_combine: {name} must be contiguous")
+                          combiner, plan):
     B = block_window.shape[0]
     Be = msgs.shape[0] // B
     K = msgs.shape[1]
-    bounds = torch.arange(n_windows + 1, dtype=torch.int32,
-                          device=msgs.device)
-    blk_ptr = torch.searchsorted(block_window, bounds, out_int32=True)
+    for name, t in (("msgs", msgs), ("local_dst", local_dst)):
+        if not t.is_contiguous():
+            raise ValueError(f"segment_combine: {name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"segment_combine: {name} must be 16-byte "
+                             "aligned for the kernel's bulk copies")
+    if Be % 4:
+        raise ValueError(f"segment_combine: the kernel takes a block of a "
+                         f"multiple of 4 edges, got Be = {Be}")
+    if K > MAX_K:
+        raise ValueError(f"segment_combine: the kernel takes K <= {MAX_K}, "
+                         f"got {K}")
+    if plan is None:
+        plan = plan_windows(block_window, n_windows)
+    elif plan.chunk_ptr.device != msgs.device:
+        raise ValueError(f"segment_combine: the plan lies on "
+                         f"{plan.chunk_ptr.device}, the input on "
+                         f"{msgs.device}")
     out = torch.empty((n_windows, W, K), dtype=msgs.dtype,
                       device=msgs.device)
+    scratch = torch.empty((max(plan.n_slots, 1), W, K), dtype=msgs.dtype,
+                          device=msgs.device)
     fn = _lib()
     with torch.cuda.device(msgs.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(msgs.data_ptr(), local_dst.data_ptr(), blk_ptr.data_ptr(),
-                 out.data_ptr(), n_windows, Be, K, _DTYPE_CODES[msgs.dtype],
-                 COMBINERS.index(combiner), stream)
+        err = fn(msgs.data_ptr(), local_dst.data_ptr(),
+                 plan.chunk_ptr.data_ptr(), plan.chunk_row.data_ptr(),
+                 plan.chunk_slot.data_ptr(), plan.n_chunks,
+                 plan.split_row.data_ptr(), plan.split_ptr.data_ptr(),
+                 plan.n_split, out.data_ptr(), scratch.data_ptr(), Be, K,
+                 _DTYPE_CODES[msgs.dtype], COMBINERS.index(combiner), stream)
     if err != 0:
         raise RuntimeError(f"segment_combine kernel launch failed with CUDA "
                            f"error {err}")
@@ -128,15 +160,20 @@ def _segment_combine_cuda(msgs, local_dst, block_window, n_windows,
 
 
 def segment_combine_windowed(msgs, local_dst, block_window, *,
-                             n_windows: int,
-                             combiner: str = "sum") -> torch.Tensor:
+                             n_windows: int, combiner: str = "sum",
+                             plan: Optional[ChunkPlan] = None
+                             ) -> torch.Tensor:
     """msgs [B*Be, K] (identity-padded), local_dst [B*Be] int32 in [0, W),
     block_window [B] int32 ascending, covering every window
-    ->  [n_windows, W, K] in msgs.dtype."""
+    ->  [n_windows, W, K] in msgs.dtype. ``plan`` is the kernel's chunk
+    plan of ``block_window`` (``plan_windows``), built here when None; the
+    plain version needs none."""
     _check(msgs, local_dst, block_window, n_windows, combiner)
+    if plan is not None:
+        plan.check(block_window.shape[0], n_windows, "blocks")
     if msgs.device.type == "cuda":
         return _segment_combine_cuda(msgs, local_dst, block_window,
-                                     n_windows, combiner)
+                                     n_windows, combiner, plan)
     if msgs.device.type == "cpu":
         return segment_combine_plain(msgs, local_dst, block_window,
                                      n_windows=n_windows, combiner=combiner)

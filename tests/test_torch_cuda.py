@@ -89,6 +89,88 @@ def test_segment_combine_kernel_matches_plain(cuda, combiner, dtype, E,
         assert torch.equal(got, want)
 
 
+def _heavy_windows(rng, kind, combiner, dtype, K):
+    """Inputs with one window far longer than the chunk cap: ``heavy``
+    (2,100 blocks of window 0), ``padded`` (the JAX layout's 2,000 identity
+    padding blocks on the last window), ``tail`` (windows of a few edges,
+    whose block ends in identity slots with ldst 0), ``unsorted`` (rows in
+    random order inside each block)."""
+    Be = 128
+    ident = combine_identity(combiner, dtype)
+    if kind == "heavy":
+        dst = np.sort(np.concatenate([rng.integers(0, 128, 2100 * Be - 7),
+                                      rng.integers(128, 600, 900)]))
+    elif kind == "tail":
+        dst = np.sort(rng.choice([0, 3, 130, 131, 300], size=23))
+    else:
+        dst = np.sort(rng.integers(0, 700, size=20_000))
+    lay = WindowLayout(dst, 700, block_edges=Be)
+    msgs = rng.integers(-50, 50, size=(dst.shape[0], K)).astype(dtype)
+    buf = np.full((lay.n_blocks * Be, K), ident, dtype)
+    buf[lay.edge_slot] = msgs[lay.order]
+    ldst, bwin = lay.local_dst, lay.block_window
+    if kind == "padded":
+        pad = 2000
+        buf = np.concatenate([buf, np.full((pad * Be, K), ident, dtype)])
+        ldst = np.concatenate([ldst, np.zeros(pad * Be, np.int32)])
+        bwin = np.concatenate([bwin, np.full(pad, lay.n_windows - 1,
+                                             np.int32)])
+    if kind == "unsorted":
+        ldst = ldst.reshape(-1, Be).copy()
+        for row in ldst:
+            rng.shuffle(row)
+        ldst = ldst.reshape(-1)
+    return buf, ldst, bwin, lay.n_windows
+
+
+@pytest.mark.parametrize("kind", ["heavy", "padded", "tail", "unsorted"])
+@pytest.mark.parametrize("combiner,dtype,K", [("sum", np.float32, 1),
+                                              ("min", np.float32, 3),
+                                              ("max", np.int32, 1)])
+def test_segment_combine_heavy_windows(cuda, kind, combiner, dtype, K):
+    rng = np.random.default_rng(11)
+    buf, ldst, bwin, nw = _heavy_windows(rng, kind, combiner, dtype, K)
+    args = [torch.from_numpy(a).to(cuda) for a in (buf, ldst, bwin)]
+    got = ts.segment_combine_windowed(*args, n_windows=nw,
+                                      combiner=combiner)
+    want = ts.segment_combine_plain(*args, n_windows=nw, combiner=combiner)
+    again = ts.segment_combine_windowed(*args, n_windows=nw,
+                                        combiner=combiner)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)      # the same bits on every launch
+    if combiner == "sum":
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("semiring,dtype", [("plus_times", np.float32),
+                                            ("min_plus", np.float32),
+                                            ("min_plus", np.int32)])
+@pytest.mark.parametrize("K", [1, 5])
+def test_bsp_spmv_heavy_row(cuda, semiring, dtype, K):
+    """One dst row of 1,100 tiles (as the JAX layout's padding tiles give
+    a partition's last row) beside short rows."""
+    rng = np.random.default_rng(K)
+    T, n_dst, n_src = 1104, 3, 6
+    tiles = np.full((T, 128, 128), tile_pad_identity(semiring, dtype), dtype)
+    live = rng.random(tiles.shape) < 0.01
+    tiles[live] = rng.integers(0, 50, size=int(live.sum()))
+    td = np.array([0, 0, 1] + [2] * (T - 3), np.int32)
+    tsrc = rng.integers(0, n_src, size=T).astype(np.int32)
+    vals = rng.integers(0, 1000, size=(n_src, 128, K)).astype(dtype)
+    args = [torch.from_numpy(a).to(cuda) for a in (tiles, td, tsrc, vals)]
+    got = tb.bsp_spmv(*args, n_dst_tiles=n_dst, semiring=semiring)
+    want = tb.bsp_spmv_plain(*args, n_dst_tiles=n_dst, semiring=semiring)
+    again = tb.bsp_spmv(*args, n_dst_tiles=n_dst, semiring=semiring)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)      # the same bits on every launch
+    if semiring == "min_plus":
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
 def test_non_contiguous_input_raises(cuda):
     vals = torch.zeros((1, 128, 2), device=cuda)[..., :1]
     with pytest.raises(ValueError, match="contiguous"):

@@ -18,8 +18,15 @@ import repro_torch.algos as TA
 import repro_torch.core as T
 from repro.core import engine as reng
 from repro_torch.core import engine as teng
+from repro.core.layouts import build_edge_layouts as rbuild
+from repro.core.subgraph import ShapePolicy as RShapePolicy
+from repro_torch.core.layouts import build_edge_layouts as tbuild
+from repro_torch.core.subgraph import ShapePolicy as TShapePolicy
 from repro_torch.interop import (partitioned_graph_from_arrays,
                                  warm_block_from_numpy)
+from repro_torch.kernels.bsp_spmv import bsp_spmv_plain
+from repro_torch.kernels.ref import combine_identity
+from repro_torch.kernels.segment_combine import segment_combine_plain
 
 BACKENDS = ("coo", "pallas_tiles", "pallas_windows")
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -162,3 +169,82 @@ def test_engine_config_validation_matches():
         [f.name for f in dataclasses.fields(R.EngineConfig)]
     assert T.EngineConfig(mode="vc").local_bound == 1
     assert T.EngineConfig(edge_axes=["a"]).edge_axes == ("a",)
+
+
+def _padded_product(tl, tpg, prog, eb, vals):
+    """The same product on the JAX package's padded stacked layout (every
+    partition padded to t_max tiles / b_max blocks), through the plain
+    versions: what the device lists were before they became compact."""
+    spec = prog.sweep_spec
+    P, v_max, K = vals.shape
+    offs = np.arange(P)[:, None]
+    if eb == "pallas_tiles":
+        tiles = tl.tile_values(tpg, spec.semiring, spec.edge_values,
+                               prog.dtype)
+        td = (tl.tile_dst + offs * tl.n_dst_tiles).reshape(-1)
+        ts = (tl.tile_src + offs * tl.n_src_tiles).reshape(-1)
+        _, _, _, v, ndt, _ = teng._tile_inputs(
+            tl.device_tiles(tpg, spec.semiring, spec.edge_values, prog.dtype,
+                            "cpu"), vals, spec, v_max)
+        out = bsp_spmv_plain(
+            torch.from_numpy(tiles.reshape(-1, 128, 128)),
+            torch.from_numpy(td.astype(np.int32)),
+            torch.from_numpy(ts.astype(np.int32)), v, n_dst_tiles=ndt,
+            semiring=spec.semiring)
+        return out.reshape(P, -1, K)[:, :v_max]
+    sg = teng._device_subgraph(tpg, "cpu")
+    msgs = teng._edge_messages(sg, spec, vals, sg.esrc, sg.ew)
+    n_buf = tl.ldst.shape[-1]
+    slot = np.where(tl.eslot >= 0, tl.eslot + offs * n_buf, P * n_buf)
+    ident = combine_identity(spec.combiner, prog.dtype).item()
+    buf = torch.full((P * n_buf + 1, K), ident, dtype=vals.dtype)
+    buf.index_copy_(0, torch.from_numpy(slot.reshape(-1).astype(np.int64)),
+                    msgs.reshape(-1, K))
+    bwin = (tl.bwin + offs * tl.n_windows).reshape(-1).astype(np.int32)
+    out = segment_combine_plain(
+        buf[:-1], torch.from_numpy(tl.ldst.reshape(-1)),
+        torch.from_numpy(bwin), n_windows=P * tl.n_windows,
+        combiner=spec.combiner)
+    return out.reshape(P, -1, K)[:, :v_max]
+
+
+@pytest.mark.parametrize("eb", ["pallas_tiles", "pallas_windows"])
+@pytest.mark.parametrize("algo", ["sssp", "cc", "pagerank"])
+def test_products_on_compact_lists(graphs, algo, eb):
+    """``_tile_product`` / ``_window_product`` on the compact device lists
+    equal the same product on the padded stacked layout and the JAX
+    package's product on its own layout (Pallas in interpret mode)."""
+    g, rpg, tpg = graphs
+    rprog, tprog, _ = _programs(g.n_vertices)[algo]
+    tl = tbuild(tpg, TShapePolicy(growth=2.0))
+    rl = rbuild(rpg, RShapePolicy(growth=2.0))
+    P, v_max, K = tpg.n_parts, tpg.v_max, 2
+    assert tl.t_max * P > tl.n_tiles.sum() and \
+        tl.b_max * P > tl.n_blocks.sum()
+    rng = np.random.default_rng(3)
+    if algo == "cc":
+        vals = rng.integers(0, 1000, size=(P, v_max, K)).astype(np.int32)
+    else:
+        vals = rng.uniform(0, 3, size=(P, v_max, K)).astype(np.float32)
+    tv = torch.from_numpy(vals)
+    spec = tprog.sweep_spec
+    blk = teng._layout_block_from(tl, tpg, tprog, eb, "cpu")
+    if eb == "pallas_tiles":
+        got = teng._tile_product(blk, tv, spec, v_max)
+        want = reng._tile_product(
+            reng._layout_block_from(rl, rpg, rprog, eb), jnp.asarray(vals),
+            rprog.sweep_spec, v_max)
+    else:
+        sg = teng._device_subgraph(tpg, "cpu")
+        got = teng._window_product(sg, blk, tv, spec, v_max)
+        rsg = reng._device_subgraph(rpg)
+        want = reng._window_product(
+            reng._layout_block_from(rl, rpg, rprog, eb), jnp.asarray(vals),
+            rprog.sweep_spec, v_max, rsg.esrc, rsg.ew)
+    padded = _padded_product(tl, tpg, tprog, eb, tv)
+    assert got.dtype == padded.dtype and got.shape == (P, v_max, K)
+    np.testing.assert_array_equal(got.numpy(), padded.numpy())
+    if algo == "pagerank":
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    else:
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))

@@ -14,6 +14,7 @@ from repro.kernels.segment_combine import segment_combine_windowed as rseg
 from repro_torch.graphgen import powerlaw_graph
 from repro_torch.kernels import bsp_spmv as tb
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels.chunks import build_chunk_plan
 from repro_torch.kernels import segment_combine as ts
 from repro_torch.kernels.ref import combine_identity, tile_pad_identity
 
@@ -164,9 +165,105 @@ def test_wrappers_validate_and_count():
         ts.segment_combine_windowed(
             z((512, 1), device="meta"), z(512, dtype=i32, device="meta"),
             z(1, dtype=i32, device="meta"), n_windows=1, combiner="min")
+    plan = ts.plan_windows(z(2, dtype=i32), 1)
+    with pytest.raises(ValueError, match="chunk plan covers 2 items"):
+        ts.segment_combine_windowed(z((512, 1)), z(512, dtype=i32),
+                                    z(1, dtype=i32), n_windows=1, plan=plan)
+    with pytest.raises(ValueError, match="chunk plan covers 2 items"):
+        tb.bsp_spmv(z((1, TM, TN)), z(1, dtype=i32), z(1, dtype=i32),
+                    z((1, TN, 1)), n_dst_tiles=1, plan=plan)
     # CPU tensors run the plain version: the kernel counters never move
     out = tb.bsp_spmv(z((1, TM, TN)), z(1, dtype=i32), z(1, dtype=i32),
                       z((1, TN, 1)), n_dst_tiles=1)
     assert out.shape == (1, TM, 1)
     assert (tb.bsp_spmv.launches,
             ts.segment_combine_windowed.launches) == before
+
+
+@pytest.mark.parametrize("counts,cap", [
+    ([1, 1, 1, 1], 4),                  # one chunk per row, no second pass
+    ([3, 0, 9, 1, 0], 4),               # empty rows and a split row
+    ([2900] + [1] * 30 + [5, 0, 7], 16),  # the padded layout's heavy row
+    ([1000, 3, 1] * 3, 1),              # one item per chunk
+    ([37], 37),                         # exactly one full chunk
+], ids=["flat", "empty-rows", "skewed", "cap1", "full"])
+def test_chunk_plan_covers_in_order(counts, cap):
+    rows = np.repeat(np.arange(len(counts)), counts).astype(np.int32)
+    plan = build_chunk_plan(torch.from_numpy(rows), len(counts), cap)
+    ptr = plan.chunk_ptr.numpy()
+    crow = plan.chunk_row.numpy()
+    slot = plan.chunk_slot.numpy()
+    assert ptr[0] == 0 and ptr[-1] == rows.shape[0] == plan.n_items
+    size = np.diff(ptr)
+    # every item in exactly one chunk, in order, never more than the cap
+    assert (size >= 1).all() and (size <= cap).all()
+    np.testing.assert_array_equal(np.repeat(crow, size), rows)
+    assert (np.diff(crow) >= 0).all()
+    # rows with one chunk write directly; the others get consecutive slots
+    # in chunk order, which the second pass folds in that order
+    n_chunks = np.bincount(crow, minlength=len(counts))
+    np.testing.assert_array_equal(slot == -1, n_chunks[crow] == 1)
+    split = np.nonzero(n_chunks != 1)[0]
+    np.testing.assert_array_equal(plan.split_row.numpy(), split)
+    sptr = plan.split_ptr.numpy()
+    np.testing.assert_array_equal(np.diff(sptr), n_chunks[split])
+    for s, r in enumerate(split):
+        np.testing.assert_array_equal(slot[crow == r],
+                                      np.arange(sptr[s], sptr[s + 1]))
+    assert plan.n_slots == sptr[-1] == int((slot >= 0).sum())
+
+
+def test_chunk_plan_rejects_unsorted_rows():
+    with pytest.raises(ValueError, match="ascend"):
+        build_chunk_plan(torch.tensor([0, 2, 1], dtype=torch.int32), 3, 4)
+    with pytest.raises(ValueError, match="ascend"):
+        build_chunk_plan(torch.tensor([0, 3], dtype=torch.int32), 3, 4)
+
+
+@pytest.mark.parametrize("kernel", ["tiles", "windowed"])
+def test_wrappers_take_a_plan(kernel):
+    """A cached plan and none give the same result (the CPU path ignores
+    the plan once it has checked that it fits)."""
+    rng = np.random.default_rng(5)
+    if kernel == "tiles":
+        tiles, td, tsrc = _rand_tiles(rng, 12, 3, 2, "min_plus", np.float32)
+        vals = rng.uniform(0, 3, size=(2, TN, 2)).astype(np.float32)
+        args = [torch.from_numpy(a) for a in (tiles, td, tsrc, vals)]
+        plan = tb.plan_tiles(args[1], 3)
+        a = tb.bsp_spmv(*args, n_dst_tiles=3, semiring="min_plus")
+        b = tb.bsp_spmv(*args, n_dst_tiles=3, semiring="min_plus", plan=plan)
+    else:
+        dst = np.sort(rng.integers(0, 300, size=900))
+        lay = tops.WindowLayout(dst, 300, block_edges=128)
+        buf = np.full((lay.n_blocks * 128, 1), np.inf, np.float32)
+        buf[lay.edge_slot] = rng.uniform(0, 3, size=(900, 1))
+        args = [torch.from_numpy(x)
+                for x in (buf, lay.local_dst, lay.block_window)]
+        plan = ts.plan_windows(args[2], lay.n_windows)
+        a = ts.segment_combine_windowed(*args, n_windows=lay.n_windows,
+                                        combiner="min")
+        b = ts.segment_combine_windowed(*args, n_windows=lay.n_windows,
+                                        combiner="min", plan=plan)
+    assert torch.equal(a, b)
+
+
+def test_library_name_follows_included_headers(tmp_path, monkeypatch):
+    """An edited ``csrc`` header changes the library name of every source
+    that includes it, directly or through another header, and no other."""
+    from repro_torch.kernels import _build
+    (tmp_path / "a.cu").write_text('#include "inner.cuh"\nint a;\n')
+    (tmp_path / "b.cu").write_text('#include <cstdint>\nint b;\n')
+    (tmp_path / "inner.cuh").write_text('#include "leaf.cuh"\n')
+    (tmp_path / "leaf.cuh").write_text("// v1\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    assert {p.name for p in _build._sources_of("a")} == \
+        {"a.cu", "inner.cuh", "leaf.cuh"}
+    before = (_build.library_path("a"), _build.library_path("b"))
+    (tmp_path / "leaf.cuh").write_text("// v2\n")
+    after = (_build.library_path("a"), _build.library_path("b"))
+    assert after[0] != before[0] and after[1] == before[1]
+    assert after[0].name.startswith("liba_")
+    # the port's own sources hash the shared header
+    monkeypatch.undo()
+    for name in _build.SOURCES:
+        assert "chunked.cuh" in {p.name for p in _build._sources_of(name)}
