@@ -34,6 +34,25 @@ Phases (the run exits non-zero if any of them fails):
      input, where every padding block / tile sits on a partition's last
      window / dst row. ``bsp_spmv`` plus_times is also timed at the grid
      PageRank shape beside ``torch.sparse.mm`` of a BSR matrix.
+  6. Streaming, on phase 3's kron-20 session (``pallas_windows``, its
+     buffer bound above a batch) and phase 4's kron-14 session
+     (``pallas_tiles``), with both launch counters reset before it: two
+     symmetric insert batches of 0.5% of the edges (weights in [5, 10);
+     the second brings 1,024 new vertex ids), each flushed and followed by
+     SSSP warm-auto and cold (bit-identical, warm in fewer supersteps),
+     the same query on ``coo`` and scipy's Dijkstra on the mutated edge
+     list; a delete batch of 5% of the resident edges (warm results
+     dropped), CC and PageRank against ``coo``; ``compact()`` and SSSP
+     again. On kron-14: one batch through many small ``update`` calls
+     (auto-flushes), one batch that moves the ``e_max`` bucket (the
+     fullest partition's resident pairs again, so the tiles keep their
+     shape), and a compaction, each followed by SSSP, CC and PageRank on tiles against
+     ``coo``; then a trace run with ``checkpoint_every=2`` resumed from its
+     second checkpoint. Both counters must be positive after it, and each
+     kernel is checked against its plain version on the post-compact
+     device lists. Per step it prints the host time of the flush (the
+     layout refresh apart), the re-upload of the device graph and of the
+     kernels' device list, and the query wall times.
 
 A small-graph check holds the three programs against independent numpy
 oracles on all three backends. The line before the last is the card's name
@@ -55,6 +74,7 @@ PR_RTOL = 1e-5                # PageRank: max |a - b| <= PR_RTOL * max |b|
 DEVICE = "cuda"
 GRID_SIDE = 1024              # the tiles path's grid graph (1,048,576 vertices)
 SUM_RTOL = 1e-5               # float sums: |got - want| <= SUM_RTOL * sum |terms|
+STREAM_BUFFER_EDGES = 1 << 22  # kron-20 session's buffer bound: above a batch
 
 
 class Smoke:
@@ -452,7 +472,8 @@ def windows_path(sm: Smoke, log: list):
     sm.note(f"kron-20: {g.n_vertices} vertices, {g.n_edges} edges, "
             f"generated in {time.perf_counter() - t:.1f}s")
     t = time.perf_counter()
-    sess = GraphSession.from_graph(g, 16, "cdbh", device=DEVICE)
+    sess = GraphSession.from_graph(g, 16, "cdbh", device=DEVICE,
+                                   max_buffer_edges=STREAM_BUFFER_EDGES)
     lay = sess.pg.ensure_edge_layouts(shape_policy=sess.shape_policy)
     sm.note(f"kron-20 cdbh P=16: v_max={sess.pg.v_max} e_max={sess.pg.e_max}"
             f" b_max={lay.b_max}; built in {time.perf_counter() - t:.1f}s")
@@ -466,7 +487,7 @@ def windows_path(sm: Smoke, log: list):
                ("cc", ConnectedComponents(), None, False),
                ("pagerank", PageRank(), {"n_vertices": g.n_vertices}, False)]
     res = run_queries(sm, sess, "kron-20", "pallas_windows", queries, log)
-    return sess, res
+    return sess, res, g, s0
 
 
 def tiles_path(sm: Smoke, log: list):
@@ -493,7 +514,7 @@ def tiles_path(sm: Smoke, log: list):
           ("cc", ConnectedComponents(), None, False),
           ("pagerank", PageRank(), {"n_vertices": gq.n_vertices}, False)]
     run_queries(sm, sq, "kron-14", "pallas_tiles", qq, log)
-    return sess, res
+    return sess, res, sq
 
 
 # --------------------------------------------------------------------------- #
@@ -581,7 +602,7 @@ def main_path_kernels(sm: Smoke, errs: dict, win, tile) -> list:
                 ("pagerank", PageRank()))
 
     # windows kernel on kron-20
-    sess, res = win
+    sess, res = win[:2]
     sgs = sess.device_graph()
     lay = sess.pg.edge_layouts
     timing = None
@@ -645,7 +666,7 @@ def main_path_kernels(sm: Smoke, errs: dict, win, tile) -> list:
     del pad, pm, pl, pb, got_p, want_p, row, lib_out
 
     # tile kernel on the grid graph
-    sess, res = tile
+    sess, res = tile[:2]
     lay = sess.pg.edge_layouts
     timing = pr = None
     for name, prog in programs:
@@ -725,6 +746,360 @@ def main_path_kernels(sm: Smoke, errs: dict, win, tile) -> list:
     return out
 
 
+
+# --------------------------------------------------------------------------- #
+# phase 6: the streaming lifecycle
+# --------------------------------------------------------------------------- #
+class LayoutTimer:
+    """Host seconds the edge layouts' refresh takes (the incremental
+    rebuild, the column growth and a full rebuild), gathered by wrapping
+    those three entry points for the duration of phase 6."""
+
+    def __init__(self):
+        from repro_torch.core import layouts as L
+        self.seconds = 0.0
+        self._orig = [(owner, name, getattr(owner, name))
+                      for owner, name in ((L.EdgeLayouts, "rebuild_partitions"),
+                                          (L.EdgeLayouts, "sync_capacity"),
+                                          (L, "build_edge_layouts"))]
+        for owner, name, fn in self._orig:
+            setattr(owner, name, self._timed(fn))
+
+    def _timed(self, fn):
+        def run(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.seconds += time.perf_counter() - t
+        return run
+
+    def take(self) -> float:
+        s, self.seconds = self.seconds, 0.0
+        return s
+
+    def close(self) -> None:
+        for owner, name, fn in self._orig:
+            setattr(owner, name, fn)
+
+
+def oracle_sssp_edges(n, src, dst, w, source):
+    """Dijkstra over an edge list whose parallel copies keep the lightest
+    weight (the session relaxes every resident copy)."""
+    import numpy as np
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import dijkstra
+    key = src.astype(np.int64) * n + dst
+    order = np.argsort(key, kind="stable")
+    key, w = key[order], w[order].astype(np.float64)
+    first = np.concatenate([[True], key[1:] != key[:-1]])
+    starts = np.nonzero(first)[0]
+    wmin = np.minimum.reduceat(w, starts)
+    k = key[starts]
+    m = csr_matrix((wmin, (k // n, k % n)), shape=(n, n))
+    return dijkstra(m, directed=True, indices=source)
+
+
+def sym_batch(rng, n_pairs, n, new_ids=()):
+    """``n_pairs`` distinct unordered pairs u != v of ids below ``n``, plus
+    one pair from each of ``new_ids`` to a random id below ``n``; both
+    directions, weights uniform in [5, 10)."""
+    import numpy as np
+    u = rng.integers(0, n, 2 * n_pairs)
+    v = rng.integers(0, n, 2 * n_pairs)
+    keep = u != v
+    u, v = u[keep], v[keep]
+    _, idx = np.unique(np.minimum(u, v) * n + np.maximum(u, v),
+                       return_index=True)
+    idx = np.sort(idx)[:n_pairs]
+    new_ids = np.asarray(new_ids, np.int64)
+    u = np.concatenate([u[idx], new_ids])
+    v = np.concatenate([v[idx], rng.integers(0, n, new_ids.shape[0])])
+    w = rng.uniform(5.0, 10.0, u.shape[0]).astype(np.float32)
+    return (np.concatenate([u, v]), np.concatenate([v, u]),
+            np.concatenate([w, w]))
+
+
+def streaming_path(sm: Smoke, log: list, win, tile, ident: str) -> dict:
+    """Phase 6 (see the module docstring). Returns the state the kernel
+    checks after it need and the per-step records."""
+    import numpy as np
+    import torch
+    from repro_torch.algos import SSSP, ConnectedComponents, PageRank
+    from repro_torch.core import EngineConfig
+
+    sess, _, g, s0 = win
+    sq = tile[2]
+    timer = LayoutTimer()
+    steps = []
+    rng = np.random.default_rng(13)
+    win_cfg = EngineConfig(edge_backend="pallas_windows")
+    coo_cfg = EngineConfig(edge_backend="coo")
+    # the mutated kron-20 edge list, kept on the host for the oracle
+    es, ed, ew = [g.src], [g.dst], [g.weights]
+
+    def refresh(label, s, mutate):
+        """Mutate (then flush) ``s``; time the host work and the re-upload
+        of the device graph and of the kernels' device list."""
+        t = time.perf_counter()
+        st = mutate()
+        host = time.perf_counter() - t
+        layout = timer.take()
+        t = time.perf_counter()
+        s.device_graph()
+        torch.cuda.synchronize()
+        upload = time.perf_counter() - t
+        eb = "pallas_windows" if s is sess else "pallas_tiles"
+        t = time.perf_counter()
+        s._layout_arg(SSSP(), eb)
+        torch.cuda.synchronize()
+        dev_list = time.perf_counter() - t
+        rec = dict(graph="kron-20" if s is sess else "kron-14", step=label,
+                   host_s=host - layout, layout_refresh_s=layout,
+                   graph_upload_s=upload, device_list_s=dev_list,
+                   shape_key=list(s.shape_key), n_edges=s.pg.n_edges,
+                   n_vertices=s.pg.n_vertices, gpu=ident)
+        steps.append(rec)
+        sm.note(f"stream {rec['graph']} {label}: host {rec['host_s']:.3f}s "
+                f"(mutation + flush), layout refresh {layout:.3f}s, graph "
+                f"upload {upload:.3f}s, {eb} device list {dev_list:.3f}s; "
+                f"shape key {s.shape_key} [{ident}]")
+        return st, rec
+
+    def q(s, prog, params, warm, cfg, rec, name):
+        res, st = s.query(prog, params, warm=warm, cfg=cfg)
+        rec.setdefault("queries", []).append(dict(
+            query=name, edge_backend=cfg.edge_backend, wall_s=st.wall_time,
+            supersteps=st.supersteps, messages=st.total_messages))
+        return res, st
+
+    def sssp_three_ways(rec, label, oracle):
+        wres, wst = q(sess, SSSP(), {"source": s0}, "auto", win_cfg, rec,
+                      "sssp_warm")
+        cres, cst = q(sess, SSSP(), {"source": s0}, False, win_cfg, rec,
+                      "sssp_cold")
+        ores, _ = q(sess, SSSP(), {"source": s0}, False, coo_cfg, rec,
+                    "sssp_coo")
+        sm.check(bool(np.array_equal(wres, cres)),
+                 f"kron-20 {label}: SSSP warm-auto bit-identical to cold")
+        sm.check(wst.supersteps < cst.supersteps,
+                 f"kron-20 {label}: warm took {wst.supersteps} supersteps, "
+                 f"cold {cst.supersteps}")
+        sm.check(bool(np.array_equal(cres, ores)),
+                 f"kron-20 {label}: SSSP on pallas_windows bit-identical to "
+                 f"coo")
+        if oracle:
+            t = time.perf_counter()
+            want = oracle_sssp_edges(sess.pg.n_vertices, np.concatenate(es),
+                                     np.concatenate(ed), np.concatenate(ew),
+                                     s0)
+            d = sess.pg.collect(cres, fill=np.float32(np.inf)).astype(
+                np.float64)
+            fin = np.isfinite(want)
+            sm.check(bool(np.array_equal(np.isfinite(d), fin) and np.allclose(
+                d[fin], want[fin], rtol=1e-5)),
+                f"kron-20 {label}: SSSP agrees with scipy Dijkstra on the "
+                f"mutated edge list (rtol 1e-5; {int(fin.sum())} reachable; "
+                f"oracle {time.perf_counter() - t:.1f}s)")
+        return cres
+
+    # ---- kron-20 (windows) ---------------------------------------------- #
+    n0, E0 = g.n_vertices, g.n_edges
+    for label, new in (("insert 1", ()),
+                       ("insert 2 (+1024 ids)", np.arange(n0, n0 + 1024))):
+        src, dst, w = sym_batch(rng, E0 // 400, n0, new)
+        es.append(src)
+        ed.append(dst)
+        ew.append(w)
+
+        def mutate(src=src, dst=dst, w=w):
+            sess.update(adds=(src, dst, w))
+            return sess.flush()
+        st, rec = refresh(label, sess, mutate)
+        sm.check(st.n_added == src.shape[0] and st.warm_start_safe
+                 and sess.pg.n_vertices == n0 + len(new),
+                 f"kron-20 {label}: {st.n_added} edges added in one flush, "
+                 f"{sess.pg.n_vertices} vertices")
+        sssp_three_ways(rec, label, oracle=True)
+
+    src_all, dst_all = np.concatenate(es), np.concatenate(ed)
+    pick = rng.random(src_all.shape[0]) < 0.05
+
+    def delete():
+        sess.update(deletes=(src_all[pick], dst_all[pick]))
+        return sess.flush()
+    st, rec = refresh("delete 5%", sess, delete)
+    sm.check(st.n_deleted > 0 and not st.warm_start_safe
+             and len(sess._warm) == 0,
+             f"kron-20 delete: {st.n_deleted} resident edges removed, warm "
+             f"results dropped")
+    for name, prog, params in (
+            ("cc", ConnectedComponents(), None),
+            ("pagerank", PageRank(), {"n_vertices": sess.pg.n_vertices})):
+        got, _ = q(sess, prog, params, False, win_cfg, rec, name)
+        want, _ = q(sess, prog, params, False, coo_cfg, rec, name + "_coo")
+        if prog.delta_based:
+            err = float(np.abs(got - want).max())
+            scale = float(np.abs(want).max())
+            sm.check(err <= PR_RTOL * scale and bool(np.isfinite(got).all()),
+                     f"kron-20 delete: PageRank windows == coo within "
+                     f"{PR_RTOL:g} of max rank (max err {err:.3g})")
+        else:
+            sm.check(bool(np.array_equal(got, want)),
+                     "kron-20 delete: CC windows bit-identical to coo")
+    q(sess, SSSP(), {"source": s0}, False, win_cfg, rec, "sssp_seed")
+
+    cs, rec = refresh("compact", sess, sess.compact)
+    sm.check(cs.n_evicted >= 0 and cs.remap is not None,
+             f"kron-20 compact: {cs.n_evicted} rows evicted, v_max "
+             f"{cs.v_max_before} -> {cs.v_max_after}, e_max "
+             f"{cs.e_max_before} -> {cs.e_max_after}")
+    win_vals = sssp_three_ways(rec, "compact", oracle=False)
+
+    # ---- kron-14 (tiles) ------------------------------------------------ #
+    from repro_torch.stream import EdgeDelta
+
+    def tiles_queries(label, rec):
+        qs = [("sssp", SSSP(), {"source": 0}, False),
+              ("cc", ConnectedComponents(), None, False),
+              ("pagerank", PageRank(), {"n_vertices": sq.pg.n_vertices},
+               False)]
+        before = len(log)
+        res = run_queries(sm, sq, f"kron-14 {label}", "pallas_tiles", qs,
+                          log)
+        rec["queries"] = log[before:]
+        return res
+
+    nq = sq.pg.n_vertices
+    src, dst, w = sym_batch(rng, sq.pg.n_edges // 100, nq)
+
+    def small_updates():
+        for lo in range(0, src.shape[0], 200):
+            sq.update(adds=(src[lo:lo + 200], dst[lo:lo + 200],
+                            w[lo:lo + 200]))
+        return sq.flush()
+    auto0 = sq.buffer.stats.auto_flushes
+    _, rec = refresh("small updates", sq, small_updates)
+    sm.check(sq.buffer.stats.auto_flushes - auto0 > 0,
+             f"kron-14: {src.shape[0]} edges through "
+             f"{-(-src.shape[0] // 200)} update calls, "
+             f"{sq.buffer.stats.auto_flushes - auto0} auto-flushes")
+    tiles_queries("small updates", rec)
+
+    # the fullest partition's own resident pairs once more (parallel
+    # copies, weights in [5, 10)): just enough to move the e_max bucket
+    # with the members, and so v_max and the tiles, unchanged
+    key0, pg = sq.shape_key, sq.pg
+    p = int(np.argmax(pg.edges_per_part))
+    m = pg.emask[p]
+    gs, gd = pg.gvid[p][pg.esrc[p][m]], pg.gvid[p][pg.edst[p][m]]
+    _, first = np.unique(gs * nq + gd, return_index=True)
+    n_big = pg.e_max - int(m.sum()) + 1
+    pick = np.sort(first)[:n_big]
+    big = EdgeDelta(add_src=gs[pick], add_dst=gd[pick],
+                    add_w=rng.uniform(5, 10, pick.shape[0]).astype(
+                        np.float32))
+
+    def push_big():
+        sq.push(big)
+        return sq.flush()
+    _, rec = refresh("e_max batch", sq, push_big)
+    sm.note(f"kron-14 shape key {key0} -> {sq.shape_key}")
+    sm.check(pick.shape[0] == n_big and sq.shape_key[2] > key0[2],
+             f"kron-14: the batch of {n_big} edges into partition {p} moved "
+             f"the e_max bucket ({key0[2]} -> {sq.shape_key[2]})")
+    tiles_queries("e_max batch", rec)
+    _, rec = refresh("compact", sq, sq.compact)
+    tile_res = tiles_queries("compact", rec)
+
+    # ---- checkpoint / resume (trace mode, kron-14 on tiles) ------------- #
+    import shutil
+    import tempfile
+    from repro_torch.core import run_sim
+    ckdir = tempfile.mkdtemp(prefix="bsp_ckpt_")
+    try:
+        for name, prog, params in (
+                ("sssp", SSSP(), {"source": 0}),
+                ("pagerank", PageRank(), {"n_vertices": sq.pg.n_vertices})):
+            d = f"{ckdir}/{name}"
+            cfg = EngineConfig(edge_backend="pallas_tiles", trace=True,
+                               checkpoint_every=2, checkpoint_dir=d)
+            full, fst = run_sim(prog, sq.pg, params, cfg, device=DEVICE)
+            second = f"{d}/bsp_000004.npz"
+            res, rst = run_sim(prog, sq.pg, params,
+                               EngineConfig(edge_backend="pallas_tiles",
+                                            trace=True),
+                               resume_from=second, device=DEVICE)
+            same = (np.allclose(res, full, rtol=PR_RTOL, atol=PR_RTOL)
+                    if prog.delta_based else np.array_equal(res, full))
+            # a checkpoint of the halting superstep resumes into one more,
+            # empty, superstep (the JAX engine does the same)
+            want = fst.supersteps + (fst.supersteps <= 4)
+            sm.check(bool(same) and rst.supersteps == want,
+                     f"kron-14 {name}: resumed from the second checkpoint "
+                     f"(step 4 of {fst.supersteps}): {rst.supersteps} "
+                     f"supersteps, the uninterrupted run's results")
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    timer.close()
+    return dict(steps=steps, win_vals=win_vals, tile_res=tile_res)
+
+
+def stream_kernel_checks(sm: Smoke, errs: dict, win, tile, out) -> None:
+    """Each kernel against its plain version once on the post-compact
+    device lists of phase 6 (min exact; sums within SUM_RTOL)."""
+    import torch
+    from repro_torch.algos import SSSP, PageRank
+    from repro_torch.core.engine import (_layout_block_from, _tile_inputs,
+                                         _window_inputs)
+    from repro_torch.kernels import bsp_spmv as bk
+    from repro_torch.kernels import segment_combine as sk
+
+    dev = torch.device(DEVICE)
+    sess, sq = win[0], tile[2]
+    sgs = sess.device_graph()
+    dist = torch.from_numpy(out["win_vals"]).to(dev)[..., None]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    for prog in (SSSP(), PageRank()):
+        blk = _layout_block_from(sess.pg.edge_layouts, sess.pg, prog,
+                                 "pallas_windows", dev)
+        vals = torch.rand(dist.shape, generator=gen, device=dev) \
+            if prog.delta_based else dist
+        msgs, ldst, bwin, nw, plan = _window_inputs(
+            sgs, blk, vals, prog.sweep_spec, sgs.v_max)
+        comb = prog.sweep_spec.combiner
+        got = sk.segment_combine_windowed(msgs, ldst, bwin, n_windows=nw,
+                                          combiner=comb, plan=plan)
+        want = sk.segment_combine_plain(msgs, ldst, bwin, n_windows=nw,
+                                        combiner=comb)
+        torch.cuda.synchronize()
+        ok, err = compare(got, want, segment_magnitude(msgs, ldst, bwin, nw,
+                                                       comb))
+        errs["segment_combine"] = max(errs["segment_combine"], err)
+        sm.check(ok, f"segment_combine {comb} on the post-compact kron-20 "
+                     f"list ({bwin.shape[0]} blocks) vs plain (max err "
+                     f"{err:.3g})")
+    for name, prog in (("sssp", SSSP()), ("pagerank", PageRank())):
+        v = torch.from_numpy(out["tile_res"][("pallas_tiles", name)]).to(
+            dev)[..., None]
+        blk = _layout_block_from(sq.pg.edge_layouts, sq.pg, prog,
+                                 "pallas_tiles", dev)
+        tiles, td, ts, vv, ndt, plan = _tile_inputs(blk, v, prog.sweep_spec,
+                                                    sq.pg.v_max)
+        semi = prog.sweep_spec.semiring
+        got = bk.bsp_spmv(tiles, td, ts, vv, n_dst_tiles=ndt, semiring=semi,
+                          plan=plan)
+        want = bk.bsp_spmv_plain(tiles, td, ts, vv, n_dst_tiles=ndt,
+                                 semiring=semi)
+        torch.cuda.synchronize()
+        ok, err = compare(got, want, spmv_magnitude(tiles, td, ts, vv, ndt,
+                                                    semi))
+        errs["bsp_spmv"] = max(errs["bsp_spmv"], err)
+        sm.check(ok, f"bsp_spmv {semi} on the post-compact kron-14 list "
+                     f"({tiles.shape[0]} tiles) vs plain (max err {err:.3g})")
+
+
 def main() -> int:
     try:
         import torch
@@ -787,6 +1162,19 @@ def main() -> int:
     sm.note(f"host syncs over {len(log)} main-path queries: {syncs}")
 
     recs = main_path_kernels(sm, errs, win, tile)
+
+    bk.bsp_spmv.launches = 0
+    sk.segment_combine_windowed.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    stream = streaming_path(sm, log, win, tile, ident)
+    peak["streaming"] = torch.cuda.max_memory_allocated()
+    stream_launches = {"bsp_spmv": bk.bsp_spmv.launches,
+                       "segment_combine_windowed":
+                           sk.segment_combine_windowed.launches}
+    sm.note(f"launches in the streaming phase: {stream_launches}")
+    sm.check(all(v > 0 for v in stream_launches.values()),
+             "the streaming phase launched both kernels")
+    stream_kernel_checks(sm, errs, win, tile, stream)
     kernels = []
     for r in recs:
         t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
@@ -802,10 +1190,12 @@ def main() -> int:
             max_abs_err=errs[err_key], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
-            library_ms=r["library_ms"], **extra))
+            library_ms=r["library_ms"],
+            launches_streaming=stream_launches[r["name"]], **extra))
     Path(ROOT / "chiprun_out").mkdir(exist_ok=True)
     (ROOT / "chiprun_out" / "chip_smoke_queries.json").write_text(
         json.dumps(dict(gpu=ident, queries=log, kernels=kernels,
+                        stream_steps=stream["steps"],
                         peak_memory_bytes=peak,
                         kernel_shapes={r["name"]: r["shape"] for r in recs},
                         plus_times_library_error=recs[-1].get(

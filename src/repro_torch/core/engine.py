@@ -23,6 +23,9 @@ reached keeps its state while the others continue, so per-partition sweep
 counts equal those of the JAX package's vmapped ``_local_phase``. The
 ``while`` loops are Python loops; each local sweep and each superstep reads
 one flag from the device (``ExecutionStats.host_syncs`` counts them).
+Trace mode (``cfg.trace``) can write BSP checkpoints every
+``cfg.checkpoint_every`` supersteps and resume from one
+(``run_sim(resume_from=...)``), in the JAX package's ``.npz`` layout.
 
 The backend names ``pallas_tiles``/``pallas_windows`` are kept from the
 reference so configurations carry across; here they select the CUDA
@@ -33,6 +36,9 @@ implemented yet: using them raises ``NotImplementedError``.
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
+import tempfile
 import time
 from typing import Any, Callable, Optional
 
@@ -52,7 +58,7 @@ from repro_torch.kernels.segment_combine import W, segment_combine_windowed
 
 __all__ = ["EngineConfig", "EdgeCombine", "run", "run_sim",
            "make_sim_runner", "resolve_edge_backend",
-           "normalize_edge_backend"]
+           "normalize_edge_backend", "save_checkpoint", "load_checkpoint"]
 
 _SHARD_MAP_TODO = ("backend='shard_map' is not ported yet (ROADMAP Queue 1: "
                    "multi-GPU backend over torch.distributed)")
@@ -96,7 +102,7 @@ class EngineConfig:
     lean_frontier: bool = False       # shard_map only
     subgraph_axes: tuple = ("sub",)   # shard_map only
     edge_axes: tuple = ()             # shard_map only
-    checkpoint_every: int = 0         # supersteps; 0 = off
+    checkpoint_every: int = 0         # supersteps; 0 = off (trace mode)
     checkpoint_dir: Optional[str] = None
 
     _MODES = ("sc", "vc")
@@ -144,10 +150,6 @@ def _check_supported(cfg: EngineConfig, edge_backend: str) -> None:
         raise NotImplementedError(_SHARD_MAP_TODO)
     if edge_backend == "auto":
         raise NotImplementedError(_AUTO_TODO)
-    if cfg.checkpoint_every:
-        raise NotImplementedError(
-            "BSP checkpointing is not ported yet (ROADMAP Queue 1: "
-            "streaming and session mutation)")
 
 
 # --------------------------------------------------------------------------- #
@@ -424,16 +426,19 @@ def make_sim_runner(program: VertexProgram, cfg: EngineConfig, n_slots: int,
                     batch: bool = False) -> Callable:
     """Build the simulator BSP loop
 
-        runner(sgs, lay, params, warm=None, on_step=None) ->
+        runner(sgs, lay, params, warm=None, on_step=None, resume=None) ->
             (results, supersteps, total_messages, sweeps_per_part,
              host_syncs)
 
     ``sgs`` is the stacked DeviceSubgraph, ``lay`` the device layout
     (``TileBlock``/``WindowBlock``; None on ``coo``), ``warm``
     (``warm_start=True``) a [P, v_max, K] previous-result tensor threaded
-    into ``program.warm_init``. ``on_step(msgs, active, sweeps)`` is called
-    after every superstep (trace mode). ``results`` stays on the device;
-    the counts are host ints (``sweeps_per_part`` a [P] int64 array)."""
+    into ``program.warm_init``. ``on_step(msgs, active, sweeps, carry)`` is
+    called after every superstep (trace mode) with ``carry`` the loop state
+    ``dict(state, last_out, merged, step)``; ``resume`` is such a carry to
+    continue from (a BSP checkpoint). ``results`` stays on the device; the
+    counts are host ints (``sweeps_per_part`` a [P] int64 array) and cover
+    the supersteps this call ran."""
     if batch:
         raise NotImplementedError(
             "batched runners are not ported yet (ROADMAP Queue 1: "
@@ -446,20 +451,27 @@ def make_sim_runner(program: VertexProgram, cfg: EngineConfig, n_slots: int,
     superstep = _make_sim_superstep(program, cfg, n_slots, edge_backend)
 
     def runner(sgs: DeviceSubgraph, lay, params, warm=None,
-               on_step: Optional[Callable] = None):
+               on_step: Optional[Callable] = None, resume=None):
         if (warm is not None) != warm_start:
             raise ValueError(f"this runner was built with warm_start="
                              f"{warm_start}; pass warm accordingly")
         dev = sgs.device
         dt = program.torch_dtype
-        state = program.init(sgs, params, ec)
-        if warm_start:
-            state = program.warm_init(sgs, params, state, warm)
-        last_out = torch.full((sgs.n_parts, sgs.v_max, K), ident, dtype=dt,
-                              device=dev)
-        merged_buf = torch.full((n_slots + 1, K), ident, dtype=dt,
-                                device=dev)
-        step = tot_msgs = syncs = 0
+        if resume is None:
+            state = program.init(sgs, params, ec)
+            if warm_start:
+                state = program.warm_init(sgs, params, state, warm)
+            last_out = torch.full((sgs.n_parts, sgs.v_max, K), ident,
+                                  dtype=dt, device=dev)
+            merged_buf = torch.full((n_slots + 1, K), ident, dtype=dt,
+                                    device=dev)
+            step = 0
+        else:
+            state, last_out, merged_buf = (resume["state"],
+                                           resume["last_out"],
+                                           resume["merged"])
+            step = int(resume["step"])
+        tot_msgs = syncs = 0
         tot_sweeps = torch.zeros(sgs.n_parts, dtype=torch.int32, device=dev)
         msgs = active = 1
         while step == 0 or ((msgs > 0 or active > 0)
@@ -472,12 +484,84 @@ def make_sim_runner(program: VertexProgram, cfg: EngineConfig, n_slots: int,
             tot_msgs += msgs
             step += 1
             if on_step is not None:
-                on_step(msgs, active, sweeps.cpu().numpy())
+                on_step(msgs, active, sweeps.cpu().numpy(),
+                        dict(state=state, last_out=last_out,
+                             merged=merged_buf, step=step))
         results = program.result(sgs, params, state)
         return (results, step, tot_msgs,
                 tot_sweeps.cpu().numpy().astype(np.int64), syncs)
 
     return runner
+
+
+# --------------------------------------------------------------------------- #
+# BSP checkpoints (the JAX package's .npz layout, written with numpy alone)
+# --------------------------------------------------------------------------- #
+_SEP = "|"
+
+
+def _flatten_carry(tree, path=()) -> dict:
+    """{keypath: numpy leaf} with the reference's key spelling: each dict
+    key as ``['name']`` (JAX ``keystr``), nested keys joined by ``|``, dict
+    keys in sorted order."""
+    if isinstance(tree, dict):
+        out = {}
+        for k in sorted(tree):
+            out.update(_flatten_carry(tree[k], path + (f"[{k!r}]",)))
+        return out
+    leaf = tree.cpu().numpy() if isinstance(tree, torch.Tensor) \
+        else np.asarray(tree)
+    return {_SEP.join(path): leaf}
+
+
+def save_checkpoint(path: str, carry: dict) -> str:
+    """Atomically write a BSP carry ``dict(state, last_out, merged, step)``
+    as an ``.npz`` with a ``__manifest__`` member: the layout of the JAX
+    package's ``save_pytree``, so either engine resumes the other's
+    checkpoints."""
+    flat = _flatten_carry(carry)
+    d = os.path.dirname(os.path.abspath(path))
+    os.makedirs(d, exist_ok=True)
+    meta = {"keys": sorted(flat), "meta": {}}
+    fd, tmp = tempfile.mkstemp(dir=d, suffix=".tmp")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            np.savez(f, __manifest__=np.frombuffer(
+                json.dumps(meta).encode(), dtype=np.uint8), **flat)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return path
+
+
+def load_checkpoint(path: str, like: dict, device) -> dict:
+    """Read a BSP checkpoint into the structure of ``like`` (a carry of
+    tensors), each leaf cast to the dtype of its ``like`` leaf and moved to
+    ``device``; ``step`` comes back as an int."""
+    with np.load(path) as z:
+        meta = json.loads(bytes(z["__manifest__"]).decode())
+        flat = {k: z[k] for k in meta["keys"]}
+    want = _flatten_carry(like)
+    if sorted(want) != sorted(flat):
+        raise ValueError(f"checkpoint {path} holds {sorted(flat)}, the "
+                         f"program's carry is {sorted(want)}")
+
+    def build(tree, path=()):
+        if isinstance(tree, dict):
+            return {k: build(v, path + (f"[{k!r}]",))
+                    for k, v in tree.items()}
+        arr = flat[_SEP.join(path)]
+        if arr.shape != want[_SEP.join(path)].shape:
+            raise ValueError(f"checkpoint leaf {_SEP.join(path)} has shape "
+                             f"{arr.shape}, expected "
+                             f"{want[_SEP.join(path)].shape}")
+        if not isinstance(tree, torch.Tensor):
+            return arr.item()
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(
+            device=device, dtype=tree.dtype)
+
+    return build(like)
 
 
 def run_sim(program: VertexProgram, pg: PartitionedGraph, params=None,
@@ -490,11 +574,13 @@ def run_sim(program: VertexProgram, pg: PartitionedGraph, params=None,
     ``init_state``: global per-vertex values [n_vertices(, K)] from a
     previous converged run — a warm start, used only for monotone programs
     (non-monotone programs such as PageRank start cold). ``cfg.trace``
-    fills the per-superstep lists of the stats."""
-    if resume_from is not None:
-        raise NotImplementedError(
-            "checkpoint resume is not ported yet (ROADMAP Queue 1: "
-            "streaming and session mutation)")
+    fills the per-superstep lists of the stats, and with
+    ``cfg.checkpoint_every``/``cfg.checkpoint_dir`` writes
+    ``bsp_{step:06d}.npz`` every that many supersteps; ``resume_from``
+    (trace mode only) continues a job from such a checkpoint — one this
+    engine or the JAX package's wrote."""
+    if resume_from is not None and not cfg.trace:
+        raise ValueError("resume_from requires trace mode (cfg.trace=True)")
     dev = resolve_device(device)
     edge_backend = resolve_edge_backend(program, cfg)
     _check_supported(cfg, edge_backend)
@@ -518,17 +604,31 @@ def run_sim(program: VertexProgram, pg: PartitionedGraph, params=None,
     itemsize = numpy_dtype(program.dtype).itemsize
     step_bytes = (n_slots + 1) * K * itemsize * pg.n_parts
 
-    def on_step(msgs, active, sweeps):
+    def on_step(msgs, active, sweeps, carry):
         stats.messages_per_step.append(msgs)
         stats.active_parts_per_step.append(active)
+        step = carry["step"]
+        if cfg.checkpoint_every and cfg.checkpoint_dir \
+                and step % cfg.checkpoint_every == 0:
+            save_checkpoint(os.path.join(cfg.checkpoint_dir,
+                                         f"bsp_{step:06d}.npz"), carry)
 
     runner = make_sim_runner(program, cfg, n_slots, warm_start=warm)
     wblk = None
     if warm:
         wblk = torch.from_numpy(_warm_block(program, pg, init_state)).to(dev)
+    resume = None
+    if resume_from is not None:
+        dt = program.torch_dtype
+        like = dict(
+            state=program.init(sgs, params, EdgeCombine(())),
+            last_out=torch.empty((pg.n_parts, pg.v_max, K), dtype=dt),
+            merged=torch.empty((n_slots + 1, K), dtype=dt), step=0)
+        resume = load_checkpoint(resume_from, like, dev)
     t0 = time.perf_counter()
     results, steps, tot_msgs, sweeps_h, syncs = runner(
-        sgs, lay_blk, params, wblk, on_step=on_step if cfg.trace else None)
+        sgs, lay_blk, params, wblk, on_step=on_step if cfg.trace else None,
+        resume=resume)
     results = results.cpu().numpy()
     stats.wall_time = time.perf_counter() - t0
     stats.supersteps = steps
@@ -536,7 +636,8 @@ def run_sim(program: VertexProgram, pg: PartitionedGraph, params=None,
     stats.host_syncs = syncs
     stats.processed_edges = int((sweeps_h * epp_host).sum())
     stats.backend_flops = int((sweeps_h * flops_pp).sum())
-    stats.total_bytes = steps * step_bytes
+    stats.total_bytes = (steps - (0 if resume is None else resume["step"])) \
+        * step_bytes
     return results, stats
 
 

@@ -15,7 +15,8 @@ BSP sweep.
     (semiring x edge-value map x dtype) and are realized lazily per key.
     Window layouts bake no values (messages are computed in the sweep).
   - **ShapePolicy-bucketed capacities** — ``t_max``/``b_max`` land on the
-    policy's buckets, as ``v_max``/``e_max`` do.
+    policy's buckets, as ``v_max``/``e_max`` do, and only grow under a
+    delta.
 
 Layout invariants the kernels rely on: tile lists are (dst, src)-sorted per
 partition with every dst tile row covered at least once; ``bwin`` is
@@ -29,11 +30,19 @@ is the flat list of the real tiles / blocks of all P partitions
 offset by ``p * n_dst_tiles`` / ``p * n_windows``), with each edge's slot
 remapped into the compact message buffer and the kernels' chunk plans —
 all computed once per layout, so a sweep feeds the kernels no padding.
+
+Under streaming (``repro_torch.stream``) the host rows are refreshed in
+place: ``rebuild_partitions`` rebuilds the partitions a delta patched and
+``sync_capacity`` column-grows the per-edge arrays; both drop every device
+list (a stale list would have the kernels read the graph as it was before
+the flush), and the next kernel query builds the compact list and its
+chunk plans anew. A ``v_max`` change rebuilds the whole layout as a new
+object.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, Iterable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -186,13 +195,24 @@ class EdgeLayouts:
     # ------------------------------------------------------------------ #
     # realization: dense tile values per (semiring, edge-value map, dtype)
     # ------------------------------------------------------------------ #
-    def _realize_tiles(self, pg, key):
+    def _realize_tiles(self, pg, key, parts: Optional[Iterable[int]] = None):
+        """Realize (or, with ``parts``, re-realize only those partitions'
+        rows of) the dense tile values of one (semiring, edge-value map,
+        dtype) key."""
         semiring, kind, dtype_str = key
         dtype = np.dtype(dtype_str)
+        # tile contents are ADDED to values under min_plus: integer dtypes
+        # pad with the wrap-safe halved identity (kernels/ref.py)
         ident = tile_pad_identity(semiring, dtype)
-        tiles = np.full((self.n_parts, self.t_max, TM, TN), ident, dtype)
-        filled = np.zeros(self.n_parts, np.int64)
-        for p in range(self.n_parts):
+        tiles = self._tiles.get(key)
+        if tiles is None or parts is None:
+            tiles = np.full((self.n_parts, self.t_max, TM, TN), ident, dtype)
+            parts = range(self.n_parts)
+            self._tiles[key] = tiles
+            self._filled[key] = np.zeros(self.n_parts, np.int64)
+        filled = self._filled[key]
+        for p in parts:
+            tiles[p] = ident
             valid = self.edge_tile[p] >= 0
             vals = _edge_values(kind, pg.ew[p][valid], dtype)
             idx = (self.edge_tile[p][valid], self.edge_r[p][valid],
@@ -201,9 +221,9 @@ class EdgeLayouts:
                 np.add.at(tiles[p], idx, vals)
             else:
                 np.minimum.at(tiles[p], idx, vals)
+            # per partition, so a partial rebuild never rescans the
+            # untouched partitions' tiles to refresh the density
             filled[p] = int((tiles[p] != ident).sum())
-        self._tiles[key] = tiles
-        self._filled[key] = filled
         self._density[key] = int(filled.sum()) / max(
             int(self.n_tiles.sum()) * TM * TN, 1)
         return tiles
@@ -337,6 +357,84 @@ class EdgeLayouts:
         B = int(np.maximum(-(-counts // self.block_edges), 1).sum())
         return T, B
 
+    def _grow_caps(self, need_t: int, need_b: int) -> bool:
+        """Grow ``t_max``/``b_max`` to the policy bucket (grow-only, like
+        ``e_max`` under a delta). Returns True if anything grew."""
+        grew = False
+        if need_t > self.t_max:
+            new_t = max(self.t_max, self.policy.bucket(need_t))
+            pad = new_t - self.t_max
+            self.tile_dst = np.concatenate(
+                [self.tile_dst, np.full((self.n_parts, pad),
+                                        self.n_dst_tiles - 1, np.int32)], 1)
+            self.tile_src = np.concatenate(
+                [self.tile_src, np.full((self.n_parts, pad),
+                                        self.n_src_tiles - 1, np.int32)], 1)
+            for key, tiles in list(self._tiles.items()):
+                # the pad of the realization's own semiring and dtype (the
+                # halved iinfo.max for integer min_plus), never the
+                # combiner identity
+                ident = tile_pad_identity(key[0], np.dtype(key[2]))
+                self._tiles[key] = np.concatenate(
+                    [tiles, np.full((self.n_parts, pad, TM, TN), ident,
+                                    tiles.dtype)], 1)
+            self.t_max = new_t
+            grew = True
+        if need_b > self.b_max:
+            new_b = max(self.b_max, self.policy.bucket(need_b))
+            pad = new_b - self.b_max
+            self.bwin = np.concatenate(
+                [self.bwin, np.full((self.n_parts, pad),
+                                    self.n_windows - 1, np.int32)], 1)
+            self.ldst = np.concatenate(
+                [self.ldst, np.zeros((self.n_parts, pad * self.block_edges),
+                                     np.int32)], 1)
+            self.b_max = new_b
+            grew = True
+        return grew
+
+    def rebuild_partitions(self, pg, parts: Iterable[int]) -> None:
+        """Refresh the layout after a delta patched ``parts``
+        (``stream/delta.py``): grow the bucketed caps if a patched partition
+        overflows them, rebuild only the patched partitions' geometry and
+        their rows of every cached tile realization (the caps are
+        grow-only, so untouched rows stay valid), and drop the device
+        lists, whose compact ids and chunk plans describe the old
+        geometry."""
+        parts = sorted(set(int(p) for p in parts))
+        need_t = need_b = 0
+        for p in parts:
+            t, b = self._partition_caps(pg, p)
+            need_t, need_b = max(need_t, t), max(need_b, b)
+        self._grow_caps(need_t, need_b)
+        for p in parts:
+            self._build_partition(pg, p)
+        for key in self._tiles:
+            self._realize_tiles(pg, key, parts)
+        self._device.clear()
+
+    def sync_capacity(self, pg) -> bool:
+        """Column-grow the per-edge arrays after ``e_max`` growth. Returns
+        False when ``v_max`` (or P) moved: the tile/window grid moved with
+        it and the caller rebuilds the whole layout. New columns are padding
+        until ``rebuild_partitions`` fills them."""
+        if self.n_parts != pg.n_parts or self.v_max != pg.v_max:
+            return False
+        if pg.e_max > self.e_max:
+            pad = pg.e_max - self.e_max
+
+            def grow(a, fill):
+                return np.concatenate(
+                    [a, np.full((self.n_parts, pad), fill, a.dtype)], 1)
+
+            self.edge_tile = grow(self.edge_tile, -1)
+            self.edge_r = grow(self.edge_r, 0)
+            self.edge_c = grow(self.edge_c, 0)
+            self.eslot = grow(self.eslot, -1)
+            self.e_max = pg.e_max
+            self._device.clear()
+        return self.e_max == pg.e_max
+
     def matches(self, pg) -> bool:
         """False when the graph's padded shapes moved since the build."""
         return (self.n_parts == pg.n_parts and self.v_max == pg.v_max
@@ -366,12 +464,7 @@ def build_edge_layouts(pg, policy,
     for p in range(P):
         t, b = lay._partition_caps(pg, p)
         need_t, need_b = max(need_t, t), max(need_b, b)
-    lay.t_max = policy.bucket(need_t)
-    lay.b_max = policy.bucket(need_b)
-    lay.tile_dst = np.full((P, lay.t_max), lay.n_dst_tiles - 1, np.int32)
-    lay.tile_src = np.full((P, lay.t_max), lay.n_src_tiles - 1, np.int32)
-    lay.bwin = np.full((P, lay.b_max), lay.n_windows - 1, np.int32)
-    lay.ldst = np.zeros((P, lay.b_max * lay.block_edges), np.int32)
+    lay._grow_caps(need_t, need_b)
     for p in range(P):
         lay._build_partition(pg, p)
     return lay

@@ -10,9 +10,13 @@ masters are elected by hash (§4.3) and used to collect results.
 The layers are the reference's: ``partition_vertex_sets`` (membership),
 ``frontier_election`` (slots + masters from membership alone),
 ``assemble_partitioned_graph`` (padded arrays, one partition's edges at a
-time) and ``build_partitioned_graph`` (the one-shot wrapper). Every array
-is bit-identical to the JAX package's for the same graph and assignment.
-Padded capacities (``v_max``/``e_max``) come from a ``ShapePolicy``.
+time), ``build_partitioned_graph`` (the one-shot wrapper), and the two the
+streaming path patches a graph with: ``recompute_frontier`` (slots and
+masters re-elected in place after a membership change) and
+``repack_partitions`` (the arrays rebuilt at fresh, possibly smaller,
+capacities by a compaction). Every array is bit-identical to the JAX
+package's for the same graph and assignment. Padded capacities
+(``v_max``/``e_max``) come from a ``ShapePolicy``.
 """
 from __future__ import annotations
 
@@ -28,7 +32,7 @@ from repro_torch.core.partition import route_vertices_rh
 __all__ = ["PartitionedGraph", "ShapePolicy", "resolve_shape_policy",
            "build_partitioned_graph", "frontier_election",
            "assemble_partitioned_graph", "partition_vertex_sets",
-           "localize_edges"]
+           "recompute_frontier", "repack_partitions", "localize_edges"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,6 +96,12 @@ def resolve_shape_policy(shape_policy: Optional[ShapePolicy],
     if shape_policy is None:
         return ShapePolicy.exact(pad_multiple)
     return shape_policy
+
+
+def _pad_to(arr: np.ndarray, n: int, fill) -> np.ndarray:
+    out = np.full((n,) + arr.shape[1:], fill, dtype=arr.dtype)
+    out[: arr.shape[0]] = arr
+    return out
 
 
 def localize_edges(lv: np.ndarray, gs: np.ndarray, gd: np.ndarray, w):
@@ -313,3 +323,118 @@ def build_partitioned_graph(g: Graph, edge_part: np.ndarray, n_parts: int,
         g.out_degrees(), g.in_degrees(), pad_multiple=pad_multiple,
         shape_policy=shape_policy, edge_part=edge_part,
         build_edge_layouts=build_edge_layouts)
+
+
+# --------------------------------------------------------------------------- #
+# In-place repack at fresh capacities (stream/delta.py compaction)
+# --------------------------------------------------------------------------- #
+def repack_partitions(pg: PartitionedGraph,
+                      part_vertices: Sequence[np.ndarray],
+                      part_edges: Sequence[tuple],
+                      *, pad_multiple: int = 8,
+                      shape_policy: Optional[ShapePolicy] = None
+                      ) -> np.ndarray:
+    """Rebuild ``pg``'s padded arrays in place from explicit per-partition
+    membership (sorted unique global ids) and edge lists ``(src, dst, w)``
+    in global ids. ``v_max``/``e_max`` are re-derived from the new content
+    and may shrink (to the policy's bucket floor under a bucketed policy);
+    slots and masters are re-elected; degrees and labels follow their
+    global ids. Edge layouts, if the graph had them, are rebuilt under
+    their own policy.
+
+    Returns ``remap``: ``[P, old_v_max]`` int32, each old local row's new
+    local row (-1 for evicted members and padding)."""
+    P = pg.n_parts
+    old_v_max = pg.v_max
+    policy = resolve_shape_policy(shape_policy, pad_multiple)
+
+    new_v_max = policy.bucket(
+        max((lv.shape[0] for lv in part_vertices), default=1))
+    new_e_max = policy.bucket(
+        max((e[0].shape[0] for e in part_edges), default=1))
+
+    # global per-vertex tables, read from the old replicas (all agree)
+    sel = pg.vmask
+    g_out = np.zeros(pg.n_vertices, np.float32)
+    g_in = np.zeros(pg.n_vertices, np.float32)
+    g_out[pg.gvid[sel]] = pg.out_deg[sel]
+    g_in[pg.gvid[sel]] = pg.in_deg[sel]
+    g_lab = None
+    if pg.vlabel is not None:
+        g_lab = np.zeros(pg.n_vertices, np.int32)
+        g_lab[pg.gvid[sel]] = pg.vlabel[sel]
+
+    remap = np.full((P, old_v_max), -1, np.int32)
+    gvid = np.full((P, new_v_max), -1, np.int64)
+    vmask = np.zeros((P, new_v_max), bool)
+    out_deg = np.zeros((P, new_v_max), np.float32)
+    in_deg = np.zeros((P, new_v_max), np.float32)
+    vlabel = np.zeros((P, new_v_max), np.int32) if g_lab is not None else None
+    esrc = np.zeros((P, new_e_max), np.int32)
+    edst = np.zeros((P, new_e_max), np.int32)
+    ew = np.zeros((P, new_e_max), np.float32)
+    emask = np.zeros((P, new_e_max), bool)
+
+    for p in range(P):
+        lv = np.asarray(part_vertices[p], np.int64)
+        nv = lv.shape[0]
+        gvid[p, :nv] = lv
+        vmask[p, :nv] = True
+        out_deg[p, :nv] = g_out[lv]
+        in_deg[p, :nv] = g_in[lv]
+        if vlabel is not None:
+            vlabel[p, :nv] = g_lab[lv]
+
+        old_lv = pg.gvid[p][pg.vmask[p]]
+        pos = np.searchsorted(lv, old_lv)
+        kept = np.zeros(old_lv.shape[0], bool)
+        in_range = pos < nv
+        kept[in_range] = lv[pos[in_range]] == old_lv[in_range]
+        remap[p, :old_lv.shape[0]] = np.where(kept, pos, -1).astype(np.int32)
+
+        gs, gd, w = part_edges[p]
+        ne = gs.shape[0]
+        ls, ld, ww = localize_edges(lv, gs, gd, w)
+        esrc[p, :ne] = ls
+        edst[p, :ne] = ld
+        ew[p, :ne] = ww
+        emask[p, :ne] = True
+
+    pg.gvid, pg.vmask = gvid, vmask
+    pg.out_deg, pg.in_deg, pg.vlabel = out_deg, in_deg, vlabel
+    pg.esrc, pg.edst, pg.ew, pg.emask = esrc, edst, ew, emask
+    pg.v_max, pg.e_max = new_v_max, new_e_max
+    pg.n_edges = int(emask.sum())
+    pg.edge_part = None
+    recompute_frontier(pg)
+    if pg.edge_layouts is not None:
+        # the tile/window grid moved with v_max and the rows: a fresh
+        # layout object, so no device list of the old geometry survives
+        old = pg.edge_layouts
+        pg.edge_layouts = None
+        pg.ensure_edge_layouts(shape_policy=old.policy,
+                               block_edges=old.block_edges)
+    return remap
+
+
+# --------------------------------------------------------------------------- #
+# Frontier maintenance after a membership patch (stream/delta.py)
+# --------------------------------------------------------------------------- #
+def recompute_frontier(pg: PartitionedGraph) -> None:
+    """Re-derive ``slot``/``is_frontier``/``is_master``/``frontier_gvid``
+    in place from the current ``gvid``/``vmask`` membership, with the
+    builders' hash election (an unchanged membership round-trips
+    bit-identically)."""
+    part_vertices = [pg.gvid[p][pg.vmask[p]] for p in range(pg.n_parts)]
+    frontier_gvid, slot_of_gvid, masters = frontier_election(
+        part_vertices, pg.n_vertices)
+    n_slots = int(frontier_gvid.shape[0])
+    pg.slot = np.full((pg.n_parts, pg.v_max), n_slots, dtype=np.int32)
+    pg.is_master = np.zeros((pg.n_parts, pg.v_max), dtype=bool)
+    for p in range(pg.n_parts):
+        nv = part_vertices[p].shape[0]
+        pg.slot[p, :nv] = slot_of_gvid[part_vertices[p]]
+        pg.is_master[p, :nv] = masters[p]
+    pg.n_slots = n_slots
+    pg.frontier_gvid = frontier_gvid
+    pg.is_frontier = (pg.slot < n_slots) & pg.vmask

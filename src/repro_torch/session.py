@@ -3,7 +3,9 @@
     sess = GraphSession.from_graph(g, n_parts=16)          # on the CUDA card
     dist, st = sess.query(SSSP(), {"source": 0})           # builds a runner
     dist, st = sess.query(SSSP(), {"source": 7})           # runner cache hit
-    dist, st = sess.query(SSSP(), {"source": 0})           # warm restart
+    sess.update(adds=(src, dst, w))                        # buffered
+    sess.flush()                                           # patch the host
+    dist, st = sess.query(SSSP(), {"source": 0})           # re-upload, warm
 
 The session keeps the stacked ``DeviceSubgraph`` resident on its device
 across queries and caches runners keyed like the JAX package's compiled
@@ -18,10 +20,20 @@ Each converged result of a monotone program is remembered and warm-starts
 the next identical query (``warm="auto"``); cold starts of monotone programs
 go through the same runner with a combiner-identity warm block.
 
-This session is read-only: ``update``/``flush``/``compact``/``rebalance``
-and ``query_batch`` raise ``NotImplementedError`` naming the ROADMAP item
-that will port them. Only the simulator backend exists; a ``mesh`` is
-refused.
+The streaming lifecycle is the reference's: a session with a
+``StreamContext`` (``from_graph`` with a pure router, ``from_edge_log``)
+buffers ``update``/``push`` in a coalescing ``DeltaBuffer``; ``flush``
+patches the host graph and its edge layouts (which drops their device
+lists), ``compact`` shrinks the padded capacities. Both log their row remap
+on a chain that each cached warm result replays on its next use; a
+deleting flush drops the results whose ``warm_under`` polarity it breaks.
+The device graph is uploaded again on the first query after a change, and
+runners whose padded shapes or layout capacities the graph left are
+dropped (``SessionStats.cache_evictions_shape``).
+
+``rebalance`` and ``query_batch`` raise ``NotImplementedError`` naming the
+ROADMAP item that will port them. Only the simulator backend exists; a
+``mesh`` is refused.
 """
 from __future__ import annotations
 
@@ -45,20 +57,29 @@ from repro_torch.core.partition import PARTITIONERS, STREAM_ROUTERS
 from repro_torch.core.subgraph import (PartitionedGraph, ShapePolicy,
                                        build_partitioned_graph)
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.stream.buffer import DeltaBuffer
+from repro_torch.stream.delta import CompactStats, DeltaStats, EdgeDelta
+from repro_torch.stream.delta import compact as _compact_pg
+from repro_torch.stream.ingest import StreamContext, streaming_ingest
 
 __all__ = ["GraphSession", "SessionStats", "ShapePolicy"]
-
-_MUTATION_TODO = ("the port's GraphSession is read-only for now: {what} "
-                  "waits for ROADMAP Queue 1, streaming and session mutation")
 
 
 @dataclasses.dataclass
 class _WarmEntry:
-    """Last converged result of one (program, params) query:
-    ``global_values`` [n_vertices(, K)] and ``device_block`` [P, v_max, K]
-    (numpy, combiner identity at padded rows)."""
+    """Last converged result of one (program, params) query.
+
+    ``global_values`` ([n_vertices(, K)], combiner identity where no master
+    holds a value) survives any membership change; ``device_block``
+    ([P, v_max, K] numpy) is valid at ``device_epoch`` of the session's
+    remap log and is brought forward lazily on the entry's next use
+    (``GraphSession._sync_warm_entry``). ``polarity`` is the program's
+    ``warm_under``: the delta polarity the entry survives."""
     global_values: np.ndarray
     device_block: np.ndarray
+    identity: object
+    device_epoch: int = 0
+    polarity: str = "inserts"
 
     @property
     def nbytes(self) -> int:
@@ -72,15 +93,35 @@ class SessionStats:
     cache_hits: int = 0
     runner_builds: int = 0         # runner-cache misses
     warm_queries: int = 0          # queries served from a previous result
+    flushes: int = 0               # delta batches applied to the host graph
+    compactions: int = 0
     uploads: int = 0               # device-graph uploads
     compile_time_total: float = 0.0
     cache_evictions_lru: int = 0   # runners dropped by max_runners
+    cache_evictions_shape: int = 0  # runners dropped by a bucket change
     warm_evictions: int = 0        # warm results dropped by max_warm_entries
     warm_cache_bytes: int = 0      # host bytes of the warm-result memory
+    warm_remaps_applied: int = 0   # deferred warm-block remaps replayed
     host_syncs: int = 0            # device->host reads across all queries
     tile_density_min: float = 0.0
     tile_density_mean: float = 0.0
     tile_density_max: float = 0.0
+
+
+class _SessionBuffer(DeltaBuffer):
+    """DeltaBuffer whose flushes (manual and threshold-tripped) notify the
+    owning session, so an auto-flush inside ``update`` never leaves the
+    device graph, the runner cache or the warm memory stale."""
+
+    def __init__(self, session: "GraphSession", *args, **kwargs):
+        self._session = session
+        super().__init__(*args, **kwargs)
+
+    def flush(self, _auto: bool = False) -> Optional[DeltaStats]:
+        st = super().flush(_auto)
+        if st is not None:
+            self._session._on_flush(st)
+        return st
 
 
 # --------------------------------------------------------------------------- #
@@ -150,17 +191,23 @@ class GraphSession:
     device (``device=None``: the CUDA card; ``device="cpu"``: the plain
     PyTorch path).
 
-    ``shape_policy`` governs the padded shapes as in the reference;
-    ``bucket_slots`` builds runners on the policy's bucketed slot capacity
-    (what the reference does for sessions that can stream updates).
+    ``ctx`` (a ``StreamContext``) enables ``update``/``push``/``flush``/
+    ``compact``, through a coalescing buffer bounded by
+    ``max_buffer_edges``/``max_buffer_parts`` (auto-flush thresholds);
+    the factory constructors provide it for pure streaming routers. A
+    session without one is read-only and pads the SBS slot count exactly;
+    a mutable one builds runners on the policy's bucketed slot capacity.
+    ``shape_policy`` governs the padded shapes as in the reference.
     ``max_runners`` / ``max_warm_entries`` bound the runner cache and the
     warm-result memory with LRU eviction (``None`` = unbounded)."""
 
-    def __init__(self, pg: PartitionedGraph, *, mesh=None,
+    def __init__(self, pg: PartitionedGraph, *,
+                 ctx: Optional[StreamContext] = None, mesh=None,
                  cfg: Optional[EngineConfig] = None,
+                 max_buffer_edges: Optional[int] = 4096,
+                 max_buffer_parts: Optional[int] = None,
                  pad_multiple: Optional[int] = None,
                  shape_policy: Optional[ShapePolicy] = None,
-                 bucket_slots: bool = False,
                  max_runners: Optional[int] = 32,
                  max_warm_entries: Optional[int] = 64,
                  device: DeviceLike = None):
@@ -170,17 +217,24 @@ class GraphSession:
                 "multi-GPU backend over torch.distributed)")
         self.device = resolve_device(device)
         self.pg = pg
+        self.ctx = ctx
         self.cfg = self._normalize_cfg(cfg or EngineConfig())
         self.shape_policy = self._resolve_policy(shape_policy, pad_multiple)
-        self._bucket_slots = bucket_slots
         self.max_runners = max_runners
         self.max_warm_entries = max_warm_entries
         self.stats = SessionStats()
+        self.buffer = None if ctx is None else _SessionBuffer(
+            self, pg, ctx, max_edges=max_buffer_edges,
+            max_parts=max_buffer_parts, shape_policy=self.shape_policy)
         self._device_graph = None
+        self._device_version = -1
+        self._host_version = 0         # bumped by every applied flush/compact
         self._runners: OrderedDict = OrderedDict()
         self._warm: OrderedDict = OrderedDict()
         self._identity_blocks: dict = {}
         self._keepalive: dict = {}
+        self._warm_epoch = 0           # advances per layout-moving event
+        self._remap_log: list = []     # [(epoch, stats with remap_state)]
 
     # ------------------------------------------------------------------ #
     @classmethod
@@ -200,7 +254,8 @@ class GraphSession:
                    **kwargs) -> "GraphSession":
         """Partition + build + open a session in one call, with the
         reference's padding choice: streamable partitioners get the bucketed
-        policy (and bucketed slot capacity), the others exact padding."""
+        policy and a ``StreamContext`` (so ``update`` works), the others
+        exact padding and a read-only session."""
         dev = resolve_device(device)
         if shape_policy is None and partitioner not in STREAM_ROUTERS:
             shape_policy = ShapePolicy.exact(
@@ -213,9 +268,33 @@ class GraphSession:
                 "balanced vertex-cut)")
         part = PARTITIONERS[partitioner](g, n_parts, seed=seed)
         pg = build_partitioned_graph(g, part, n_parts, shape_policy=policy)
-        return cls(pg, mesh=mesh, cfg=cfg, shape_policy=policy,
-                   bucket_slots=partitioner in STREAM_ROUTERS, device=dev,
-                   **kwargs)
+        ctx = None
+        if partitioner in STREAM_ROUTERS:
+            ctx = StreamContext(partitioner=partitioner, n_parts=n_parts,
+                                seed=seed, n_vertices=g.n_vertices,
+                                routing_degrees=g.total_degrees())
+        return cls(pg, ctx=ctx, mesh=mesh, cfg=cfg, shape_policy=policy,
+                   device=dev, **kwargs)
+
+    @classmethod
+    def from_edge_log(cls, log, n_parts: int, partitioner: str = "cdbh",
+                      *, seed: int = 0, mesh=None,
+                      cfg: Optional[EngineConfig] = None,
+                      pad_multiple: Optional[int] = None,
+                      shape_policy: Optional[ShapePolicy] = None,
+                      device: DeviceLike = None,
+                      **kwargs) -> "GraphSession":
+        """Open a session over a chunked on-disk edge log through the
+        two-pass out-of-core ingest; ``sess.ingest_stats`` holds its
+        throughput and memory accounting."""
+        dev = resolve_device(device)
+        policy = cls._resolve_policy(shape_policy, pad_multiple)
+        pg, ctx, stats = streaming_ingest(log, n_parts, partitioner,
+                                          seed=seed, shape_policy=policy)
+        sess = cls(pg, ctx=ctx, mesh=mesh, cfg=cfg, shape_policy=policy,
+                   device=dev, **kwargs)
+        sess.ingest_stats = stats
+        return sess
 
     @staticmethod
     def _normalize_cfg(cfg: EngineConfig) -> EngineConfig:
@@ -226,7 +305,10 @@ class GraphSession:
 
     @property
     def slot_capacity(self) -> int:
-        if not self._bucket_slots:
+        """SBS exchange height the runners are built with: the bucketed
+        slot count when the session can mutate, the exact one when its
+        frontier is frozen."""
+        if self.buffer is None:
             return int(self.pg.n_slots)
         return self.shape_policy.slot_capacity(self.pg.n_slots)
 
@@ -237,9 +319,13 @@ class GraphSession:
                 pg.vlabel is not None)
 
     def device_graph(self):
-        """The resident stacked DeviceSubgraph, uploaded on first use."""
-        if self._device_graph is None:
+        """The resident stacked DeviceSubgraph, uploaded again only when
+        the host graph changed since the last upload."""
+        if self._device_graph is None \
+                or self._device_version != self._host_version:
+            self._device_graph = None      # free the old copy first
             self._device_graph = _device_subgraph(self.pg, self.device)
+            self._device_version = self._host_version
             self.stats.uploads += 1
         return self._device_graph
 
@@ -257,7 +343,9 @@ class GraphSession:
         (program, params) pair's last converged result; ``False`` forces a
         cold start; ``True`` requires a warm start. ``cfg`` overrides the
         session config for this query; ``cfg.trace=True`` delegates to the
-        uncached ``run_sim``."""
+        uncached ``run_sim``. Buffered updates are flushed first."""
+        if self.buffer is not None and len(self.buffer):
+            self.flush()
         cfg = self._normalize_cfg(cfg or self.cfg)
         pkey = program_key(program)
         if isinstance(pkey[1], int):
@@ -335,10 +423,38 @@ class GraphSession:
                                  device=self.device)
                 self._identity_blocks[ikey] = blk
             return blk
+        self._sync_warm_entry(entry)
         blk = entry.device_block
         if blk.shape != (pg.n_parts, pg.v_max, K):
             blk = _warm_block(program, pg, entry.global_values)
         return torch.from_numpy(np.ascontiguousarray(blk)).to(self.device)
+
+    def _sync_warm_entry(self, entry: _WarmEntry) -> None:
+        """Replay on this entry's device block every remap logged since it
+        was last brought forward (insert-only flushes, compactions)."""
+        if entry.device_epoch == self._warm_epoch:
+            return
+        for ep, st in self._remap_log:
+            if ep > entry.device_epoch:
+                entry.device_block = st.remap_state(entry.device_block,
+                                                    fill=entry.identity)
+                self.stats.warm_remaps_applied += 1
+        entry.device_epoch = self._warm_epoch
+        self._sync_warm_bytes()
+
+    def _prune_remap_log(self) -> None:
+        """Drop log entries every live device block is already past."""
+        epochs = [e.device_epoch for e in self._warm.values()]
+        if not epochs:
+            self._remap_log.clear()
+            return
+        floor = min(epochs)
+        self._remap_log = [(ep, st) for ep, st in self._remap_log
+                           if ep > floor]
+
+    def _sync_warm_bytes(self) -> None:
+        self.stats.warm_cache_bytes = sum(e.nbytes
+                                          for e in self._warm.values())
 
     def _get_runner(self, program, pkey, params, cfg, warm_in, eb):
         """Cached runner for this (program, param structure, config,
@@ -368,11 +484,15 @@ class GraphSession:
                 cache.popitem(last=False)
                 evicted += 1
         if evicted:
-            live = {k[0][1] for k in self._runners} | \
-                   {wk[0][1] for wk in self._warm}
-            self._keepalive = {i: p for i, p in self._keepalive.items()
-                               if i in live}
+            self._prune_keepalive()
         return evicted
+
+    def _prune_keepalive(self) -> None:
+        """Release id-keyed program pins no runner or warm key holds."""
+        live = {k[0][1] for k in self._runners} | \
+               {wk[0][1] for wk in self._warm}
+        self._keepalive = {i: p for i, p in self._keepalive.items()
+                           if i in live}
 
     def _execution_stats(self, program, steps, msgs, sweeps, wall,
                          compile_time, eb) -> ExecutionStats:
@@ -417,12 +537,121 @@ class GraphSession:
                        np.asarray(program.identity, blk.dtype))
         self._warm[wkey] = _WarmEntry(
             global_values=pg.collect(res, fill=program.identity),
-            device_block=blk)
+            device_block=blk, identity=program.identity,
+            device_epoch=self._warm_epoch,
+            polarity=program.warm_under)
         self._warm.move_to_end(wkey)
         self.stats.warm_evictions += self._evict_lru(self._warm,
                                                      self.max_warm_entries)
-        self.stats.warm_cache_bytes = sum(e.nbytes
-                                          for e in self._warm.values())
+        self._prune_remap_log()
+        self._sync_warm_bytes()
+
+    # ------------------------------------------------------------------ #
+    # streaming lifecycle
+    # ------------------------------------------------------------------ #
+    def _require_buffer(self, what: str) -> DeltaBuffer:
+        if self.buffer is None:
+            raise ValueError(
+                f"{what} needs a StreamContext (this session was opened "
+                "from a bare PartitionedGraph, or with a non-streamable "
+                "partitioner); use GraphSession.from_graph/from_edge_log "
+                "with a pure routing partitioner, or pass ctx=")
+        return self.buffer
+
+    def update(self, adds=None, deletes=None) -> None:
+        """Enqueue edge mutations: ``adds`` is ``(src, dst)`` or ``(src,
+        dst, w)`` in global ids, ``deletes`` is ``(src, dst)``. Ops
+        coalesce in the buffer and apply on ``flush()`` or when a buffer
+        threshold trips."""
+        buf = self._require_buffer("update()")
+        if isinstance(adds, EdgeDelta) or isinstance(deletes, EdgeDelta):
+            raise TypeError("pass an EdgeDelta through session.push()")
+        if deletes is not None:
+            buf.delete(*deletes[:2])
+        if adds is not None:
+            buf.add(*adds[:3])
+
+    def push(self, delta: EdgeDelta) -> None:
+        """Enqueue a whole producer ``EdgeDelta`` (deletes, then adds)."""
+        self._require_buffer("push()").push(delta)
+
+    def flush(self) -> Optional[DeltaStats]:
+        """Apply every buffered mutation as one coalesced patch. Returns its
+        ``DeltaStats`` — or, if a threshold already flushed everything, the
+        last applied patch's (None only when nothing was ever applied). The
+        device graph and the kernels' device lists are rebuilt on the next
+        query; runners survive unless the padded shapes left their
+        buckets."""
+        buf = self._require_buffer("flush()")
+        st = buf.flush()
+        return st if st is not None else buf.last_flush
+
+    def _on_flush(self, st: DeltaStats) -> None:
+        self._host_version += 1
+        self.stats.flushes += 1
+        # an entry survives a patch of its program's polarity
+        # (VertexProgram.warm_under): 'inserts' entries an insert-only
+        # patch, 'deletes' entries a patch that added nothing
+        keep = {"inserts": st.warm_start_safe, "deletes": st.n_added == 0}
+        if any(keep.values()):
+            # logged only; each entry replays the chain on its next use
+            self._warm_epoch += 1
+            self._remap_log.append((self._warm_epoch, st))
+        if not all(keep.values()):
+            for wkey in [k for k, e in self._warm.items()
+                         if not keep.get(e.polarity, False)]:
+                del self._warm[wkey]
+        self._prune_remap_log()
+        self._sync_warm_bytes()
+        self._evict_stale_runners()
+
+    def compact(self) -> CompactStats:
+        """Evict edge-less members, shrink the padded capacities to the
+        policy's bucket floor, and carry every cached warm result across
+        the re-layout (its device block through ``remap_state``, lazily).
+        A compacted content that still fits the current buckets keeps the
+        padded shapes and every runner."""
+        self._require_buffer("compact()")
+        if len(self.buffer):
+            self.flush()
+        cs = _compact_pg(self.pg, self.ctx, shape_policy=self.shape_policy)
+        self._host_version += 1
+        self.stats.compactions += 1
+        self._warm_epoch += 1
+        self._remap_log.append((self._warm_epoch, cs))
+        self._prune_remap_log()
+        self._evict_stale_runners()
+        return cs
+
+    def _evict_stale_runners(self) -> None:
+        """Drop runners built for padded shapes the graph no longer has:
+        the base shape key, and for kernel runners the ``tiles``/``windows``
+        layout key (a stale layout key stales only that backend's
+        runners)."""
+        cur = self.shape_key
+        lay = self.pg.edge_layouts
+        have_lay = lay is not None and lay.matches(self.pg)
+
+        def stale(full_shape) -> bool:
+            base, lkey = full_shape
+            if base != cur:
+                return True
+            if lkey is None:
+                return False
+            if not have_lay:
+                return True
+            backend = "pallas_tiles" if lkey[0] == "tiles" \
+                else "pallas_windows"
+            return lkey != lay.shape_key(backend)
+
+        dead = [k for k in self._runners if stale(k[3])]
+        for k in dead:
+            del self._runners[k]
+        self.stats.cache_evictions_shape += len(dead)
+        self._prune_keepalive()
+        self._identity_blocks = {
+            k: v for k, v in self._identity_blocks.items()
+            if k[:2] == (self.pg.n_parts, self.pg.v_max)}
 
     # ------------------------------------------------------------------ #
     # not ported yet
@@ -430,15 +659,6 @@ class GraphSession:
     def query_batch(self, program, params_list, **kwargs):
         raise NotImplementedError(
             "query_batch waits for ROADMAP Queue 1, serving/batching")
-
-    def update(self, adds=None, deletes=None):
-        raise NotImplementedError(_MUTATION_TODO.format(what="update()"))
-
-    def flush(self):
-        raise NotImplementedError(_MUTATION_TODO.format(what="flush()"))
-
-    def compact(self):
-        raise NotImplementedError(_MUTATION_TODO.format(what="compact()"))
 
     def rebalance(self, **kwargs):
         raise NotImplementedError(

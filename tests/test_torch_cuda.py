@@ -200,3 +200,63 @@ def test_session_query_on_card_matches_cpu(cuda, eb):
     after = (tb.bsp_spmv.launches, ts.segment_combine_windowed.launches)
     assert (after[0] > counters[0]) == (eb == "pallas_tiles")
     assert (after[1] > counters[1]) == (eb == "pallas_windows")
+
+
+@pytest.mark.parametrize("step", ["insert", "delete"])
+def test_kernels_on_layouts_rebuilt_by_a_flush(cuda, step):
+    """After an insert flush and after a delete flush, both kernels on the
+    rebuilt compact device lists equal their plain versions, the cached
+    lists are new objects (no stale geometry), and queries equal ``coo``."""
+    from repro_torch.core.engine import (_layout_block_from, _tile_inputs,
+                                         _window_inputs)
+    g = kronecker_graph(11, seed=5, weighted=True)
+    sess = GraphSession.from_graph(g, 8)
+    sssp, pr = SSSP(), PageRank()
+    for eb in ("pallas_tiles", "pallas_windows"):
+        sess.query(sssp, {"source": 1}, cfg=EngineConfig(edge_backend=eb))
+    lay = sess.pg.edge_layouts
+    stale = {eb: _layout_block_from(lay, sess.pg, sssp, eb, cuda)
+             for eb in ("pallas_tiles", "pallas_windows")}
+    rng = np.random.default_rng(3)
+    if step == "insert":
+        n = g.n_vertices + 64              # new ids too
+        sess.update(adds=(rng.integers(0, n, 3000), rng.integers(0, n, 3000),
+                          rng.uniform(1, 9, 3000).astype(np.float32)))
+    else:
+        pick = rng.random(g.n_edges) < 0.2
+        sess.update(deletes=(g.src[pick], g.dst[pick]))
+    sess.flush()
+    sgs = sess.device_graph()
+    for prog, params in ((sssp, {"source": 1}),
+                         (pr, {"n_vertices": sess.pg.n_vertices})):
+        vals, _ = sess.query(prog, params, cfg=EngineConfig(
+            edge_backend="pallas_windows"))
+        want, _ = sess.query(prog, params, warm=False, cfg=EngineConfig())
+        if prog.delta_based:
+            assert np.abs(vals - want).max() <= 1e-5 * np.abs(want).max()
+        else:
+            np.testing.assert_array_equal(vals, want)
+        v = torch.from_numpy(vals).to(cuda)[..., None]
+        lay = sess.pg.edge_layouts
+        for eb in ("pallas_tiles", "pallas_windows"):
+            blk = _layout_block_from(lay, sess.pg, prog, eb, cuda)
+            if prog is sssp:
+                assert blk is not stale[eb]
+            if eb == "pallas_tiles":
+                tl, td, tsrc, vv, ndt, plan = _tile_inputs(
+                    blk, v, prog.sweep_spec, sess.pg.v_max)
+                kw = dict(n_dst_tiles=ndt, semiring=prog.sweep_spec.semiring)
+                got = tb.bsp_spmv(tl, td, tsrc, vv, plan=plan, **kw)
+                ref = tb.bsp_spmv_plain(tl, td, tsrc, vv, **kw)
+            else:
+                msgs, ldst, bwin, nw, plan = _window_inputs(
+                    sgs, blk, v, prog.sweep_spec, sess.pg.v_max)
+                kw = dict(n_windows=nw, combiner=prog.sweep_spec.combiner)
+                got = ts.segment_combine_windowed(msgs, ldst, bwin,
+                                                  plan=plan, **kw)
+                ref = ts.segment_combine_plain(msgs, ldst, bwin, **kw)
+            torch.cuda.synchronize()
+            if prog.delta_based:
+                torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+            else:
+                assert torch.equal(got, ref)

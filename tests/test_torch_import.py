@@ -16,11 +16,13 @@ PORT = ROOT / "src" / "repro_torch"
 
 def test_import_leaves_jax_and_reference_out():
     code = ("import sys, repro_torch, repro_torch.session, "
-            "repro_torch.interop, repro_torch.kernels.ops, repro_torch.algos;"
+            "repro_torch.interop, repro_torch.kernels.ops, repro_torch.algos,"
+            " repro_torch.stream, chip_smoke;"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]; print(bad); assert not bad, bad")
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ,
+               PYTHONPATH=os.pathsep.join([str(ROOT / "src"), str(ROOT)]))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr + out.stdout
@@ -69,6 +71,7 @@ def test_unported_paths_raise_not_implemented():
     from repro_torch.core import EngineConfig, partition_and_build, run_sim
     from repro_torch.graphgen import ring_graph
     from repro_torch.session import GraphSession
+    from repro_torch.stream import StreamContext
 
     g = ring_graph(64)
     pg = partition_and_build(g, 2)
@@ -77,10 +80,14 @@ def test_unported_paths_raise_not_implemented():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             run_sim(SSSP(), pg, {"source": 0}, cfg, device="cpu")
     sess = GraphSession.from_graph(g, 2, device="cpu")
-    for call in (lambda: sess.update(adds=([0], [1])), sess.flush,
-                 sess.compact, sess.rebalance,
+    sess.update(adds=([0], [1]))          # the streaming lifecycle is ported
+    assert sess.flush().n_added == 1 and sess.compact().remap is not None
+    for call in (sess.rebalance,
                  lambda: sess.query_batch(SSSP(), [{"source": 0}]),
                  lambda: sess.query(SSSP(), {"source": 0},
-                                    cfg=EngineConfig(edge_backend="auto"))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+                                    cfg=EngineConfig(edge_backend="auto")),
+                 lambda: StreamContext("ebv", 2, 0, 64, g.total_degrees()),
+                 lambda: GraphSession.from_graph(g, 2, "ebv", device="cpu")):
+        with pytest.raises((NotImplementedError, ValueError),
+                           match="ROADMAP"):
             call()
