@@ -53,11 +53,31 @@ Phases (the run exits non-zero if any of them fails):
      device lists. Per step it prints the host time of the flush (the
      layout refresh apart), the re-upload of the device graph and of the
      kernels' device list, and the query wall times.
+  7. The algorithm suite, with both launch counters reset before it. On
+     phase 3's kron-20 session (as phase 6 left it): BFS from two seeded
+     roots, MSBFS and triangles with K = 16 seeded roots / pivots on
+     ``pallas_windows``, each bit-identical to ``coo`` (results,
+     supersteps, messages, per-partition sweeps); levels against scipy's
+     unweighted shortest paths (4 lanes), triangles against float64 scipy
+     products on the same edge list (every z below 2**24); then an insert
+     batch and MSBFS warm-auto vs cold. On phase 4's grid-1024 session:
+     MSBFS K = 16 on ``pallas_tiles`` the same way. On a kron-14 session of
+     its own (weighted, seeded labels): triangles K = 16 on
+     ``pallas_tiles`` vs ``coo`` and scipy; MSSP (K = 8) vs Dijkstra; LP,
+     k-core (k = 2, 3), betweenness (8 pivots) and graph simulation against
+     the script's numpy/scipy oracles; a delete batch then k-core warm vs
+     cold, an insert batch then MSBFS warm vs cold. Then each kernel at
+     K = 16 on those device lists (``segment_combine`` min and sum at
+     kron-20, ``bsp_spmv`` min_plus at grid-1024 and plus_times at
+     kron-14) against its plain version, timed beside its bound and the
+     library call; the peak device memory of each part is printed.
 
 A small-graph check holds the three programs against independent numpy
-oracles on all three backends. The line before the last is the card's name
-and power limit from ``nvidia-smi``; the last line is
-``{"ok": true, "device": {...}}``.
+oracles on all three backends. The kernel JSON line gives each kernel's
+launches per phase (``launches`` = phases 3-4, ``launches_streaming`` =
+phase 6, ``launches_algos`` = phase 7) and its K = 16 rows (``k16``). The
+line before the last is the card's name and power limit from
+``nvidia-smi``; the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -714,6 +734,8 @@ def main_path_kernels(sm: Smoke, errs: dict, win, tile) -> list:
     t2, td2, ts2, v2, ndt2, semi2, plan2, got2 = pr
     pt_ms = time_ms(lambda: bk.bsp_spmv(t2, td2, ts2, v2, n_dst_tiles=ndt2,
                                         semiring=semi2, plan=plan2))
+    pt_plain_ms = time_ms(lambda: bk.bsp_spmv_plain(
+        t2, td2, ts2, v2, n_dst_tiles=ndt2, semiring=semi2), max_iters=5)
     lib_fn, lib_err = bsr_yardstick(t2, td2, ts2, v2, ndt2)
     pt_lib_ms = None
     if lib_fn is not None:
@@ -736,6 +758,7 @@ def main_path_kernels(sm: Smoke, errs: dict, win, tile) -> list:
         plain_ms=time_ms(lambda: bk.bsp_spmv_plain(
             tiles, td, ts, v, n_dst_tiles=ndt, semiring=semi), max_iters=5),
         library_ms=None, plus_times_ms=pt_ms,
+        plus_times_plain_ms=pt_plain_ms,
         plus_times_library_ms=pt_lib_ms, plus_times_library_error=lib_err,
         bytes=nbytes, ops=ops,
         shape=f"tiles [{tiles.shape[0]}, 128, 128] f32 min_plus, K={K}, "
@@ -1100,6 +1123,610 @@ def stream_kernel_checks(sm: Smoke, errs: dict, win, tile, out) -> None:
                      f"({tiles.shape[0]} tiles) vs plain (max err {err:.3g})")
 
 
+# --------------------------------------------------------------------------- #
+# phase 7: the algorithm suite
+# --------------------------------------------------------------------------- #
+ALGO_K = 16                   # roots / pivots of MSBFS and triangles
+F32_EXACT = 2**24             # float32 holds every integer below this
+# phase 7's engine bounds: far above what its queries need (at most 17
+# supersteps and ~1,100 sweeps in one), so a query that does not halt fails
+# its check instead of running into the script's time limit
+ALGO_MAX_STEPS = 100
+ALGO_MAX_LOCAL = 4096
+
+
+def resident_edges(pg):
+    """The session graph's resident edge list in global ids (parallel
+    copies kept): ``(src, dst, w)``."""
+    p, e = pg.emask.nonzero()
+    return (pg.gvid[p, pg.esrc[p, e]], pg.gvid[p, pg.edst[p, e]],
+            pg.ew[p, e])
+
+
+def _adjacency(n, src, dst):
+    """CSR adjacency with parallel copies summed (float64)."""
+    import numpy as np
+    from scipy.sparse import csr_matrix
+    return csr_matrix((np.ones(src.shape[0]), (src, dst)), shape=(n, n))
+
+
+def oracle_bfs_levels(n, src, dst, roots):
+    """[n, K] hop counts from each root (scipy; inf where unreachable)."""
+    from scipy.sparse.csgraph import shortest_path
+    return shortest_path(_adjacency(n, src, dst), directed=True,
+                         unweighted=True, indices=roots).T
+
+
+def oracle_triangles(n, src, dst, pivots):
+    """float64 ``y = A^T x_p, z = A^T y, sum_u y*z`` per pivot (A^T: the
+    engine sums at edge destinations); returns ``(sums [K], max z, max
+    y*z)``."""
+    import numpy as np
+    at = _adjacency(n, src, dst).T.tocsr()
+    x = np.zeros((n, len(pivots)))
+    x[np.asarray(pivots), np.arange(len(pivots))] = 1.0
+    y = at @ x
+    z = at @ y
+    return (y * z).sum(axis=0), float(z.max()), float((y * z).max())
+
+
+def oracle_lp(n, src, dst, hops):
+    """[n, hops + 1]: lane h is the smallest id within h hops."""
+    import numpy as np
+    ids = np.arange(n, dtype=np.int64)
+    lanes = [ids]
+    for _ in range(hops):
+        new = ids.copy()
+        np.minimum.at(new, dst, lanes[-1][src])
+        lanes.append(new)
+    return np.stack(lanes, axis=1)
+
+
+def oracle_kcore_peeled(n, src, dst, k):
+    """1 where the vertex is peeled out of the k-core (numpy peel)."""
+    import numpy as np
+    alive = np.ones(n, bool)
+    while True:
+        deg = np.bincount(src, weights=alive[dst], minlength=n)
+        kill = alive & (deg < k)
+        if not kill.any():
+            return (~alive).astype(np.int64)
+        alive &= ~kill
+
+
+def oracle_brandes(n, src, dst, pivots):
+    """Brandes from each pivot over scipy's BFS levels, float64: ``(levels,
+    sigma, delta, bc)`` with bc halved (undirected) and v != s."""
+    import numpy as np
+    lev = oracle_bfs_levels(n, src, dst, pivots)
+    sigma = np.zeros(lev.shape)
+    delta = np.zeros(lev.shape)
+    for k, s in enumerate(pivots):
+        d = lev[:, k]
+        on = np.isfinite(d[src]) & (d[src] + 1 == d[dst])
+        es, ed = src[on], dst[on]
+        sig = np.zeros(n)
+        sig[s] = 1.0
+        depth = int(d[np.isfinite(d)].max())
+        for level in range(1, depth + 1):
+            sel = d[ed] == level
+            np.add.at(sig, ed[sel], sig[es[sel]])
+        dl = np.zeros(n)
+        for level in range(depth - 1, -1, -1):
+            sel = d[es] == level
+            u, w = es[sel], ed[sel]
+            np.add.at(dl, u, sig[u] / sig[w] * (1.0 + dl[w]))
+        sigma[:, k], delta[:, k] = sig, dl
+    not_pivot = np.arange(n)[:, None] != np.asarray(pivots)[None, :]
+    return lev, sigma, delta, (delta * not_pivot).sum(axis=1) / 2.0
+
+
+def oracle_gsim(n, src, dst, labels, qadj, qlabel):
+    """Simulation fixpoint: for each pattern edge q -> q2,
+    ``sim[:, q] &= (A @ sim[:, q2]) > 0`` until nothing changes."""
+    import numpy as np
+    a = _adjacency(n, src, dst)
+    sim = labels[:, None] == qlabel[None, :]
+    while True:
+        post = a @ sim.astype(np.float64)
+        new = sim.copy()
+        for q, q2 in zip(*np.nonzero(qadj)):
+            new[:, q] &= post[:, q2] > 0
+        if np.array_equal(new, sim):
+            return sim.astype(np.int64)
+        sim = new
+
+
+def allclose(got, want, rtol=SUM_RTOL):
+    """(ok, max relative error) of a float32 engine result against a
+    float64 oracle: each element within ``rtol`` of the oracle's value
+    (and ``rtol`` absolute near zero); inf must meet inf."""
+    import numpy as np
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    fin = np.isfinite(want)
+    if not np.array_equal(fin, np.isfinite(got)) or \
+            not np.array_equal(got[~fin], want[~fin]):
+        return False, float("inf")
+    err = np.abs(got[fin] - want[fin])
+    ok = bool((err <= rtol * np.maximum(np.abs(want[fin]), 1.0)).all())
+    rel = float((err / np.maximum(np.abs(want[fin]), 1.0)).max()) \
+        if err.size else 0.0
+    return ok, rel
+
+
+class AlgoRunner:
+    """Runs the phase's queries, logs each one (wall time, supersteps,
+    messages, kernel launches) and counts the launches per (kernel, row)."""
+
+    def __init__(self, sm: Smoke, log: list):
+        self.sm, self.log = sm, log
+        self.row_launches: dict = {}
+
+    def launches(self):
+        from repro_torch.kernels import bsp_spmv as bk
+        from repro_torch.kernels import segment_combine as sk
+        return bk.bsp_spmv.launches + sk.segment_combine_windowed.launches
+
+    def query(self, sess, label, name, prog, params, eb, warm=False,
+              row=None):
+        from repro_torch.core import EngineConfig
+        before = self.launches()
+        res, st = sess.query(prog, params, warm=warm, cfg=EngineConfig(
+            edge_backend=eb, max_supersteps=ALGO_MAX_STEPS,
+            max_local_iters=ALGO_MAX_LOCAL))
+        n = self.launches() - before
+        if st.supersteps >= ALGO_MAX_STEPS:
+            self.sm.check(False, f"{label} {name} on {eb} halted within "
+                                 f"{ALGO_MAX_STEPS} supersteps")
+        if row is not None:
+            self.row_launches[row] = self.row_launches.get(row, 0) + n
+        rec = dict(phase=7, graph=label, query=name, edge_backend=eb,
+                   wall_s=st.wall_time, supersteps=st.supersteps,
+                   messages=st.total_messages, host_syncs=st.host_syncs,
+                   processed_edges=st.processed_edges, kernel_launches=n)
+        self.log.append(rec)
+        print("query " + json.dumps(rec), flush=True)
+        return res, st
+
+    def same(self, label, name, kern, coo):
+        """A kernel-backend query against its ``coo`` twin: results bit
+        for bit, supersteps, messages and per-partition sweeps."""
+        import numpy as np
+        (got, gst), (want, wst) = kern, coo
+        self.sm.check(
+            bool(np.array_equal(got, want)) and
+            (gst.supersteps, gst.total_messages, gst.partition_sweeps) ==
+            (wst.supersteps, wst.total_messages, wst.partition_sweeps),
+            f"{label} {name}: {gst.edge_backend} bit-identical to coo "
+            f"{got.shape}, supersteps {gst.supersteps}, messages "
+            f"{gst.total_messages}, per-partition sweeps equal")
+
+
+def check_levels(sm, label, name, sess, res, roots, src, dst):
+    """The first four lanes of a levels result against scipy's BFS."""
+    import numpy as np
+    t = time.perf_counter()
+    want = oracle_bfs_levels(sess.pg.n_vertices, src, dst, roots[:4])
+    got = sess.pg.collect(res, fill=np.float32(np.inf))
+    got = got[:, :4] if got.ndim == 2 else got[:, None]
+    sm.check(bool(np.array_equal(got.astype(np.float64), want)),
+             f"{label} {name}: {want.shape[1]} lanes of levels equal scipy's "
+             f"unweighted shortest paths ({int(np.isfinite(want).sum())} "
+             f"reachable; oracle {time.perf_counter() - t:.1f}s)")
+
+
+def check_triangles(sm, label, sess, res, pivots, src, dst):
+    import numpy as np
+    from repro_torch.algos import triangles_from_result
+    want, zmax, yzmax = oracle_triangles(sess.pg.n_vertices, src, dst,
+                                         pivots)
+    sm.note(f"{label} triangles: largest z {zmax:.0f}, largest y*z "
+            f"{yzmax:.0f} (float32 exact below {F32_EXACT})")
+    sm.check(zmax < F32_EXACT and yzmax < F32_EXACT,
+             f"{label} triangles: every z and y*z below 2**24")
+    got = 2.0 * triangles_from_result(sess.pg.collect(res, fill=0.0))
+    sm.check(bool(np.array_equal(got, want)),
+             f"{label} triangles: sum y*z per pivot equals scipy's float64 "
+             f"A^T products on the same edge list (closed 3-walks "
+             f"{int(want.sum())}, per pivot max {int(want.max())})")
+
+
+def windows_algos(sm: Smoke, ar: AlgoRunner, win) -> dict:
+    """kron-20 / cdbh / P=16 (phase 3's session after phase 6): BFS from
+    two roots, MSBFS and triangles at K = 16 on ``pallas_windows`` against
+    ``coo`` and scipy, then an insert batch and MSBFS warm vs cold."""
+    import numpy as np
+    from repro_torch.algos import BFS, make_msbfs, make_triangles
+
+    sess = win[0]
+    label = "kron-20"
+    src, dst, _ = resident_edges(sess.pg)
+    n = sess.pg.n_vertices
+    rng = np.random.default_rng(17)
+    live = np.nonzero(np.bincount(src, minlength=n))[0]
+    roots = np.sort(rng.choice(live, ALGO_K, replace=False)).astype(np.int32)
+    out = {}
+    for i, r in enumerate(roots[:2]):
+        q = [ar.query(sess, label, f"bfs_{i}", BFS(), {"source": int(r)}, eb)
+             for eb in ("pallas_windows", "coo")]
+        ar.same(label, f"BFS from {r}", *q)
+        check_levels(sm, label, f"BFS from {r}", sess, q[0][0], [r], src,
+                     dst)
+    prog, params = make_msbfs(roots)
+    q = [ar.query(sess, label, "msbfs", prog, params, eb,
+                  row=("segment_combine_windowed", "min") if
+                  eb == "pallas_windows" else None)
+         for eb in ("pallas_windows", "coo")]
+    ar.same(label, f"MSBFS K={ALGO_K}", *q)
+    check_levels(sm, label, f"MSBFS K={ALGO_K}", sess, q[0][0], roots, src,
+                 dst)
+    out["msbfs"] = q[0][0]
+    tprog, tparams = make_triangles(roots)
+    q = [ar.query(sess, label, "triangles", tprog, tparams, eb,
+                  row=("segment_combine_windowed", "sum") if
+                  eb == "pallas_windows" else None)
+         for eb in ("pallas_windows", "coo")]
+    ar.same(label, f"triangles K={ALGO_K}", *q)
+    check_triangles(sm, label, sess, q[0][0], roots, src, dst)
+
+    # an insert batch of phase 6's kind, then MSBFS warm-auto vs cold
+    bs, bd, bw = sym_batch(rng, sess.pg.n_edges // 400, n)
+    warm_q0 = sess.stats.warm_queries
+    t = time.perf_counter()
+    sess.update(adds=(bs, bd, bw))
+    st = sess.flush()
+    sm.note(f"{label}: insert batch of {st.n_added} edges flushed in "
+            f"{time.perf_counter() - t:.1f}s")
+    warm = ar.query(sess, label, "msbfs_warm", prog, params,
+                    "pallas_windows", warm="auto",
+                    row=("segment_combine_windowed", "min"))
+    cold = ar.query(sess, label, "msbfs_cold", prog, params,
+                    "pallas_windows", row=("segment_combine_windowed", "min"))
+    coo = ar.query(sess, label, "msbfs_cold", prog, params, "coo")
+    sm.check(sess.stats.warm_queries == warm_q0 + 1 and
+             bool(np.array_equal(warm[0], cold[0])) and
+             warm[1].supersteps <= cold[1].supersteps,
+             f"{label} after the insert batch: MSBFS warm-auto bit-identical"
+             f" to cold, {warm[1].supersteps} supersteps vs "
+             f"{cold[1].supersteps}")
+    ar.same(label, "MSBFS after the insert batch", cold, coo)
+    src, dst, _ = resident_edges(sess.pg)
+    check_levels(sm, label, "MSBFS after the insert batch", sess, cold[0],
+                 roots, src, dst)
+    out["msbfs"] = cold[0]
+    return out
+
+
+def grid_algos(sm: Smoke, ar: AlgoRunner, tile) -> dict:
+    """grid-1024 / range / P=16 (phase 4's session): MSBFS at K = 16 on
+    ``pallas_tiles`` against ``coo`` and scipy."""
+    import numpy as np
+    from repro_torch.algos import make_msbfs
+
+    sess = tile[0]
+    label = f"grid-{GRID_SIDE}"
+    src, dst, _ = resident_edges(sess.pg)
+    rng = np.random.default_rng(19)
+    roots = np.sort(rng.choice(sess.pg.n_vertices, ALGO_K,
+                               replace=False)).astype(np.int32)
+    prog, params = make_msbfs(roots)
+    q = [ar.query(sess, label, "msbfs", prog, params, eb,
+                  row=("bsp_spmv", "min_plus") if eb == "pallas_tiles"
+                  else None)
+         for eb in ("pallas_tiles", "coo")]
+    ar.same(label, f"MSBFS K={ALGO_K}", *q)
+    check_levels(sm, label, f"MSBFS K={ALGO_K}", sess, q[0][0], roots, src,
+                 dst)
+    return {"msbfs": q[0][0]}
+
+
+def kron14_algos(sm: Smoke, ar: AlgoRunner) -> dict:
+    """kron-14 / cdbh / P=16, a session of its own (weighted, seeded vertex
+    labels): triangles at K = 16 on ``pallas_tiles`` against ``coo``;
+    MSSP, LP, k-core, betweenness and graph simulation against the
+    script's oracles; k-core warm vs cold after a delete batch and MSBFS
+    warm vs cold after an insert batch."""
+    import numpy as np
+    from repro_torch.algos import (brandes_betweenness, make_kcore, make_lp,
+                                   make_msbfs, make_triangles)
+    from repro_torch.algos.gsim import make_gsim
+    from repro_torch.algos.mssp import make_mssp
+    from repro_torch.graphgen import kronecker_graph
+    from repro_torch.session import GraphSession
+
+    label = "kron-14"
+    g = kronecker_graph(14, seed=7, weighted=True)
+    sess = GraphSession.from_graph(g, 16, "cdbh", device=DEVICE)
+    n = g.n_vertices
+    rng = np.random.default_rng(23)
+    labels = rng.integers(0, 3, n)
+    sess.pg.set_vertex_labels(labels)
+    src, dst, w = resident_edges(sess.pg)
+    live = np.nonzero(np.bincount(src, minlength=n))[0]
+    pivots = np.sort(rng.choice(live, ALGO_K, replace=False)).astype(
+        np.int32)
+    out = {}
+
+    tprog, tparams = make_triangles(pivots)
+    q = [ar.query(sess, label, "triangles", tprog, tparams, eb,
+                  row=("bsp_spmv", "plus_times") if eb == "pallas_tiles"
+                  else None)
+         for eb in ("pallas_tiles", "coo")]
+    ar.same(label, f"triangles K={ALGO_K}", *q)
+    check_triangles(sm, label, sess, q[0][0], pivots, src, dst)
+
+    sources = pivots[:8]
+    res, _ = ar.query(sess, label, "mssp", *make_mssp(sources), "coo")
+    want = oracle_sssp_edges(n, src, dst, w, sources).T
+    ok, rel = allclose(sess.pg.collect(res, fill=np.float32(np.inf)), want)
+    sm.check(ok, f"{label} MSSP K=8 agrees with scipy Dijkstra (max rel err"
+                 f" {rel:.3g})")
+
+    res, _ = ar.query(sess, label, "lp", *make_lp(3), "coo")
+    got = sess.pg.collect(res, fill=np.int32(2**31 - 1))
+    sm.check(bool(np.array_equal(got, oracle_lp(n, src, dst, 3))),
+             f"{label} LP hops=3 equals the numpy hop-lane oracle")
+
+    for k in (2, 3):
+        res, _ = ar.query(sess, label, f"kcore{k}", *make_kcore(k), "coo")
+        want = oracle_kcore_peeled(n, src, dst, k)
+        got = sess.pg.collect(res, fill=0)
+        sm.check(bool(np.array_equal(got, want)),
+                 f"{label} k-core k={k} equals the numpy peel "
+                 f"({int(n - want.sum())} vertices in the core)")
+
+    bq = []
+
+    def query(prog, params):
+        res, _ = ar.query(sess, label, type(prog).__name__, prog, params,
+                          "coo")
+        bq.append(type(prog).__name__)
+        return sess.pg.collect(res, fill=prog.identity)
+    bpiv = pivots[:8]
+    got = brandes_betweenness(query, bpiv)
+    lev, sigma, delta, bc = oracle_brandes(n, src, dst, bpiv)
+    ok_l = bool(np.array_equal(got["levels"].astype(np.float64), lev))
+    checks = [allclose(got[k], v)
+              for k, v in (("sigma", sigma), ("delta", delta), ("bc", bc))]
+    sm.check(ok_l and all(c[0] for c in checks),
+             f"{label} betweenness, 8 pivots ({' -> '.join(bq)}): levels "
+             f"exact; sigma, delta, bc within {SUM_RTOL:g} of the float64 "
+             f"Brandes (max rel err {max(c[1] for c in checks):.3g}; max bc "
+             f"{bc.max():.4g})")
+
+    qadj = np.array([[0, 1, 1], [0, 0, 1], [0, 0, 0]], np.int32)
+    qlabel = np.array([0, 1, 2], np.int32)
+    res, _ = ar.query(sess, label, "gsim", *make_gsim(qadj, qlabel), "coo")
+    want = oracle_gsim(n, src, dst, labels, qadj, qlabel)
+    got = sess.pg.collect(res, fill=0)
+    sm.check(bool(np.array_equal(got, want)),
+             f"{label} graph simulation equals the numpy fixpoint "
+             f"({int(want.sum())} (vertex, pattern node) pairs kept)")
+
+    # a delete batch, then k-core warm-auto vs cold
+    kprog, kparams = make_kcore(3)
+    ar.query(sess, label, "kcore3_seed", kprog, kparams, "coo", warm="auto")
+    pick = rng.random(src.shape[0]) < 0.05
+    sess.update(deletes=(np.concatenate([src[pick], dst[pick]]),
+                         np.concatenate([dst[pick], src[pick]])))
+    st = sess.flush()
+    warm = ar.query(sess, label, "kcore3_warm", kprog, kparams, "coo",
+                    warm="auto")
+    cold = ar.query(sess, label, "kcore3_cold", kprog, kparams, "coo")
+    src, dst, w = resident_edges(sess.pg)
+    want = oracle_kcore_peeled(n, src, dst, 3)
+    sm.check(st.n_deleted > 0 and bool(np.array_equal(warm[0], cold[0]))
+             and bool(np.array_equal(sess.pg.collect(cold[0], fill=0), want))
+             and warm[1].supersteps <= cold[1].supersteps,
+             f"{label} after deleting {st.n_deleted} edges: k-core warm "
+             f"bit-identical to cold and to the numpy peel, "
+             f"{warm[1].supersteps} supersteps vs {cold[1].supersteps}")
+
+    # an insert batch, then MSBFS warm-auto vs cold on tiles and coo
+    mprog, mparams = make_msbfs(pivots)
+    ar.query(sess, label, "msbfs_seed", mprog, mparams, "pallas_tiles",
+             warm="auto")
+    bs, bd, bw = sym_batch(rng, sess.pg.n_edges // 100, n)
+    sess.update(adds=(bs, bd, bw))
+    st = sess.flush()
+    warm_q0 = sess.stats.warm_queries
+    warm = ar.query(sess, label, "msbfs_warm", mprog, mparams,
+                    "pallas_tiles", warm="auto")
+    cold = ar.query(sess, label, "msbfs_cold", mprog, mparams,
+                    "pallas_tiles")
+    coo = ar.query(sess, label, "msbfs_cold", mprog, mparams, "coo")
+    sm.check(sess.stats.warm_queries == warm_q0 + 1 and st.n_added > 0 and
+             bool(np.array_equal(warm[0], cold[0])) and
+             warm[1].supersteps <= cold[1].supersteps,
+             f"{label} after inserting {st.n_added} edges: MSBFS warm-auto "
+             f"bit-identical to cold, {warm[1].supersteps} supersteps vs "
+             f"{cold[1].supersteps}")
+    ar.same(label, "MSBFS after the insert batch", cold, coo)
+    src, dst, _ = resident_edges(sess.pg)
+    check_levels(sm, label, "MSBFS after the insert batch", sess, cold[0],
+                 pivots, src, dst)
+    out["sess"] = sess
+    return out
+
+
+def k16_kernel_rows(sm: Smoke, errs: dict, ar: AlgoRunner, win, tile,
+                    parts: dict) -> dict:
+    """The four K = 16 rows: each kernel on the device lists phase 7's
+    queries used (``parts``: what each part of the phase returned), against
+    its plain version, timed beside its bound and (where one PyTorch call
+    computes the same function) that call. Returns ``{kernel name: [row,
+    ...]}``."""
+    import torch
+    from repro_torch.algos import make_msbfs, make_triangles
+    from repro_torch.core.engine import (_layout_block_from, _tile_inputs,
+                                         _window_inputs)
+    from repro_torch.kernels import bsp_spmv as bk
+    from repro_torch.kernels import segment_combine as sk
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(16)
+    rows = {"segment_combine_windowed": [], "bsp_spmv": []}
+    roots = list(range(ALGO_K))
+
+    def bound(nbytes, ops):
+        t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+        return max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+    # segment_combine on kron-20: min (MSBFS levels) and sum (random)
+    sess = win[0]
+    sgs = sess.device_graph()
+    lay = sess.pg.edge_layouts
+    levels = torch.from_numpy(parts["kron-20 windows"]["msbfs"]).to(dev)
+    for comb, prog in (("min", make_msbfs(roots)[0]),
+                       ("sum", make_triangles(roots)[0])):
+        vals = levels if comb == "min" else torch.rand(
+            levels.shape, generator=gen, device=dev)
+        blk = _layout_block_from(lay, sess.pg, prog, "pallas_windows", dev)
+        msgs, ldst, bwin, nw, plan = _window_inputs(
+            sgs, blk, vals, prog.sweep_spec, sgs.v_max)
+        got = sk.segment_combine_windowed(msgs, ldst, bwin, n_windows=nw,
+                                          combiner=comb, plan=plan)
+        want = sk.segment_combine_plain(msgs, ldst, bwin, n_windows=nw,
+                                        combiner=comb)
+        torch.cuda.synchronize()
+        ok, err = compare(got, want, segment_magnitude(msgs, ldst, bwin, nw,
+                                                       comb))
+        errs["segment_combine"] = max(errs["segment_combine"], err)
+        sm.check(ok, f"segment_combine {comb} K={ALGO_K} at the kron-20 "
+                     f"shape {tuple(msgs.shape)} vs plain (max err "
+                     f"{err:.3g})")
+        Be = lay.block_edges
+        n_blocks = int(lay.n_blocks.sum())
+        nbytes = n_blocks * Be * (ALGO_K + 1) * 4 + n_blocks * 4 \
+            + nw * 128 * ALGO_K * 4
+        b_ms, b_by = bound(nbytes, n_blocks * Be * ALGO_K)
+        row = (bwin.long().repeat_interleave(Be) * 128 + ldst.long())[:, None]
+        row = row.expand(-1, ALGO_K).contiguous()
+        lib_out = torch.full((nw * 128, ALGO_K),
+                             float("inf") if comb == "min" else 0.0,
+                             device=dev)
+        red = "amin" if comb == "min" else "sum"
+        rows["segment_combine_windowed"].append(dict(
+            shape=f"kron-20 {'MSBFS' if comb == 'min' else 'triangles'} "
+                  f"msgs {tuple(msgs.shape)} f32 {comb}, {nw} windows, "
+                  f"{plan.n_chunks} chunks",
+            launches=ar.row_launches.get(("segment_combine_windowed", comb),
+                                         0),
+            max_abs_err=err,
+            ms=time_ms(lambda: sk.segment_combine_windowed(
+                msgs, ldst, bwin, n_windows=nw, combiner=comb, plan=plan)),
+            plain_ms=time_ms(lambda: sk.segment_combine_plain(
+                msgs, ldst, bwin, n_windows=nw, combiner=comb)),
+            library_ms=time_ms(lambda: lib_out.scatter_reduce_(
+                0, row, msgs, red, include_self=True)),
+            bound_ms=b_ms, bound_by=b_by, bytes=nbytes))
+        del msgs, ldst, bwin, got, want, row, lib_out
+
+    # bsp_spmv: min_plus on grid-1024 (MSBFS levels), plus_times on kron-14
+    for label, sess, vals, prog, key in (
+            (f"grid-{GRID_SIDE} MSBFS", tile[0],
+             torch.from_numpy(parts[f"grid-{GRID_SIDE} tiles"]["msbfs"]).to(
+                 dev),
+             make_msbfs(roots)[0], "min_plus"),
+            ("kron-14 triangles", parts["kron-14"]["sess"], None,
+             make_triangles(roots)[0], "plus_times")):
+        pg = sess.pg
+        if vals is None:
+            vals = torch.rand((pg.n_parts, pg.v_max, ALGO_K), generator=gen,
+                              device=dev)
+        blk = _layout_block_from(pg.edge_layouts, pg, prog, "pallas_tiles",
+                                 dev)
+        tiles, td, ts, v, ndt, plan = _tile_inputs(blk, vals,
+                                                   prog.sweep_spec, pg.v_max)
+        semi = prog.sweep_spec.semiring
+        got = bk.bsp_spmv(tiles, td, ts, v, n_dst_tiles=ndt, semiring=semi,
+                          plan=plan)
+        want = bk.bsp_spmv_plain(tiles, td, ts, v, n_dst_tiles=ndt,
+                                 semiring=semi)
+        torch.cuda.synchronize()
+        ok, err = compare(got, want, spmv_magnitude(tiles, td, ts, v, ndt,
+                                                    semi))
+        errs["bsp_spmv"] = max(errs["bsp_spmv"], err)
+        sm.check(ok, f"bsp_spmv {semi} K={ALGO_K} at the {label} shape "
+                     f"T={tiles.shape[0]} vs plain (max err {err:.3g})")
+        T = tiles.shape[0]
+        nbytes = T * 128 * 128 * 4 + 2 * T * 4 + v.numel() * 4 \
+            + ndt * 128 * ALGO_K * 4
+        b_ms, b_by = bound(nbytes, 2 * T * 128 * 128 * ALGO_K)
+        lib_ms = None
+        if semi == "plus_times":
+            lib_fn, lib_err = bsr_yardstick(tiles, td, ts, v, ndt)
+            if lib_fn is not None:
+                ok_l, err_l = compare(got, lib_fn().reshape(got.shape),
+                                      spmv_magnitude(tiles, td, ts, v, ndt,
+                                                     semi))
+                sm.note(f"torch.sparse.mm (BSR) agrees with bsp_spmv "
+                        f"plus_times K={ALGO_K}: {ok_l} (max err "
+                        f"{err_l:.3g})")
+                lib_ms = time_ms(lib_fn)
+            else:
+                sm.note(f"torch.sparse.mm (BSR) refused: {lib_err}")
+        launches = ar.row_launches.get(("bsp_spmv", key), 0)
+        rows["bsp_spmv"].append(dict(
+            shape=f"{label} tiles [{T}, 128, 128] f32 {semi}, K={ALGO_K}, "
+                  f"{plan.n_chunks} chunks, {-(-ALGO_K // 8)} lane groups",
+            launches=launches, max_abs_err=err,
+            ms=time_ms(lambda: bk.bsp_spmv(tiles, td, ts, v, n_dst_tiles=ndt,
+                                           semiring=semi, plan=plan)),
+            plain_ms=time_ms(lambda: bk.bsp_spmv_plain(
+                tiles, td, ts, v, n_dst_tiles=ndt, semiring=semi),
+                max_iters=5),
+            library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, bytes=nbytes))
+        del tiles, td, ts, v, got, want
+    return rows
+
+
+def algos_path(sm: Smoke, log: list, errs: dict, win, tile) -> dict:
+    """Phase 7 (see the module docstring): returns the K = 16 kernel rows,
+    the launches per kernel and the peak device memory of each part."""
+    import torch
+    from repro_torch.kernels import bsp_spmv as bk
+    from repro_torch.kernels import segment_combine as sk
+
+    ar = AlgoRunner(sm, log)
+    bk.bsp_spmv.launches = 0
+    sk.segment_combine_windowed.launches = 0
+    peak = {}
+    t0 = time.perf_counter()
+    parts = {}
+    for name, fn in (("kron-20 windows", lambda: windows_algos(sm, ar, win)),
+                     (f"grid-{GRID_SIDE} tiles",
+                      lambda: grid_algos(sm, ar, tile)),
+                     ("kron-14", lambda: kron14_algos(sm, ar))):
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        parts[name] = fn()
+        torch.cuda.synchronize()
+        peak[name] = torch.cuda.max_memory_allocated()
+        sm.note(f"phase 7 {name}: {time.perf_counter() - t:.1f}s, peak "
+                f"device memory {peak[name]} bytes "
+                f"({peak[name] / 2**30:.2f} GiB)")
+    launches = {"bsp_spmv": bk.bsp_spmv.launches,
+                "segment_combine_windowed":
+                    sk.segment_combine_windowed.launches}
+    sm.note(f"launches in the algorithm phase: {launches}; per row "
+            f"{ {'/'.join(k): v for k, v in ar.row_launches.items()} }; "
+            f"queries {time.perf_counter() - t0:.1f}s")
+    sm.check(all(v > 0 for v in launches.values()),
+             "the algorithm phase launched both kernels")
+    sm.check(all(ar.row_launches.get(k, 0) > 0 for k in (
+        ("segment_combine_windowed", "min"),
+        ("segment_combine_windowed", "sum"), ("bsp_spmv", "min_plus"),
+        ("bsp_spmv", "plus_times"))),
+        "MSBFS and triangles at K=16 launched segment_combine at kron-20 "
+        "and bsp_spmv at grid-1024 / kron-14")
+    rows = k16_kernel_rows(sm, errs, ar, win, tile, parts)
+    return dict(rows=rows, launches=launches, peak=peak,
+                row_launches={"/".join(k): v
+                              for k, v in ar.row_launches.items()})
+
+
 def main() -> int:
     try:
         import torch
@@ -1175,6 +1802,8 @@ def main() -> int:
     sm.check(all(v > 0 for v in stream_launches.values()),
              "the streaming phase launched both kernels")
     stream_kernel_checks(sm, errs, win, tile, stream)
+    algos = algos_path(sm, log, errs, win, tile)
+    peak.update({f"algorithms, {k}": v for k, v in algos["peak"].items()})
     kernels = []
     for r in recs:
         t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
@@ -1183,6 +1812,7 @@ def main() -> int:
         sm.note(f"{r['name']}: {r['shape']}; {r['bytes']} bytes, {r['ops']} "
                 f"ops")
         extra = {k: r[k] for k in ("padded_ms", "plus_times_ms",
+                                   "plus_times_plain_ms",
                                    "plus_times_library_ms") if k in r}
         kernels.append(dict(
             name=r["name"], route=r["route"], source=r["source"],
@@ -1191,12 +1821,15 @@ def main() -> int:
             bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             library_ms=r["library_ms"],
-            launches_streaming=stream_launches[r["name"]], **extra))
+            launches_streaming=stream_launches[r["name"]],
+            launches_algos=algos["launches"][r["name"]],
+            k16=algos["rows"][r["name"]], **extra))
     Path(ROOT / "chiprun_out").mkdir(exist_ok=True)
     (ROOT / "chiprun_out" / "chip_smoke_queries.json").write_text(
         json.dumps(dict(gpu=ident, queries=log, kernels=kernels,
                         stream_steps=stream["steps"],
                         peak_memory_bytes=peak,
+                        algo_row_launches=algos["row_launches"],
                         kernel_shapes={r["name"]: r["shape"] for r in recs},
                         plus_times_library_error=recs[-1].get(
                             "plus_times_library_error")), indent=1))

@@ -58,7 +58,8 @@ from repro_torch.kernels.segment_combine import W, segment_combine_windowed
 
 __all__ = ["EngineConfig", "EdgeCombine", "run", "run_sim",
            "make_sim_runner", "resolve_edge_backend",
-           "normalize_edge_backend", "save_checkpoint", "load_checkpoint"]
+           "normalize_edge_backend", "params_to_device", "save_checkpoint",
+           "load_checkpoint"]
 
 _SHARD_MAP_TODO = ("backend='shard_map' is not ported yet (ROADMAP Queue 1: "
                    "multi-GPU backend over torch.distributed)")
@@ -171,6 +172,21 @@ def _device_subgraph(pg: PartitionedGraph, device) -> DeviceSubgraph:
         is_master=t(pg.is_master),
         vlabel=None if pg.vlabel is None else t(pg.vlabel),
     )
+
+
+def params_to_device(params, device):
+    """``params`` with every array leaf (``ndim >= 1``, numpy or torch) a
+    tensor on ``device`` of its own dtype; scalars stay as they are. Dicts,
+    lists and tuples keep their structure."""
+    if isinstance(params, dict):
+        return {k: params_to_device(v, device) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return type(params)(params_to_device(v, device) for v in params)
+    if isinstance(params, torch.Tensor):
+        return params.to(device) if params.dim() else params
+    if isinstance(params, np.ndarray) and params.ndim:
+        return torch.from_numpy(np.ascontiguousarray(params)).to(device)
+    return params
 
 
 # --------------------------------------------------------------------------- #
@@ -457,6 +473,7 @@ def make_sim_runner(program: VertexProgram, cfg: EngineConfig, n_slots: int,
                              f"{warm_start}; pass warm accordingly")
         dev = sgs.device
         dt = program.torch_dtype
+        params = params_to_device(params, dev)
         if resume is None:
             state = program.init(sgs, params, ec)
             if warm_start:
@@ -585,6 +602,7 @@ def run_sim(program: VertexProgram, pg: PartitionedGraph, params=None,
     edge_backend = resolve_edge_backend(program, cfg)
     _check_supported(cfg, edge_backend)
     sgs = _device_subgraph(pg, dev)
+    params = params_to_device(params, dev)
     n_slots, K = pg.n_slots, program.payload
     warm = init_state is not None and program.monotone
     lay = lay_blk = None
@@ -635,6 +653,7 @@ def run_sim(program: VertexProgram, pg: PartitionedGraph, params=None,
     stats.total_messages = tot_msgs
     stats.host_syncs = syncs
     stats.processed_edges = int((sweeps_h * epp_host).sum())
+    stats.partition_sweeps = [int(x) for x in sweeps_h]
     stats.backend_flops = int((sweeps_h * flops_pp).sum())
     stats.total_bytes = (steps - (0 if resume is None else resume["step"])) \
         * step_bytes

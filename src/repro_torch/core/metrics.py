@@ -70,6 +70,7 @@ class ExecutionStats:
     partition_flops: list = dataclasses.field(default_factory=list)
     partition_sweep_time: list = dataclasses.field(default_factory=list)
     partition_tile_density: list = dataclasses.field(default_factory=list)
+    partition_sweeps: list = dataclasses.field(default_factory=list)
 
     @property
     def peps(self) -> float:

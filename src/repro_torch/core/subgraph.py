@@ -163,6 +163,14 @@ class PartitionedGraph:
         out[self.gvid[sel]] = values[sel]
         return out
 
+    def set_vertex_labels(self, labels: np.ndarray) -> None:
+        """Attach global per-vertex int labels (graph simulation §7.3) as
+        the [P, v_max] int32 ``vlabel`` array, 0 at padded rows. A session
+        uploads them with the graph, so set them before its first query."""
+        lab = np.zeros((self.n_parts, self.v_max), dtype=np.int32)
+        lab[self.vmask] = np.asarray(labels)[self.gvid[self.vmask]]
+        self.vlabel = lab
+
     def ensure_edge_layouts(self, shape_policy: Optional[ShapePolicy] = None,
                             block_edges: int = 512):
         """The ``EdgeLayouts`` for this graph, built on first use (and

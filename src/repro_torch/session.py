@@ -515,7 +515,8 @@ class GraphSession:
             backend_flops=tot_flops,
             partition_edge_counts=[int(x) for x in epp],
             partition_flops=[int(x) for x in flops_pp],
-            partition_sweep_time=[float(x) for x in wall * share])
+            partition_sweep_time=[float(x) for x in wall * share],
+            partition_sweeps=[int(x) for x in sweeps])
         if eb == "pallas_tiles" and lay is not None:
             spec = program.sweep_spec
             st.tile_density = lay.density(pg, spec.semiring,

@@ -260,3 +260,56 @@ def test_kernels_on_layouts_rebuilt_by_a_flush(cuda, step):
                 torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
             else:
                 assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("eb", ["pallas_tiles", "pallas_windows"])
+@pytest.mark.parametrize("algo", ["msbfs", "triangles"])
+def test_k16_programs_on_kernels_match_coo(cuda, algo, eb):
+    """MSBFS and triangles with K = 16 roots / pivots through each kernel
+    backend on the card: results equal ``coo``'s on the card bit for bit
+    (triangle sums are integers below 2**24), as do supersteps, messages
+    and per-partition sweeps, and the kernel was launched."""
+    from repro_torch.algos import make_msbfs, make_triangles
+    g = kronecker_graph(11, seed=7)
+    sess = GraphSession.from_graph(g, 8)
+    roots = np.random.default_rng(5).choice(g.n_vertices, 16, replace=False)
+    make = make_msbfs if algo == "msbfs" else make_triangles
+    prog, params = make(roots)
+    counter = tb.bsp_spmv if eb == "pallas_tiles" \
+        else ts.segment_combine_windowed
+    before = counter.launches
+    got, gst = sess.query(prog, params, warm=False,
+                          cfg=EngineConfig(edge_backend=eb))
+    assert counter.launches > before
+    want, wst = sess.query(prog, params, warm=False, cfg=EngineConfig())
+    assert got.shape == (8, sess.pg.v_max, 16)
+    np.testing.assert_array_equal(got, want)
+    assert (gst.supersteps, gst.total_messages, gst.partition_sweeps) == \
+        (wst.supersteps, wst.total_messages, wst.partition_sweeps)
+
+
+def test_betweenness_halts_on_card(cuda):
+    """SigmaCount and BrandesAccum halt only when a recomputed partial sum
+    equals the one synced, bit for bit: on the card their float scatter
+    sums must be deterministic. ``brandes_betweenness`` on the card halts
+    well inside its bound and matches the same stages on the CPU within
+    1e-5."""
+    from repro_torch.algos import brandes_betweenness
+    g = kronecker_graph(11, seed=7)
+    pivots = np.random.default_rng(2).choice(g.n_vertices, 8, replace=False)
+    out, steps = {}, {}
+    for dev in ("cuda", "cpu"):
+        sess = GraphSession.from_graph(g, 8, device=dev)
+        cfg = EngineConfig(max_supersteps=100, max_local_iters=1000)
+        steps[dev] = []
+
+        def query(prog, params, sess=sess, cfg=cfg, dev=dev):
+            res, st = sess.query(prog, params, cfg=cfg)
+            steps[dev].append(st.supersteps)
+            return sess.pg.collect(res, fill=prog.identity)
+        out[dev] = brandes_betweenness(query, pivots)
+    assert max(steps["cuda"]) < 100 and len(steps["cuda"]) == 3
+    np.testing.assert_array_equal(out["cuda"]["levels"], out["cpu"]["levels"])
+    for k in ("sigma", "delta", "bc"):
+        np.testing.assert_allclose(out["cuda"][k], out["cpu"][k], rtol=1e-5,
+                                   atol=1e-5, err_msg=k)

@@ -91,3 +91,19 @@ def test_unported_paths_raise_not_implemented():
         with pytest.raises((NotImplementedError, ValueError),
                            match="ROADMAP"):
             call()
+
+
+def test_algos_export_the_reference_suite():
+    """``repro_torch.algos`` exports every name of ``repro.algos``, and
+    importing it alone loads no JAX."""
+    import repro.algos as RA
+    import repro_torch.algos as TA
+    assert TA.__all__ == RA.__all__
+    assert all(hasattr(TA, n) for n in TA.__all__)
+    code = ("import sys, repro_torch.algos; bad = [m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
+            "assert not bad, bad")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr + out.stdout
