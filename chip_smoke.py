@@ -38,7 +38,8 @@ Phases (the run exits non-zero if any of them fails):
      buffer bound above a batch) and phase 4's kron-14 session
      (``pallas_tiles``), with both launch counters reset before it: two
      symmetric insert batches of 0.5% of the edges (weights in [5, 10);
-     the second brings 1,024 new vertex ids), each flushed and followed by
+     the second brings 1,024 new vertex ids; together they must move the
+     slot capacity to its next bucket), each flushed and followed by
      SSSP warm-auto and cold (bit-identical, warm in fewer supersteps),
      the same query on ``coo`` and scipy's Dijkstra on the mutated edge
      list; a delete batch of 5% of the resident edges (warm results
@@ -72,15 +73,41 @@ Phases (the run exits non-zero if any of them fails):
      kron-14) against its plain version, timed beside its bound and the
      library call; the peak device memory of each part is printed.
 
+  8. ``edge_backend='auto'`` and the balanced vertex-cut, after the
+     earlier sessions are dropped. The calibration table is measured on
+     the card (``DRONE_AUTOTUNE_DIR=build/autotune``) and must reload to
+     the same JSON. ``GraphSession.from_graph(kronecker_graph(20, seed=7),
+     16, "ebv", rebalance="auto")``: EBV routing time, replication factor
+     and imbalance beside phase 3's cdbh; SSSP from phase 3's two sources,
+     CC and PageRank under ``'auto'`` and on ``pallas_windows``, each
+     against ``coo`` (SSSP also against Dijkstra). grid-1024 / range /
+     P=16 under a forced three-way assignment (``coo``, tiles, windows by
+     partition mod 3) through ``make_sim_runner(partition_backends=)``:
+     SSSP, CC and PageRank against uniform ``coo``, both kernels launched;
+     then the calibrated ``'auto'`` SSSP beside tiles and ``coo``. On the
+     ebv session: a 0.5% symmetric insert batch, a delete wave on 6 of the
+     16 partitions over two flushes that fires the monitor exactly once,
+     SSSP warm and cold, CC and PageRank after the rebalance against
+     ``coo`` (SSSP against Dijkstra), and deletes of original edges through
+     the router's pair table (the copies they miss must be exactly those
+     the rebalance left on its donors while moving their pair, a fault
+     kept for parity with the reference); each kernel against its plain
+     version on the group-sliced device lists. Per step it prints the
+     flush's host time, the rebalance's plan and execution, the layout
+     refresh and the re-upload.
+
 A small-graph check holds the three programs against independent numpy
 oracles on all three backends. The kernel JSON line gives each kernel's
 launches per phase (``launches`` = phases 3-4, ``launches_streaming`` =
-phase 6, ``launches_algos`` = phase 7) and its K = 16 rows (``k16``). The
+phase 6, ``launches_algos`` = phase 7, ``launches_auto`` = phase 8's
+``'auto'`` runs: its ``'auto'`` queries and the forced mix, without the
+uniform queries it compares them with) and its K = 16 rows (``k16``). The
 line before the last is the card's name and power limit from
 ``nvidia-smi``; the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -100,6 +127,7 @@ STREAM_BUFFER_EDGES = 1 << 22  # kron-20 session's buffer bound: above a batch
 class Smoke:
     def __init__(self):
         self.failures = []
+        self.facts = {}               # what a later phase compares with
         self.t0 = time.perf_counter()
 
     def check(self, ok: bool, what: str) -> bool:
@@ -497,6 +525,9 @@ def windows_path(sm: Smoke, log: list):
     lay = sess.pg.ensure_edge_layouts(shape_policy=sess.shape_policy)
     sm.note(f"kron-20 cdbh P=16: v_max={sess.pg.v_max} e_max={sess.pg.e_max}"
             f" b_max={lay.b_max}; built in {time.perf_counter() - t:.1f}s")
+    from repro_torch.core import partition_metrics
+    sm.facts["kron-20 cdbh"] = partition_metrics(sess.pg)
+    sm.note(f"kron-20 cdbh P=16 partitioning: {sm.facts['kron-20 cdbh']}")
     deg = g.out_degrees()
     rng = np.random.default_rng(7)
     s0 = int(np.argmax(deg))
@@ -773,18 +804,14 @@ def main_path_kernels(sm: Smoke, errs: dict, win, tile) -> list:
 # --------------------------------------------------------------------------- #
 # phase 6: the streaming lifecycle
 # --------------------------------------------------------------------------- #
-class LayoutTimer:
-    """Host seconds the edge layouts' refresh takes (the incremental
-    rebuild, the column growth and a full rebuild), gathered by wrapping
-    those three entry points for the duration of phase 6."""
+class CallTimer:
+    """Host seconds spent inside the wrapped entry points (``targets``:
+    ``(owner, attribute)`` pairs) while the timer is open."""
 
-    def __init__(self):
-        from repro_torch.core import layouts as L
+    def __init__(self, targets):
         self.seconds = 0.0
         self._orig = [(owner, name, getattr(owner, name))
-                      for owner, name in ((L.EdgeLayouts, "rebuild_partitions"),
-                                          (L.EdgeLayouts, "sync_capacity"),
-                                          (L, "build_edge_layouts"))]
+                      for owner, name in targets]
         for owner, name, fn in self._orig:
             setattr(owner, name, self._timed(fn))
 
@@ -804,6 +831,15 @@ class LayoutTimer:
     def close(self) -> None:
         for owner, name, fn in self._orig:
             setattr(owner, name, fn)
+
+
+def layout_timer() -> CallTimer:
+    """Host seconds the edge layouts' refresh takes: the incremental
+    rebuild, the column growth and a full rebuild."""
+    from repro_torch.core import layouts as L
+    return CallTimer(((L.EdgeLayouts, "rebuild_partitions"),
+                      (L.EdgeLayouts, "sync_capacity"),
+                      (L, "build_edge_layouts")))
 
 
 def oracle_sssp_edges(n, src, dst, w, source):
@@ -853,7 +889,7 @@ def streaming_path(sm: Smoke, log: list, win, tile, ident: str) -> dict:
 
     sess, _, g, s0 = win
     sq = tile[2]
-    timer = LayoutTimer()
+    timer = layout_timer()
     steps = []
     rng = np.random.default_rng(13)
     win_cfg = EngineConfig(edge_backend="pallas_windows")
@@ -874,7 +910,7 @@ def streaming_path(sm: Smoke, log: list, win, tile, ident: str) -> dict:
         upload = time.perf_counter() - t
         eb = "pallas_windows" if s is sess else "pallas_tiles"
         t = time.perf_counter()
-        s._layout_arg(SSSP(), eb)
+        s._layout_arg(SSSP(), eb, s.cfg)
         torch.cuda.synchronize()
         dev_list = time.perf_counter() - t
         rec = dict(graph="kron-20" if s is sess else "kron-14", step=label,
@@ -928,6 +964,7 @@ def streaming_path(sm: Smoke, log: list, win, tile, ident: str) -> dict:
 
     # ---- kron-20 (windows) ---------------------------------------------- #
     n0, E0 = g.n_vertices, g.n_edges
+    cap0 = sess.slot_capacity
     for label, new in (("insert 1", ()),
                        ("insert 2 (+1024 ids)", np.arange(n0, n0 + 1024))):
         src, dst, w = sym_batch(rng, E0 // 400, n0, new)
@@ -944,6 +981,9 @@ def streaming_path(sm: Smoke, log: list, win, tile, ident: str) -> dict:
                  f"kron-20 {label}: {st.n_added} edges added in one flush, "
                  f"{sess.pg.n_vertices} vertices")
         sssp_three_ways(rec, label, oracle=True)
+    sm.check(sess.slot_capacity > cap0,
+             f"kron-20 inserts moved the slot capacity {cap0} -> "
+             f"{sess.slot_capacity} (the layouts' column growth)")
 
     src_all, dst_all = np.concatenate(es), np.concatenate(ed)
     pick = rng.random(src_all.shape[0]) < 0.05
@@ -1727,6 +1767,608 @@ def algos_path(sm: Smoke, log: list, errs: dict, win, tile) -> dict:
                               for k, v in ar.row_launches.items()})
 
 
+# --------------------------------------------------------------------------- #
+# phase 8: edge_backend='auto' and the balanced vertex-cut
+# --------------------------------------------------------------------------- #
+# The phase's monitor reads the edge counts alone (no sweep-time or
+# frontier weight), so the wave below trips it at a flush known in advance:
+# deleting WAVE_FRACTIONS of the resident edges of WAVE_PARTS of the 16
+# partitions leaves an edge imbalance of at least 16 / (10 + 6 f), f the
+# share they keep: >= 1.127 after the first flush, >= 1.176 after the
+# second, so the gauge sits above ``high`` at two graph events in a row.
+AUTO_MONITOR = dict(high=1.1, low=1.05, patience=2, w_time=0.0,
+                    w_frontier=0.0)
+WAVE_PARTS = 6
+WAVE_FRACTIONS = (0.3, 1.0 / 7.0)    # of what each wave partition holds
+WAVE_BUFFER_EDGES = 1 << 24          # the ebv session's buffer: above a wave
+STEP5_DELETES = 10_000               # original edges deleted at the end
+TILE_GROUP_LIMIT = 16 * 2**30        # tile value bytes 'auto' may realize
+
+
+class AutoRunner:
+    """Runs phase 8's session queries and logs each one (wall time,
+    supersteps, messages, kernel launches, per-partition picks). Each run
+    goes through ``counted``: the launch counters are set to 0 just before
+    it and read just after, and the counts of the 'auto' path's runs (the
+    'auto' queries and the forced mix) add up in ``auto_launches``; those
+    of the uniform comparison queries in ``uniform_launches``."""
+
+    def __init__(self, sm: Smoke, log: list):
+        self.sm, self.log = sm, log
+        self.auto_launches = {"bsp_spmv": 0, "segment_combine_windowed": 0}
+        self.uniform_launches = dict(self.auto_launches)
+
+    def counted(self, auto: bool, fn):
+        """``(fn(), {kernel: launches in fn})``, added to the path's sum."""
+        from repro_torch.kernels import bsp_spmv as bk
+        from repro_torch.kernels import segment_combine as sk
+        bk.bsp_spmv.launches = 0
+        sk.segment_combine_windowed.launches = 0
+        out = fn()
+        n = {"bsp_spmv": bk.bsp_spmv.launches,
+             "segment_combine_windowed": sk.segment_combine_windowed.launches}
+        total = self.auto_launches if auto else self.uniform_launches
+        for k, v in n.items():
+            total[k] += v
+        return out, n
+
+    def query(self, sess, label, name, prog, params, eb, warm=False):
+        from repro_torch.core import EngineConfig
+        t = time.perf_counter()
+        (res, st), n = self.counted(eb == "auto", lambda: sess.query(
+            prog, params, warm=warm, cfg=EngineConfig(edge_backend=eb)))
+        rec = dict(phase=8, graph=label, query=name, edge_backend=eb,
+                   wall_s=st.wall_time, host_s=time.perf_counter() - t,
+                   supersteps=st.supersteps,
+                   messages=st.total_messages, host_syncs=st.host_syncs,
+                   kernel_launches=n,
+                   picks=pick_counts(st.partition_edge_backends))
+        self.log.append(rec)
+        print("query " + json.dumps(rec), flush=True)
+        return res, st
+
+    def same(self, label, name, got, want, delta_based):
+        """A query against its ``coo`` twin: bit for bit with the same
+        supersteps, messages and per-partition sweeps, or PageRank within
+        PR_RTOL of the largest rank."""
+        import numpy as np
+        (a, ast), (b, bst) = got, want
+        if delta_based:
+            err = float(np.abs(a - b).max())
+            scale = float(np.abs(b).max())
+            return self.sm.check(
+                err <= PR_RTOL * scale and bool(np.isfinite(a).all()),
+                f"{label} {name}: {ast.edge_backend} == coo within "
+                f"{PR_RTOL:g} of max rank (max err {err:.3g})")
+        return self.sm.check(
+            bool(np.array_equal(a, b)) and
+            (ast.supersteps, ast.total_messages, ast.partition_sweeps) ==
+            (bst.supersteps, bst.total_messages, bst.partition_sweeps),
+            f"{label} {name}: {ast.edge_backend} bit-identical to coo, "
+            f"supersteps {ast.supersteps}, messages {ast.total_messages}, "
+            f"per-partition sweeps equal")
+
+
+def pick_counts(picks) -> dict:
+    """Partitions per backend of an assignment."""
+    out = {}
+    for b in picks or ():
+        out[b] = out.get(b, 0) + 1
+    return out
+
+
+def check_dijkstra(sm, label, sess, res, source, src, dst, w):
+    import numpy as np
+    t = time.perf_counter()
+    want = oracle_sssp_edges(sess.pg.n_vertices, src, dst, w, source)
+    d = sess.pg.collect(res, fill=np.float32(np.inf)).astype(np.float64)
+    fin = np.isfinite(want)
+    sm.check(bool(np.array_equal(np.isfinite(d), fin)
+                  and np.allclose(d[fin], want[fin], rtol=1e-5)),
+             f"{label}: SSSP from {source} agrees with scipy Dijkstra "
+             f"(rtol 1e-5; {int(fin.sum())} reachable; oracle "
+             f"{time.perf_counter() - t:.1f}s)")
+
+
+def calibration_part(sm: Smoke):
+    """The measured calibration table, cached under build/autotune."""
+    import os
+    import torch
+    from repro_torch.core import autotune
+    os.environ["DRONE_AUTOTUNE_DIR"] = str(ROOT / "build" / "autotune")
+    t = time.perf_counter()
+    table = autotune.get_table(force=True)
+    took = time.perf_counter() - t
+    name = torch.cuda.get_device_name(0).split()
+    sm.check(table.source == "measured"
+             and table.platform.startswith("torch-cuda-sm")
+             and all(part in table.platform for part in name),
+             f"calibration measured on {table.platform} in {took:.1f}s "
+             f"({len(table.points)} points)")
+    again = autotune.load_table(table.platform)
+    sm.check(again is not None and again.to_json() == table.to_json(),
+             f"calibration table reloads to the same JSON from "
+             f"{autotune.table_path(table.platform)}")
+    sm.note("calibrated unit costs (s per unit): " + ", ".join(
+        f"{k} {v:.4g}" for k, v in sorted(table.unit_costs.items())))
+    return table
+
+
+def kron20_ebv_part(sm: Smoke, ar: AutoRunner, g) -> dict:
+    """kron-20 / ebv / P=16 under 'auto' beside windows and coo."""
+    import numpy as np
+    from repro_torch.algos import SSSP, ConnectedComponents, PageRank
+    from repro_torch.core import EngineConfig, partition_metrics
+    from repro_torch.kernels.bsp_spmv import TM, TN
+    from repro_torch.partition import LoadMonitor, MonitorConfig
+    from repro_torch.partition import ebv as E
+    from repro_torch.session import GraphSession
+
+    routing = CallTimer(((E.EBVRouterState, "route_adds"),))
+    t = time.perf_counter()
+    try:
+        sess = GraphSession.from_graph(
+            g, 16, "ebv", device=DEVICE, rebalance="auto",
+            monitor=LoadMonitor(MonitorConfig(**AUTO_MONITOR)),
+            cfg=EngineConfig(edge_backend="auto"),
+            max_buffer_edges=WAVE_BUFFER_EDGES)
+    finally:
+        ebv_s = routing.take()
+        routing.close()
+    build = time.perf_counter() - t
+    m, cdbh = partition_metrics(sess.pg), sm.facts.get("kron-20 cdbh")
+    sm.note(f"kron-20 ebv P=16: EBV routing {ebv_s:.1f}s host, session "
+            f"built in {build:.1f}s; ebv {m}; cdbh {cdbh}")
+    sm.check(m.imbalance <= 1.1,
+             f"kron-20 ebv edge imbalance {m.imbalance:.4f} <= 1.1 (cdbh "
+             f"{cdbh.imbalance if cdbh else float('nan'):.4f}); replication "
+             f"factor {m.replication_factor:.4f} (cdbh "
+             f"{cdbh.replication_factor if cdbh else float('nan'):.4f})")
+    t = time.perf_counter()
+    picks = sess._resolve_assignment(SSSP(), sess.cfg)
+    lay = sess.pg.edge_layouts
+    tile_bytes = int(sum(int(lay.n_tiles[p]) for p, b in enumerate(picks)
+                         if b == "pallas_tiles")) * TM * TN * 4
+    sm.note(f"kron-20 ebv 'auto' picks {list(picks)} "
+            f"({pick_counts(picks)}; layouts and picks "
+            f"{time.perf_counter() - t:.1f}s; tile group values "
+            f"{tile_bytes} bytes)")
+    out = dict(sess=sess, picks=picks, ebv_s=ebv_s, metrics=m)
+    if not sm.check(tile_bytes <= TILE_GROUP_LIMIT,
+                    f"kron-20 'auto' tile group fits the card "
+                    f"({tile_bytes} <= {TILE_GROUP_LIMIT} bytes)"):
+        return out
+    deg = g.out_degrees()
+    rng = np.random.default_rng(7)                 # phase 3's two sources
+    s0 = int(np.argmax(deg))
+    s1 = int(rng.choice(np.nonzero(deg)[0]))
+    out["source"] = s0
+    for name, prog, params in (
+            ("sssp_a", SSSP(), {"source": s0}),
+            ("sssp_b", SSSP(), {"source": s1}),
+            ("cc", ConnectedComponents(), None),
+            ("pagerank", PageRank(), {"n_vertices": g.n_vertices})):
+        res = {eb: ar.query(sess, "kron-20 ebv", name, prog, params, eb)
+               for eb in ("auto", "pallas_windows", "coo")}
+        for eb in ("auto", "pallas_windows"):
+            ar.same("kron-20 ebv", name, res[eb], res["coo"],
+                    prog.delta_based)
+        sm.note(f"kron-20 ebv {name}: auto {res['auto'][1].wall_time:.4f}s, "
+                f"pallas_windows {res['pallas_windows'][1].wall_time:.4f}s, "
+                f"coo {res['coo'][1].wall_time:.4f}s")
+        if name.startswith("sssp"):
+            check_dijkstra(sm, f"kron-20 ebv {name}", sess, res["auto"][0],
+                           params["source"], g.src, g.dst, g.weights)
+    return out
+
+
+def grid_mix_part(sm: Smoke, ar: AutoRunner) -> dict:
+    """grid-1024 / range / P=16 under a forced three-way assignment through
+    the engine's runner, each program against uniform ``coo``; then the
+    calibrated 'auto' SSSP beside tiles and coo."""
+    import numpy as np
+    import torch
+    from repro_torch.algos import SSSP, ConnectedComponents, PageRank
+    from repro_torch.core import EngineConfig
+    from repro_torch.core.engine import _auto_layout_blocks, make_sim_runner
+    from repro_torch.graphgen import grid_graph
+    from repro_torch.session import GraphSession
+
+    t = time.perf_counter()
+    g = grid_graph(GRID_SIDE, weighted=True, seed=9)
+    sess = GraphSession.from_graph(g, 16, "range", device=DEVICE)
+    pg = sess.pg
+    lay = pg.ensure_edge_layouts(shape_policy=sess.shape_policy)
+    sgs = sess.device_graph()
+    sm.note(f"grid-{GRID_SIDE} range P=16 session for phase 8 built in "
+            f"{time.perf_counter() - t:.1f}s")
+    asg = tuple(("coo", "pallas_tiles", "pallas_windows")[p % 3]
+                for p in range(pg.n_parts))
+    auto_cfg = EngineConfig(edge_backend="auto")
+    blocks, values = {}, {}
+    mix_launches = {"bsp_spmv": 0, "segment_combine_windowed": 0}
+    for name, prog, params in (
+            ("sssp", SSSP(), {"source": 0}),
+            ("cc", ConnectedComponents(), None),
+            ("pagerank", PageRank(), {"n_vertices": g.n_vertices})):
+        t = time.perf_counter()
+        blk = _auto_layout_blocks(lay, pg, prog, asg, sgs.device)
+        torch.cuda.synchronize()
+        lists = time.perf_counter() - t
+        blocks[name] = (prog, blk)
+        runs = {}
+        for label, cfg, kw, lay_arg in (
+                ("mix", auto_cfg, dict(partition_backends=asg), blk),
+                ("coo", EngineConfig(), {}, None)):
+            runner = make_sim_runner(prog, cfg, sess.slot_capacity, **kw)
+            t = time.perf_counter()
+
+            def run():
+                out = runner(sgs, lay_arg, params)
+                torch.cuda.synchronize()
+                return out
+            (res, steps, msgs, sweeps, syncs), n = ar.counted(
+                label == "mix", run)
+            wall = time.perf_counter() - t
+            if label == "mix":
+                for k, v in n.items():
+                    mix_launches[k] += v
+            res = res.cpu().numpy()
+            runs[label] = (res, steps, msgs, list(sweeps))
+            rec = dict(phase=8, graph=f"grid-{GRID_SIDE}", query=name,
+                       edge_backend="forced three-way" if label == "mix"
+                       else "coo", wall_s=wall,
+                       supersteps=steps, messages=msgs, host_syncs=syncs,
+                       kernel_launches=n,
+                       group_lists_s=lists if label == "mix" else None)
+            ar.log.append(rec)
+            print("query " + json.dumps(rec), flush=True)
+        (a, *ca), (b, *cb) = runs["mix"], runs["coo"]
+        values[name] = a
+        if prog.delta_based:
+            err = float(np.abs(a - b).max())
+            sm.check(err <= PR_RTOL * float(np.abs(b).max()),
+                     f"grid-{GRID_SIDE} {name}: forced three-way mix == coo "
+                     f"within {PR_RTOL:g} of max rank (max err {err:.3g})")
+        else:
+            sm.check(bool(np.array_equal(a, b)) and ca == cb,
+                     f"grid-{GRID_SIDE} {name}: forced three-way mix "
+                     f"bit-identical to coo, supersteps {ca[0]}, messages "
+                     f"{ca[1]}, per-partition sweeps equal")
+    sm.check(all(n > 0 for n in mix_launches.values()),
+             f"the forced three-way mix launched both kernels, counted over "
+             f"its own runs alone: {mix_launches}")
+    res = {eb: ar.query(sess, f"grid-{GRID_SIDE}", "sssp", SSSP(),
+                        {"source": 0}, eb)
+           for eb in ("auto", "pallas_tiles", "coo")}
+    for eb in ("auto", "pallas_tiles"):
+        ar.same(f"grid-{GRID_SIDE}", "sssp", res[eb], res["coo"], False)
+    sm.note(f"grid-{GRID_SIDE} SSSP: calibrated 'auto' picks "
+            f"{pick_counts(res['auto'][1].partition_edge_backends)} "
+            f"{res['auto'][1].wall_time:.4f}s, pallas_tiles "
+            f"{res['pallas_tiles'][1].wall_time:.4f}s, coo "
+            f"{res['coo'][1].wall_time:.4f}s")
+    return dict(sess=sess, asg=asg, blocks=blocks, values=values)
+
+
+def stranded_copies(pg, plan):
+    """``(src, dst)`` of the resident copies a rebalance plan leaves on
+    their donor partition while it moves another copy of the same
+    unordered pair (the other direction, or a parallel edge). Counted from
+    the plan's moves and the graph before it runs, not from the router."""
+    import numpy as np
+    V = np.int64(pg.n_vertices)
+    ss, dd = [np.empty(0, np.int64)], [np.empty(0, np.int64)]
+    for p, (idx, _) in plan.moves.items():
+        m = pg.emask[p]
+        gs = pg.gvid[p][pg.esrc[p][m]].astype(np.int64)
+        gd = pg.gvid[p][pg.edst[p][m]].astype(np.int64)
+        pair = np.minimum(gs, gd) * V + np.maximum(gs, gd)
+        moved = np.zeros(gs.shape[0], bool)
+        moved[idx] = True
+        left = ~moved & np.isin(pair, pair[moved])
+        ss.append(gs[left])
+        dd.append(gd[left])
+    return np.concatenate(ss), np.concatenate(dd)
+
+
+def rebalance_part(sm: Smoke, ar: AutoRunner, k20: dict, g,
+                   ident: str) -> list:
+    """On the kron-20 ebv session: an insert batch, a delete wave on six
+    partitions that trips the monitor once, queries after the migration,
+    and deletes of original edges through the router's pair table."""
+    import numpy as np
+    import torch
+    import repro_torch.session as S
+    from repro_torch.algos import SSSP, ConnectedComponents, PageRank
+    from repro_torch.core import partition_metrics
+
+    sess, s0 = k20["sess"], k20["source"]
+    mon = sess.monitor
+    lt = layout_timer()
+    plan_t = CallTimer(((S, "plan_rebalance"),))
+    spent = dict(execute=0.0, execute_layout=0.0)
+    moved, stranded = [], []
+    orig_exec = S.execute_rebalance
+
+    def timed_exec(pg, ctx, plan, **k):
+        stranded.append(stranded_copies(pg, plan))
+        lay0, t = lt.seconds, time.perf_counter()
+        before = partition_metrics(pg).imbalance
+        try:
+            rs = orig_exec(pg, ctx, plan, **k)
+        finally:
+            inner = lt.seconds - lay0
+            spent["execute"] += time.perf_counter() - t - inner
+            spent["execute_layout"] += inner
+        moved.append((rs, before, partition_metrics(pg).imbalance))
+        return rs
+
+    S.execute_rebalance = timed_exec
+    steps = []
+    rng = np.random.default_rng(17)
+
+    def step(label, mutate):
+        spent.update(execute=0.0, execute_layout=0.0)
+        t = time.perf_counter()
+        st = mutate()
+        host = time.perf_counter() - t
+        layout, plan = lt.take(), plan_t.take()
+        flush_layout = layout - spent["execute_layout"]
+        t = time.perf_counter()
+        sess.device_graph()
+        torch.cuda.synchronize()
+        upload = time.perf_counter() - t
+        t = time.perf_counter()
+        sess._layout_arg(SSSP(), "auto", sess.cfg)
+        torch.cuda.synchronize()
+        dev_list = time.perf_counter() - t
+        rec = dict(graph="kron-20 ebv", step=label,
+                   flush_host_s=host - layout - plan - spent["execute"],
+                   layout_refresh_s=flush_layout,
+                   rebalance_plan_s=plan,
+                   rebalance_execute_s=spent["execute"],
+                   rebalance_layout_s=spent["execute_layout"],
+                   graph_upload_s=upload, auto_device_lists_s=dev_list,
+                   n_edges=sess.pg.n_edges,
+                   imbalance=partition_metrics(sess.pg).imbalance,
+                   gauge=mon.gauge, rebalances=sess.stats.rebalances,
+                   triggers=mon.triggers, gpu=ident)
+        steps.append(rec)
+        sm.note(f"rebalance step {label}: flush host "
+                f"{rec['flush_host_s']:.3f}s, layout refresh "
+                f"{flush_layout:.3f}s, rebalance plan {plan:.3f}s, "
+                f"execution {spent['execute']:.3f}s, its layout rebuild "
+                f"{spent['execute_layout']:.3f}s, graph upload "
+                f"{upload:.3f}s, 'auto' device lists {dev_list:.3f}s; "
+                f"imbalance {rec['imbalance']:.4f}, gauge {mon.gauge:.4f}, "
+                f"rebalances {sess.stats.rebalances}, monitor "
+                f"{mon.signals()} [{ident}]")
+        return st
+
+    try:
+        # 1. a 0.5% symmetric insert batch, routed by EBV, sticky by pair
+        n0, E0 = g.n_vertices, g.n_edges
+        src, dst, w = sym_batch(rng, E0 // 400, n0)
+        epp0 = sess.pg.edges_per_part.astype(np.int64)
+
+        def insert():
+            sess.update(adds=(src, dst, w))
+            return sess.flush()
+        st = step("insert 0.5%", insert)
+        sm.check(st.n_added == src.shape[0] and sess.stats.rebalances == 0,
+                 f"kron-20 ebv insert: {st.n_added} edges added, no "
+                 f"rebalance")
+        where = sess.ctx.route_deletes(src, dst)
+        sm.check(bool(np.array_equal(
+                     sess.pg.edges_per_part - epp0,
+                     np.bincount(where, minlength=sess.pg.n_parts)))
+                 and bool(np.array_equal(where,
+                                         sess.ctx.route_deletes(dst, src))),
+                 "kron-20 ebv insert: each partition grew by the new edges "
+                 "the pair table routes to it, both directions of a pair "
+                 "on one partition")
+
+        # 2. the delete wave, over two flushes
+        wave = np.sort(rng.choice(sess.pg.n_parts, WAVE_PARTS,
+                                  replace=False))
+        before_wave = partition_metrics(sess.pg).imbalance
+        for i, frac in enumerate(WAVE_FRACTIONS):
+            ds, dd = [], []
+            for p in wave:
+                m = sess.pg.emask[p]
+                gs = sess.pg.gvid[p][sess.pg.esrc[p][m]]
+                gd = sess.pg.gvid[p][sess.pg.edst[p][m]]
+                pick = rng.random(gs.shape[0]) < frac
+                ds.append(gs[pick])
+                dd.append(gd[pick])
+            ds, dd = np.concatenate(ds), np.concatenate(dd)
+
+            def delete(ds=ds, dd=dd):
+                sess.update(deletes=(ds, dd))
+                return sess.flush()
+            st = step(f"delete wave {i + 1} ({ds.shape[0]} edges on "
+                      f"partitions {wave.tolist()})", delete)
+        sm.check(sess.stats.rebalances == 1 and mon.triggers == 1
+                 and len(moved) == 1,
+                 f"the delete wave fired the monitor exactly once "
+                 f"(rebalances {sess.stats.rebalances}, triggers "
+                 f"{mon.triggers}; imbalance before the wave "
+                 f"{before_wave:.4f})")
+        if moved:
+            rs, imb_before, imb_after = moved[0]
+            sm.check(imb_after < imb_before,
+                     f"the rebalance lowered the edge imbalance "
+                     f"{imb_before:.4f} -> {imb_after:.4f} ({rs.n_moved} "
+                     f"edges moved from {rs.parts_from} to {rs.parts_to} "
+                     f"partitions, {rs.replicas_created} replicas created)")
+
+        # 3. queries after the migration; the 'auto' pin re-resolves
+        cold = ar.query(sess, "kron-20 ebv rebalanced", "sssp_cold", SSSP(),
+                        {"source": s0}, "auto")
+        warm = ar.query(sess, "kron-20 ebv rebalanced", "sssp_warm", SSSP(),
+                        {"source": s0}, "auto", warm=True)
+        coo = ar.query(sess, "kron-20 ebv rebalanced", "sssp_coo", SSSP(),
+                       {"source": s0}, "coo")
+        sm.check(bool(np.array_equal(cold[0], warm[0]))
+                 and warm[1].supersteps <= cold[1].supersteps,
+                 f"kron-20 ebv rebalanced: SSSP warm bit-identical to cold "
+                 f"({warm[1].supersteps} vs {cold[1].supersteps} "
+                 f"supersteps)")
+        ar.same("kron-20 ebv rebalanced", "sssp", cold, coo, False)
+        check_dijkstra(sm, "kron-20 ebv rebalanced", sess, cold[0], s0,
+                       *resident_edges(sess.pg))
+        after = cold[1].partition_edge_backends
+        sm.note(f"'auto' picks before the rebalance {list(k20['picks'])}, "
+                f"after {after}")
+        sm.check(len(after) == sess.pg.n_parts and len(sess._auto_pin) == 1,
+                 "the 'auto' assignment was resolved again after the "
+                 "rebalance")
+        for name, prog, params in (
+                ("cc", ConnectedComponents(), None),
+                ("pagerank", PageRank(), {"n_vertices": sess.pg.n_vertices})):
+            ar.same("kron-20 ebv rebalanced", name,
+                    ar.query(sess, "kron-20 ebv rebalanced", name, prog,
+                             params, "auto"),
+                    ar.query(sess, "kron-20 ebv rebalanced", name, prog,
+                             params, "coo"), prog.delta_based)
+
+        # 4. original edges deleted through the router's pair table: those
+        # of a slice that route to the two partitions most of it routes to
+        # (so the flush refreshes two partitions' layouts)
+        pg = sess.pg
+        V = pg.n_vertices
+        cand = np.arange(min(g.n_edges, 20 * STEP5_DELETES))
+        to = sess.ctx.route_deletes(g.src[cand], g.dst[cand])
+        two = np.argsort(-np.bincount(to, minlength=pg.n_parts),
+                         kind="stable")[:2]
+        live = cand[np.isin(to, two)][:STEP5_DELETES]
+        dsrc, ddst = g.src[live], g.dst[live]
+        dk = np.unique(dsrc.astype(np.int64) * V + ddst)
+        part = sess.ctx.route_deletes(dk // V, dk % V)
+        routed = other = 0
+        for p in range(pg.n_parts):
+            m = pg.emask[p]
+            pk = (pg.gvid[p][pg.esrc[p][m]].astype(np.int64) * V
+                  + pg.gvid[p][pg.edst[p][m]])
+            hit = np.isin(pk, dk[part == p])
+            routed += int(hit.sum())
+            other += int(np.isin(pk, dk).sum()) - int(hit.sum())
+        n_before = int(pg.emask.sum())
+        # the copies the rebalance stranded on their donors (ROADMAP Queue
+        # 3): the pair table names the receiver, so these deletes are lost
+        left = sum(int(np.isin(a * V + b, dk).sum()) for a, b in stranded)
+
+        def delete_original():
+            sess.update(deletes=(dsrc, ddst))
+            return sess.flush()
+        st = step(f"delete {live.shape[0]} original edges", delete_original)
+        drop = n_before - int(sess.pg.emask.sum())
+        sm.check(drop == routed == st.n_deleted and routed > 0,
+                 f"deleting {live.shape[0]} original edges through the pair "
+                 f"table (routed to partitions {sorted(two.tolist())}) "
+                 f"removed {drop} resident copies, the {routed} on the "
+                 f"partitions it routes to")
+        sm.check(other == left,
+                 f"the {other} resident copies of those edges the deletes "
+                 f"missed are exactly the {left} the rebalance left on their "
+                 f"donor partitions while moving their pair (known fault, "
+                 f"as in the reference: {other} of {routed + other} copies, "
+                 f"{other / max(routed + other, 1):.4f}, not deleted)")
+        sm.check(sess.stats.rebalances == 1 and mon.triggers == 1,
+                 "no second rebalance after the wave")
+    finally:
+        S.execute_rebalance = orig_exec
+        plan_t.close()
+        lt.close()
+    return steps
+
+
+def group_list_checks(sm: Smoke, errs: dict, grid: dict) -> None:
+    """Each kernel against its plain version on the forced mix's
+    group-sliced device lists of grid-1024, at the values the mix computed
+    (SSSP distances: min_plus / min; ranks: plus_times / sum)."""
+    import torch
+    from repro_torch.core.api import DeviceSubgraph
+    from repro_torch.core.engine import _tile_inputs, _window_inputs
+    from repro_torch.kernels import bsp_spmv as bk
+    from repro_torch.kernels import segment_combine as sk
+
+    sess, asg = grid["sess"], grid["asg"]
+    sgs = sess.device_graph()
+    v_max = sess.pg.v_max
+    for name in ("sssp", "pagerank"):
+        prog, (t_blk, w_blk) = grid["blocks"][name]
+        spec = prog.sweep_spec
+        v = torch.from_numpy(grid["values"][name]).to(sgs.device).reshape(
+            sess.pg.n_parts, v_max, -1)
+        ti = torch.tensor([p for p, b in enumerate(asg)
+                           if b == "pallas_tiles"], device=sgs.device)
+        wi = torch.tensor([p for p, b in enumerate(asg)
+                           if b == "pallas_windows"], device=sgs.device)
+        tl, td, ts, vv, ndt, plan = _tile_inputs(t_blk, v[ti], spec, v_max)
+        got = bk.bsp_spmv(tl, td, ts, vv, n_dst_tiles=ndt,
+                          semiring=spec.semiring, plan=plan)
+        want = bk.bsp_spmv_plain(tl, td, ts, vv, n_dst_tiles=ndt,
+                                 semiring=spec.semiring)
+        ok, err = compare(got, want, spmv_magnitude(tl, td, ts, vv, ndt,
+                                                    spec.semiring))
+        errs["bsp_spmv"] = max(errs["bsp_spmv"], err)
+        sm.check(ok, f"bsp_spmv {spec.semiring} equals its plain version on "
+                     f"the tile group's list ({tl.shape[0]} tiles of "
+                     f"{ti.numel()} partitions; max err {err:.3g})")
+        sub = DeviceSubgraph(*[None if x is None else x.index_select(0, wi)
+                               for x in sgs])
+        msgs, ldst, bwin, nw, plan = _window_inputs(sub, w_blk, v[wi], spec,
+                                                    v_max)
+        got = sk.segment_combine_windowed(msgs, ldst, bwin, n_windows=nw,
+                                          combiner=spec.combiner, plan=plan)
+        want = sk.segment_combine_plain(msgs, ldst, bwin, n_windows=nw,
+                                        combiner=spec.combiner)
+        ok, err = compare(got, want, segment_magnitude(msgs, ldst, bwin, nw,
+                                                       spec.combiner))
+        errs["segment_combine"] = max(errs["segment_combine"], err)
+        sm.check(ok, f"segment_combine {spec.combiner} equals its plain "
+                     f"version on the window group's list "
+                     f"({bwin.shape[0]} blocks of {wi.numel()} partitions; "
+                     f"max err {err:.3g})")
+
+
+def auto_path(sm: Smoke, log: list, errs: dict, g20, ident: str) -> dict:
+    """Phase 8 (see the module docstring): returns the launches per
+    kernel, the rebalance steps and the peak device memory."""
+    import torch
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    table = calibration_part(sm)
+    ar = AutoRunner(sm, log)
+    t = time.perf_counter()
+    k20 = kron20_ebv_part(sm, ar, g20)
+    sm.note(f"phase 8 kron-20 ebv part: {time.perf_counter() - t:.1f}s")
+    t = time.perf_counter()
+    grid = grid_mix_part(sm, ar)
+    sm.note(f"phase 8 grid part: {time.perf_counter() - t:.1f}s")
+    steps = []
+    if "source" in k20:
+        t = time.perf_counter()
+        steps = rebalance_part(sm, ar, k20, g20, ident)
+        sm.note(f"phase 8 rebalance part: {time.perf_counter() - t:.1f}s")
+    launches = ar.auto_launches
+    sm.note(f"launches in phase 8's 'auto' runs: {launches}; in its "
+            f"uniform comparison queries: {ar.uniform_launches}")
+    sm.check(all(v > 0 for v in launches.values()),
+             "phase 8's 'auto' runs launched both kernels")
+    group_list_checks(sm, errs, grid)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    sm.note(f"phase 8: {time.perf_counter() - t0:.1f}s, peak device memory "
+            f"{peak} bytes ({peak / 2**30:.2f} GiB)")
+    return dict(launches=launches, steps=steps, peak=peak,
+                unit_costs=table.unit_costs, platform=table.platform,
+                ebv_s=k20["ebv_s"], picks=list(k20["picks"]))
+
+
 def main() -> int:
     try:
         import torch
@@ -1804,6 +2446,14 @@ def main() -> int:
     stream_kernel_checks(sm, errs, win, tile, stream)
     algos = algos_path(sm, log, errs, win, tile)
     peak.update({f"algorithms, {k}": v for k, v in algos["peak"].items()})
+    # close the earlier sessions, so that phase 8's peak is its own
+    g20 = win[2]
+    win = tile = None
+    stream = dict(steps=stream["steps"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    auto = auto_path(sm, log, errs, g20, ident)
+    peak["auto and rebalance"] = auto["peak"]
     kernels = []
     for r in recs:
         t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
@@ -1823,11 +2473,17 @@ def main() -> int:
             library_ms=r["library_ms"],
             launches_streaming=stream_launches[r["name"]],
             launches_algos=algos["launches"][r["name"]],
+            launches_auto=auto["launches"][r["name"]],
             k16=algos["rows"][r["name"]], **extra))
     Path(ROOT / "chiprun_out").mkdir(exist_ok=True)
     (ROOT / "chiprun_out" / "chip_smoke_queries.json").write_text(
         json.dumps(dict(gpu=ident, queries=log, kernels=kernels,
                         stream_steps=stream["steps"],
+                        rebalance_steps=auto["steps"],
+                        autotune=dict(platform=auto["platform"],
+                                      unit_costs=auto["unit_costs"]),
+                        kron20_ebv=dict(routing_s=auto["ebv_s"],
+                                        picks=auto["picks"]),
                         peak_memory_bytes=peak,
                         algo_row_launches=algos["row_launches"],
                         kernel_shapes={r["name"]: r["shape"] for r in recs},

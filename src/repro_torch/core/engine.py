@@ -18,7 +18,9 @@ local phase is the stacked loop with select-frozen partitions
 (``_batched_local_phase``): every sweep runs the whole stack — the semiring
 product flattened over P into one scatter (``coo``) or one kernel launch
 (``pallas_tiles``: ``bsp_spmv``; ``pallas_windows``:
-``segment_combine_windowed``) — and a partition whose local fixed point is
+``segment_combine_windowed``), or under ``edge_backend='auto'`` one of each
+per backend group of partitions (``_mixed_product``, on group-sliced
+device lists) — and a partition whose local fixed point is
 reached keeps its state while the others continue, so per-partition sweep
 counts equal those of the JAX package's vmapped ``_local_phase``. The
 ``while`` loops are Python loops; each local sweep and each superstep reads
@@ -29,9 +31,11 @@ Trace mode (``cfg.trace``) can write BSP checkpoints every
 
 The backend names ``pallas_tiles``/``pallas_windows`` are kept from the
 reference so configurations carry across; here they select the CUDA
-kernels. ``backend='shard_map'`` and ``edge_backend='auto'`` are accepted by
+kernels. ``edge_backend='auto'`` picks a backend per partition from the
+calibration table of the device (``core/autotune.py``,
+``resolve_partition_backends``). ``backend='shard_map'`` is accepted by
 ``EngineConfig`` (same values and validation as the reference) but not
-implemented yet: using them raises ``NotImplementedError``.
+implemented yet: using it raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -47,7 +51,8 @@ import torch
 
 from repro_torch.core import sbs
 from repro_torch.core.api import (DeviceSubgraph, SemiringSweep,
-                                  VertexProgram, numpy_dtype)
+                                  VertexProgram, coo_semiring_product,
+                                  numpy_dtype)
 from repro_torch.core.layouts import EdgeLayouts, TileBlock, WindowBlock
 from repro_torch.core.metrics import ExecutionStats
 from repro_torch.core.subgraph import PartitionedGraph
@@ -58,13 +63,11 @@ from repro_torch.kernels.segment_combine import W, segment_combine_windowed
 
 __all__ = ["EngineConfig", "EdgeCombine", "run", "run_sim",
            "make_sim_runner", "resolve_edge_backend",
-           "normalize_edge_backend", "params_to_device", "save_checkpoint",
-           "load_checkpoint"]
+           "normalize_edge_backend", "resolve_partition_backends",
+           "params_to_device", "save_checkpoint", "load_checkpoint"]
 
 _SHARD_MAP_TODO = ("backend='shard_map' is not ported yet (ROADMAP Queue 1: "
                    "multi-GPU backend over torch.distributed)")
-_AUTO_TODO = ("edge_backend='auto' is not ported yet (ROADMAP Queue 1: "
-              "edge_backend='auto')")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -146,11 +149,9 @@ class EngineConfig:
         return 1 if self.mode == "vc" else self.max_local_iters
 
 
-def _check_supported(cfg: EngineConfig, edge_backend: str) -> None:
+def _check_supported(cfg: EngineConfig) -> None:
     if cfg.backend != "sim":
         raise NotImplementedError(_SHARD_MAP_TODO)
-    if edge_backend == "auto":
-        raise NotImplementedError(_AUTO_TODO)
 
 
 # --------------------------------------------------------------------------- #
@@ -224,6 +225,26 @@ def normalize_edge_backend(program: VertexProgram,
     if eb != cfg.edge_backend:
         cfg = dataclasses.replace(cfg, edge_backend=eb)
     return eb, cfg
+
+
+def resolve_partition_backends(program: VertexProgram, cfg: EngineConfig,
+                               pg: PartitionedGraph, *, lay=None,
+                               table=None, device: DeviceLike = None
+                               ) -> tuple:
+    """Per-partition concrete backend assignment. Uniform (non-``'auto'``)
+    configs broadcast the resolved backend; ``'auto'`` consults the
+    calibration table of ``device``'s platform (``core/autotune.py``) over
+    the partitions' layout-geometry unit counts. Deterministic for a given
+    (table, geometry); sessions also pin the assignment per shape bucket."""
+    eb = resolve_edge_backend(program, cfg)
+    if eb != "auto":
+        return (eb,) * pg.n_parts
+    from repro_torch.core import autotune
+    if lay is None:
+        lay = pg.ensure_edge_layouts()
+    if table is None:
+        table = autotune.get_table(device=device)
+    return autotune.pick_backends(table, pg, lay)
 
 
 def _tile_inputs(blk: TileBlock, vals: torch.Tensor, spec: SemiringSweep,
@@ -306,20 +327,98 @@ def _window_product(sg: DeviceSubgraph, blk: WindowBlock,
     return out.reshape(P, -1, K)[:, :v_max]
 
 
+def _check_tile_ids(program: VertexProgram, pg: PartitionedGraph) -> None:
+    if not np.issubdtype(numpy_dtype(program.dtype), np.floating) \
+            and pg.n_vertices >= 2**30:
+        raise ValueError(
+            "integer min_plus through the tile kernel clamps values to "
+            "iinfo.max >> 1 (kernels/ref.py tile_pad_identity); ids must "
+            "stay below 2**30")
+
+
 def _layout_block_from(lay: EdgeLayouts, pg: PartitionedGraph,
                        program: VertexProgram, edge_backend: str, device):
     """Device layout tensors a kernel-backend runner takes as input."""
     spec = program.sweep_spec
     if edge_backend == "pallas_tiles":
-        if not np.issubdtype(numpy_dtype(program.dtype), np.floating) \
-                and pg.n_vertices >= 2**30:
-            raise ValueError(
-                "integer min_plus through the tile kernel clamps values to "
-                "iinfo.max >> 1 (kernels/ref.py tile_pad_identity); ids "
-                "must stay below 2**30")
+        _check_tile_ids(program, pg)
         return lay.device_tiles(pg, spec.semiring, spec.edge_values,
                                 program.dtype, device)
     return lay.device_windows(device)
+
+
+def _assignment_groups(assignment) -> tuple:
+    """Per-backend partition groups of an ``'auto'`` assignment:
+    ``((backend, [P_g] int64 ascending indices), ...)`` in a fixed order."""
+    groups = []
+    for b in EngineConfig._CONCRETE_EDGE_BACKENDS:
+        idx = np.asarray([p for p, a in enumerate(assignment) if a == b],
+                         np.int64)
+        if idx.size:
+            groups.append((b, idx))
+    return tuple(groups)
+
+
+def _auto_layout_blocks(lay: EdgeLayouts, pg: PartitionedGraph,
+                        program: VertexProgram, assignment, device):
+    """Layout input of an ``'auto'`` runner: ``(tiles, windows)``, each the
+    device list of just the partitions its backend owns (``None`` when it
+    owns none), cached on the layouts like the full lists."""
+    spec = program.sweep_spec
+    t_idx = [p for p, b in enumerate(assignment) if b == "pallas_tiles"]
+    w_idx = [p for p, b in enumerate(assignment) if b == "pallas_windows"]
+    # a group of every partition is the uniform backend's full list
+    t_grp = None if len(t_idx) == len(assignment) else t_idx
+    w_grp = None if len(w_idx) == len(assignment) else w_idx
+    t_blk = w_blk = None
+    if t_idx:
+        _check_tile_ids(program, pg)
+        t_blk = lay.device_tiles(pg, spec.semiring, spec.edge_values,
+                                 program.dtype, device, parts=t_grp)
+    if w_idx:
+        w_blk = lay.device_windows(device, parts=w_grp)
+    return t_blk, w_blk
+
+
+def _mixed_inputs(groups, sgs: DeviceSubgraph, lay_blks) -> list:
+    """Per group ``(backend, index tensor, sub-stack, device list)`` for one
+    runner call: the sub-stack (COO and windows groups) holds the group's
+    rows of every graph tensor, sliced once and reused by every sweep."""
+    t_blk, w_blk = lay_blks
+    out = []
+    for backend, idx in groups:
+        gi = torch.from_numpy(idx).to(sgs.device)
+        sub = None
+        if backend != "pallas_tiles":
+            sub = DeviceSubgraph(*[None if x is None else x.index_select(0, gi)
+                                   for x in sgs])
+        blk = {"coo": None, "pallas_tiles": t_blk,
+               "pallas_windows": w_blk}[backend]
+        if backend != "coo" and blk is None:
+            raise ValueError(f"the 'auto' assignment has a {backend} group "
+                             "but no device list for it")
+        out.append((backend, gi, sub, blk))
+    return out
+
+
+def _mixed_product(spec: SemiringSweep, mix: list, v: torch.Tensor,
+                   v_max: int) -> torch.Tensor:
+    """Stacked [P, v_max, K] semiring product under a mixed per-partition
+    assignment: one launch per backend group over its partition sub-stack,
+    written back with ``index_copy_`` (the groups cover every partition, so
+    every row is overwritten). Each partition gets the bits its backend
+    gives it in a uniform run."""
+    agg = torch.empty_like(v)
+    for backend, gi, sub, blk in mix:
+        vg = v.index_select(0, gi)
+        if backend == "coo":
+            part = coo_semiring_product(sub, spec, vg)
+        elif backend == "pallas_tiles":
+            part = _tile_product(blk, vg, spec, v_max)
+        else:
+            part = _window_product(sub, blk, vg, spec, v_max)
+        agg.index_copy_(0, gi, part)
+    return agg
 
 
 def _state_where(live: torch.Tensor, new: dict, old: dict) -> dict:
@@ -339,7 +438,8 @@ def _batched_local_phase(program: VertexProgram, sgs: DeviceSubgraph,
     """apply incoming -> sweep the whole stack to every partition's local
     fixed point (or one hop). A partition whose fixed point is reached is
     select-frozen while the others continue, giving the per-partition sweep
-    counts of the reference's vmapped ``_local_phase``. Returns
+    counts of the reference's vmapped ``_local_phase``. Under ``'auto'``
+    ``lay_blk`` is the group list of ``_mixed_inputs``. Returns
     ``(state, out, sweeps [P], last_changed [P], host_syncs)``."""
     if not first:       # superstep 0 has no incoming messages (Alg. 1)
         state = program.apply_frontier(sgs, params, state, merged_v, ec)[0]
@@ -352,7 +452,9 @@ def _batched_local_phase(program: VertexProgram, sgs: DeviceSubgraph,
         vals = program.sweep_values(sgs, params, st)
         squeeze = vals.dim() == 2
         v = vals[..., None] if squeeze else vals
-        if edge_backend == "pallas_tiles":
+        if edge_backend == "auto":
+            agg = _mixed_product(spec, lay_blk, v, v_max)
+        elif edge_backend == "pallas_tiles":
             agg = _tile_product(lay_blk, v, spec, v_max)
         else:
             agg = _window_product(sgs, lay_blk, v, spec, v_max)
@@ -400,13 +502,22 @@ def _warm_block(program: VertexProgram, pg: PartitionedGraph,
 
 
 def _flops_per_sweep(program: VertexProgram, edge_backend: str,
-                     pg: PartitionedGraph,
-                     lay: Optional[EdgeLayouts]) -> np.ndarray:
+                     pg: PartitionedGraph, lay: Optional[EdgeLayouts],
+                     assignment=None) -> np.ndarray:
     """[P] semiring ops one local sweep issues per partition: 2*K per
-    resident edge on COO, the dense tile/block work on the kernels."""
+    resident edge on COO, the dense tile/block work on the kernels; under
+    ``'auto'`` each partition at its assigned backend's rate."""
     K = program.payload
+    flops = 2 * K * pg.edges_per_part.astype(np.int64)
     if edge_backend == "coo" or lay is None:
-        return 2 * K * pg.edges_per_part.astype(np.int64)
+        return flops
+    if edge_backend == "auto":
+        asg = np.asarray(assignment)
+        for b in ("pallas_tiles", "pallas_windows"):
+            m = asg == b
+            if m.any():
+                flops[m] = lay.flops_per_sweep(b, K)[m]
+        return flops
     return lay.flops_per_sweep(edge_backend, K)
 
 
@@ -438,8 +549,8 @@ def _make_sim_superstep(program: VertexProgram, cfg: EngineConfig,
 
 
 def make_sim_runner(program: VertexProgram, cfg: EngineConfig, n_slots: int,
-                    *, warm_start: bool = False,
-                    batch: bool = False) -> Callable:
+                    *, warm_start: bool = False, batch: bool = False,
+                    partition_backends=None) -> Callable:
     """Build the simulator BSP loop
 
         runner(sgs, lay, params, warm=None, on_step=None, resume=None) ->
@@ -447,7 +558,10 @@ def make_sim_runner(program: VertexProgram, cfg: EngineConfig, n_slots: int,
              host_syncs)
 
     ``sgs`` is the stacked DeviceSubgraph, ``lay`` the device layout
-    (``TileBlock``/``WindowBlock``; None on ``coo``), ``warm``
+    (``TileBlock``/``WindowBlock``; None on ``coo``; under ``'auto'`` the
+    group-sliced ``(tiles, windows)`` pair of ``_auto_layout_blocks`` for
+    the ``partition_backends`` assignment the runner is built for, which
+    ``'auto'`` requires), ``warm``
     (``warm_start=True``) a [P, v_max, K] previous-result tensor threaded
     into ``program.warm_init``. ``on_step(msgs, active, sweeps, carry)`` is
     called after every superstep (trace mode) with ``carry`` the loop state
@@ -460,11 +574,22 @@ def make_sim_runner(program: VertexProgram, cfg: EngineConfig, n_slots: int,
             "batched runners are not ported yet (ROADMAP Queue 1: "
             "serving/batching)")
     edge_backend = resolve_edge_backend(program, cfg)
-    _check_supported(cfg, edge_backend)
+    _check_supported(cfg)
+    groups = None
+    if edge_backend == "auto":
+        if partition_backends is None:
+            raise ValueError("edge_backend='auto' runners need the resolved "
+                             "partition_backends assignment "
+                             "(resolve_partition_backends)")
+        groups = _assignment_groups(partition_backends)
+    # one backend owning every partition sweeps as that backend's uniform
+    # runner does: no sub-stacks, no write-back
+    sweep_backend = groups[0][0] if groups and len(groups) == 1 \
+        else edge_backend
     K = program.payload
     ident = program.identity.item()
     ec = EdgeCombine(())
-    superstep = _make_sim_superstep(program, cfg, n_slots, edge_backend)
+    superstep = _make_sim_superstep(program, cfg, n_slots, sweep_backend)
 
     def runner(sgs: DeviceSubgraph, lay, params, warm=None,
                on_step: Optional[Callable] = None, resume=None):
@@ -474,6 +599,11 @@ def make_sim_runner(program: VertexProgram, cfg: EngineConfig, n_slots: int,
         dev = sgs.device
         dt = program.torch_dtype
         params = params_to_device(params, dev)
+        if sweep_backend == "auto":
+            lay = _mixed_inputs(groups, sgs, lay)
+        elif groups is not None:
+            lay = {"coo": None, "pallas_tiles": lay[0],
+                   "pallas_windows": lay[1]}[sweep_backend]
         if resume is None:
             state = program.init(sgs, params, ec)
             if warm_start:
@@ -600,25 +730,36 @@ def run_sim(program: VertexProgram, pg: PartitionedGraph, params=None,
         raise ValueError("resume_from requires trace mode (cfg.trace=True)")
     dev = resolve_device(device)
     edge_backend = resolve_edge_backend(program, cfg)
-    _check_supported(cfg, edge_backend)
+    _check_supported(cfg)
     sgs = _device_subgraph(pg, dev)
     params = params_to_device(params, dev)
     n_slots, K = pg.n_slots, program.payload
     warm = init_state is not None and program.monotone
-    lay = lay_blk = None
-    if edge_backend != "coo":
+    lay = lay_blk = assignment = None
+    if edge_backend == "auto":
+        lay = pg.ensure_edge_layouts()
+        assignment = resolve_partition_backends(program, cfg, pg, lay=lay,
+                                                device=dev)
+        lay_blk = _auto_layout_blocks(lay, pg, program, assignment, dev)
+    elif edge_backend != "coo":
         lay = pg.ensure_edge_layouts()
         lay_blk = _layout_block_from(lay, pg, program, edge_backend, dev)
 
     stats = ExecutionStats(edge_backend=edge_backend)
     epp_host = pg.edges_per_part.astype(np.int64)
-    flops_pp = _flops_per_sweep(program, edge_backend, pg, lay)
+    flops_pp = _flops_per_sweep(program, edge_backend, pg, lay, assignment)
     if edge_backend == "pallas_tiles":
         spec = program.sweep_spec
         stats.tile_density = lay.density(pg, spec.semiring, spec.edge_values,
                                          program.dtype)
         stats.partition_tile_density = list(lay.partition_density(
             pg, spec.semiring, spec.edge_values, program.dtype))
+    elif edge_backend == "auto":
+        # counted from the geometry: realizing every partition's tile
+        # values is what 'auto' avoids on a graph like kron-20
+        stats.tile_density, dens = lay.geometric_density()
+        stats.partition_tile_density = list(dens)
+        stats.partition_edge_backends = list(assignment)
     itemsize = numpy_dtype(program.dtype).itemsize
     step_bytes = (n_slots + 1) * K * itemsize * pg.n_parts
 
@@ -631,7 +772,8 @@ def run_sim(program: VertexProgram, pg: PartitionedGraph, params=None,
             save_checkpoint(os.path.join(cfg.checkpoint_dir,
                                          f"bsp_{step:06d}.npz"), carry)
 
-    runner = make_sim_runner(program, cfg, n_slots, warm_start=warm)
+    runner = make_sim_runner(program, cfg, n_slots, warm_start=warm,
+                             partition_backends=assignment)
     wblk = None
     if warm:
         wblk = torch.from_numpy(_warm_block(program, pg, init_state)).to(dev)

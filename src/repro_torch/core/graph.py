@@ -12,7 +12,7 @@ from typing import Optional
 
 import numpy as np
 
-__all__ = ["Graph", "splitmix64"]
+__all__ = ["Graph", "splitmix64", "unique_sorted"]
 
 
 def splitmix64(x: np.ndarray) -> np.ndarray:
@@ -30,6 +30,20 @@ def splitmix64(x: np.ndarray) -> np.ndarray:
     x *= np.uint64(0x94D049BB133111EB)
     x ^= x >> np.uint64(31)
     return x
+
+
+def unique_sorted(a: np.ndarray) -> np.ndarray:
+    """``np.unique(a)`` for integer ``a`` (the sorted distinct values) by a
+    sort and one comparison. NumPy 2.3 moved ``np.unique`` to a hash table
+    that takes seconds on the ~2 M distinct int64 keys of a kron-20
+    partition; a sort takes tens of milliseconds."""
+    a = np.sort(np.asarray(a).ravel())
+    if a.size < 2:
+        return a
+    keep = np.empty(a.shape[0], bool)
+    keep[0] = True
+    np.not_equal(a[1:], a[:-1], out=keep[1:])
+    return a[keep]
 
 
 @dataclasses.dataclass

@@ -30,6 +30,15 @@ is the flat list of the real tiles / blocks of all P partitions
 offset by ``p * n_dst_tiles`` / ``p * n_windows``), with each edge's slot
 remapped into the compact message buffer and the kernels' chunk plans —
 all computed once per layout, so a sweep feeds the kernels no padding.
+With ``parts=`` (``edge_backend='auto'``) the list holds only the listed
+partitions, renumbered to their position in the group, with a chunk plan
+of its own over ``len(parts)`` partitions' rows; it is built from those
+partitions' geometry alone, and only their tile values are realized (as
+compact per-partition arrays when no full realization exists — at kron-20
+the full ``[P, t_max, 128, 128]`` stack would be ~1 TB). The ``'auto'``
+tile density comes from the geometry too (``geometric_density``: the
+distinct (tile, row, col) positions of each partition's edges), so it needs
+no realization at all.
 
 Under streaming (``repro_torch.stream``) the host rows are refreshed in
 place: ``rebuild_partitions`` rebuilds the partitions a delta patched and
@@ -47,6 +56,7 @@ from typing import Dict, Iterable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.graph import unique_sorted
 from repro_torch.kernels.bsp_spmv import TM, TN, plan_tiles
 from repro_torch.kernels.chunks import ChunkPlan
 from repro_torch.kernels.ref import tile_pad_identity, torch_dtype
@@ -105,7 +115,7 @@ def _tile_geometry(ls, ld, ndt: int, nst: int):
     Tile list sorted (dst, src)-major with identity fillers covering every
     dst tile row; ``edge_tile[e]`` indexes the final sorted list."""
     key = (ld.astype(np.int64) // TM) * nst + (ls.astype(np.int64) // TN)
-    uniq = np.unique(key)
+    uniq = unique_sorted(key)
     covered = np.zeros(ndt, bool)
     covered[(uniq // nst).astype(np.int64)] = True
     missing = np.nonzero(~covered)[0]
@@ -172,6 +182,13 @@ class EdgeLayouts:
         default_factory=dict)             # [P] non-identity entries per part
     _density: Dict[Tuple, float] = dataclasses.field(default_factory=dict)
     _device: Dict[Tuple, object] = dataclasses.field(default_factory=dict)
+    # compact [n_tiles[p], TM, TN] values of single partitions, per
+    # realization key, where no full stack was realized (group lists)
+    _part_tiles: Dict[Tuple, Dict[int, np.ndarray]] = dataclasses.field(
+        default_factory=dict)
+    # [P] distinct (tile, row, col) positions of each partition's edges
+    # (-1: not counted since the partition was last built)
+    _positions: Optional[np.ndarray] = None
 
     @property
     def n_dst_tiles(self) -> int:
@@ -209,24 +226,48 @@ class EdgeLayouts:
             tiles = np.full((self.n_parts, self.t_max, TM, TN), ident, dtype)
             parts = range(self.n_parts)
             self._tiles[key] = tiles
+            self._part_tiles.pop(key, None)     # the stack supersedes them
             self._filled[key] = np.zeros(self.n_parts, np.int64)
         filled = self._filled[key]
         for p in parts:
             tiles[p] = ident
-            valid = self.edge_tile[p] >= 0
-            vals = _edge_values(kind, pg.ew[p][valid], dtype)
-            idx = (self.edge_tile[p][valid], self.edge_r[p][valid],
-                   self.edge_c[p][valid])
-            if semiring == "plus_times":
-                np.add.at(tiles[p], idx, vals)
-            else:
-                np.minimum.at(tiles[p], idx, vals)
+            self._fill_partition(pg, key, p, tiles[p])
             # per partition, so a partial rebuild never rescans the
             # untouched partitions' tiles to refresh the density
             filled[p] = int((tiles[p] != ident).sum())
         self._density[key] = int(filled.sum()) / max(
             int(self.n_tiles.sum()) * TM * TN, 1)
         return tiles
+
+    def _fill_partition(self, pg, key, p: int, out: np.ndarray) -> None:
+        """Combine partition ``p``'s edge values into ``out`` (its tiles,
+        identity-filled by the caller)."""
+        semiring, kind, dtype_str = key
+        valid = self.edge_tile[p] >= 0
+        vals = _edge_values(kind, pg.ew[p][valid], np.dtype(dtype_str))
+        idx = (self.edge_tile[p][valid], self.edge_r[p][valid],
+               self.edge_c[p][valid])
+        if semiring == "plus_times":
+            np.add.at(out, idx, vals)
+        else:
+            np.minimum.at(out, idx, vals)
+
+    def _partition_values(self, pg, key, p: int) -> np.ndarray:
+        """Partition ``p``'s real tiles' values [n_tiles[p], TM, TN]: a view
+        of the full realization when there is one, else realized for this
+        partition alone (and cached until a rebuild touches it)."""
+        nt = int(self.n_tiles[p])
+        if key in self._tiles:
+            return self._tiles[key][p, :nt]
+        cache = self._part_tiles.setdefault(key, {})
+        vals = cache.get(p)
+        if vals is None:
+            dtype = np.dtype(key[2])
+            vals = np.full((nt, TM, TN), tile_pad_identity(key[0], dtype),
+                           dtype)
+            self._fill_partition(pg, key, p, vals)
+            cache[p] = vals
+        return vals
 
     def tile_values(self, pg, semiring: str, kind: str, dtype) -> np.ndarray:
         key = (semiring, kind, np.dtype(dtype).str)
@@ -250,52 +291,99 @@ class EdgeLayouts:
         denom = np.maximum(self.n_tiles * (TM * TN), 1).astype(np.float64)
         return self._filled[key].astype(np.float64) / denom
 
+    def partition_positions(self) -> np.ndarray:
+        """[P] distinct (tile, row, col) positions of each partition's
+        edges: its tiles' non-identity entries whenever no combined value
+        lands on the identity, counted from the geometry alone."""
+        if self._positions is None:
+            self._positions = np.full(self.n_parts, -1, np.int64)
+        for p in np.nonzero(self._positions < 0)[0]:
+            et = self.edge_tile[p]
+            valid = et >= 0
+            pos = ((et[valid].astype(np.int64) * TM + self.edge_r[p][valid])
+                   * TN + self.edge_c[p][valid])
+            self._positions[p] = unique_sorted(pos).shape[0]
+        return self._positions
+
+    def geometric_density(self) -> Tuple[float, np.ndarray]:
+        """``(density, [P] partition density)`` of the real tiles from
+        ``partition_positions``: ``density``/``partition_density`` without
+        realizing any tile value."""
+        pos = self.partition_positions()
+        denom = np.maximum(self.n_tiles * (TM * TN), 1).astype(np.float64)
+        return (int(pos.sum()) / max(int(self.n_tiles.sum()) * TM * TN, 1),
+                pos.astype(np.float64) / denom)
+
     # ------------------------------------------------------------------ #
-    # device tensors (cached per device)
+    # device tensors (cached per device and partition group)
     # ------------------------------------------------------------------ #
+    def _group(self, parts) -> Optional[Tuple[int, ...]]:
+        if parts is None:
+            return None
+        parts = tuple(int(p) for p in parts)
+        if not parts or list(parts) != sorted(set(parts)) \
+                or parts[0] < 0 or parts[-1] >= self.n_parts:
+            raise ValueError(f"parts must be ascending distinct partitions "
+                             f"of [0, {self.n_parts}), got {parts}")
+        return parts
+
     def device_tiles(self, pg, semiring: str, kind: str, dtype,
-                     device) -> TileBlock:
-        """The compact tile list on ``device`` (cached per device)."""
+                     device, parts=None) -> TileBlock:
+        """The compact tile list on ``device`` (cached per device): of all
+        partitions, or of the ascending group ``parts`` only, with tile ids
+        offset by the partition's position in the group."""
         dev = torch.device(device)
-        key = ("tiles", semiring, kind, np.dtype(dtype).str, str(dev))
+        group = self._group(parts)
+        key = ("tiles", semiring, kind, np.dtype(dtype).str, str(dev), group)
         blk = self._device.get(key)
         if blk is None:
-            vals = self.tile_values(pg, semiring, kind, dtype)
-            nt = self.n_tiles.astype(np.int64)
+            vkey = (semiring, kind, np.dtype(dtype).str)
+            if group is None:
+                self.tile_values(pg, semiring, kind, dtype)
+            idx = list(range(self.n_parts)) if group is None else list(group)
+            nt = self.n_tiles[idx].astype(np.int64)
             off = np.concatenate([[0], np.cumsum(nt)])
             tiles = torch.empty((int(off[-1]), TM, TN),
-                                dtype=torch_dtype(vals.dtype),
+                                dtype=torch_dtype(np.dtype(dtype)),
                                 device=dev)
-            for p in range(self.n_parts):      # no compact host copy
-                tiles[off[p]:off[p + 1]] = torch.from_numpy(
-                    vals[p, :nt[p]]).to(dev)
+            for g, p in enumerate(idx):        # no compact host copy
+                tiles[off[g]:off[g + 1]] = torch.from_numpy(
+                    self._partition_values(pg, vkey, p)).to(dev)
             tile_dst = torch.from_numpy(
-                _flatten(self.tile_dst, nt, self.n_dst_tiles)).to(dev)
+                _flatten(self.tile_dst[idx], nt, self.n_dst_tiles)).to(dev)
             blk = TileBlock(
                 tiles=tiles, tile_dst=tile_dst,
                 tile_src=torch.from_numpy(
-                    _flatten(self.tile_src, nt, self.n_src_tiles)).to(dev),
-                plan=plan_tiles(tile_dst, self.n_parts * self.n_dst_tiles))
+                    _flatten(self.tile_src[idx], nt, self.n_src_tiles))
+                .to(dev),
+                plan=plan_tiles(tile_dst, len(idx) * self.n_dst_tiles))
             self._device[key] = blk
         return blk
 
-    def device_windows(self, device) -> WindowBlock:
-        """The compact block list on ``device`` (cached per device)."""
+    def device_windows(self, device, parts=None) -> WindowBlock:
+        """The compact block list on ``device`` (cached per device): of all
+        partitions, or of the ascending group ``parts`` only (window ids
+        offset by the partition's position in the group, ``slot`` over the
+        group's ``[len(parts) * e_max]`` edges)."""
         dev = torch.device(device)
-        key = ("windows", str(dev))
+        group = self._group(parts)
+        key = ("windows", str(dev), group)
         blk = self._device.get(key)
         if blk is None:
             Be, nw = self.block_edges, self.n_windows
-            nb = self.n_blocks.astype(np.int64)
+            idx = list(range(self.n_parts)) if group is None else list(group)
+            nb = self.n_blocks[idx].astype(np.int64)
             row0 = (np.concatenate([[0], np.cumsum(nb)])[:-1] * Be)[:, None]
             dump = int(nb.sum()) * Be
-            slot = np.where(self.eslot >= 0, self.eslot + row0, dump)
-            bwin = torch.from_numpy(_flatten(self.bwin, nb, nw)).to(dev)
+            eslot = self.eslot[idx]
+            slot = np.where(eslot >= 0, eslot + row0, dump)
+            bwin = torch.from_numpy(_flatten(self.bwin[idx], nb, nw)).to(dev)
             blk = WindowBlock(
                 slot=torch.from_numpy(slot.reshape(-1).astype(np.int64))
                 .to(dev),
-                ldst=torch.from_numpy(_flatten(self.ldst, nb * Be)).to(dev),
-                bwin=bwin, plan=plan_windows(bwin, self.n_parts * nw))
+                ldst=torch.from_numpy(
+                    _flatten(self.ldst[idx], nb * Be)).to(dev),
+                bwin=bwin, plan=plan_windows(bwin, len(idx) * nw))
             self._device[key] = blk
         return blk
 
@@ -333,6 +421,8 @@ class EdgeLayouts:
         self.edge_tile[p, :ne] = et
         self.edge_r[p, :ne] = er
         self.edge_c[p, :ne] = ec
+        if self._positions is not None:
+            self._positions[p] = -1
 
         es, ldst, bw, nb = _window_geometry(ld, nw, self.block_edges)
         self.eslot[p] = -1
@@ -349,7 +439,7 @@ class EdgeLayouts:
         ls, ld = pg.esrc[p][m], pg.edst[p][m]
         nst, nw = self.n_src_tiles, self.n_windows
         key = (ld.astype(np.int64) // TM) * nst + (ls.astype(np.int64) // TN)
-        uniq = np.unique(key)
+        uniq = unique_sorted(key)
         covered = np.zeros(self.n_dst_tiles, bool)
         covered[(uniq // nst).astype(np.int64)] = True
         T = uniq.shape[0] + int((~covered).sum())
@@ -398,9 +488,10 @@ class EdgeLayouts:
         (``stream/delta.py``): grow the bucketed caps if a patched partition
         overflows them, rebuild only the patched partitions' geometry and
         their rows of every cached tile realization (the caps are
-        grow-only, so untouched rows stay valid), and drop the device
-        lists, whose compact ids and chunk plans describe the old
-        geometry."""
+        grow-only, so untouched rows stay valid; their single-partition
+        values are dropped and realized again on use), and drop the device
+        lists, group lists included, whose compact ids and chunk plans
+        describe the old geometry."""
         parts = sorted(set(int(p) for p in parts))
         need_t = need_b = 0
         for p in parts:
@@ -411,6 +502,9 @@ class EdgeLayouts:
             self._build_partition(pg, p)
         for key in self._tiles:
             self._realize_tiles(pg, key, parts)
+        for cache in self._part_tiles.values():
+            for p in parts:
+                cache.pop(p, None)
         self._device.clear()
 
     def sync_capacity(self, pg) -> bool:

@@ -71,6 +71,9 @@ class ExecutionStats:
     partition_sweep_time: list = dataclasses.field(default_factory=list)
     partition_tile_density: list = dataclasses.field(default_factory=list)
     partition_sweeps: list = dataclasses.field(default_factory=list)
+    partition_edge_backends: list = dataclasses.field(default_factory=list)
+                                       # edge_backend='auto' only: the
+                                       # concrete backend of each partition
 
     @property
     def peps(self) -> float:

@@ -13,11 +13,18 @@ stored with its source's partition:
   - ``random_hash_edge_cut``    — the DRONE-EC baseline.
   - ``greedy_edge_cut``         — LDG-style greedy streaming edge-cut.
 
-All functions are pure in (graph, n_parts, seed) and give the same
-assignment, bit for bit, as the JAX package's partitioners. The stateful
-EBV router is not part of this package yet.
+Stateful-streaming vertex-cut:
+  - ``"ebv"``                   — the EBV router of ``repro_torch.partition``
+    (a ``StatefulRouterSpec`` in ``STREAM_ROUTERS``: its placement depends
+    on every edge routed before, so a stream carries its state).
+
+All functions give the same assignment, bit for bit, as the JAX package's
+partitioners.
 """
 from __future__ import annotations
+
+import dataclasses
+import importlib
 
 import numpy as np
 
@@ -28,7 +35,8 @@ __all__ = [
     "range_vertex_cut", "random_hash_edge_cut", "greedy_edge_cut",
     "PARTITIONERS", "route_edges_rh_vc", "route_edges_cdbh",
     "route_edges_grid", "route_edges_range", "route_edges_rh_ec",
-    "route_vertices_rh", "STREAM_ROUTERS",
+    "route_vertices_rh", "STREAM_ROUTERS", "StatefulRouterSpec",
+    "is_stateful_router",
 ]
 
 
@@ -99,14 +107,45 @@ def route_edges_rh_ec(src: np.ndarray, dst: np.ndarray, n_parts: int,
     return route_vertices_rh(src, n_parts, seed=seed)
 
 
+@dataclasses.dataclass(frozen=True)
+class StatefulRouterSpec:
+    """A *stateful-streaming* ``STREAM_ROUTERS`` entry: a factory of the
+    mutable router state a ``StreamContext`` carries (``ctx.router_state``)
+    instead of a chunk function. ``make_state(n_parts, n_vertices, seed)``
+    imports ``factory_module`` when first called (the partition package
+    builds on this one). Membership tests (``name in STREAM_ROUTERS``) keep
+    working: a stateful partitioner is streamable."""
+
+    name: str
+    factory_module: str
+    factory_name: str
+
+    def make_state(self, n_parts: int, n_vertices: int, seed: int = 0):
+        fn = getattr(importlib.import_module(self.factory_module),
+                     self.factory_name)
+        return fn(n_parts, n_vertices, seed=seed)
+
+    @property
+    def stateful(self) -> bool:
+        return True
+
+
+def is_stateful_router(entry) -> bool:
+    """True for ``STREAM_ROUTERS`` entries that need per-stream state."""
+    return isinstance(entry, StatefulRouterSpec)
+
+
 # Streamable routers under one chunk signature:
 #   router(src, dst, degrees, n_vertices, n_parts, seed) -> int32[chunk]
+# (or a StatefulRouterSpec — see is_stateful_router)
 STREAM_ROUTERS = {
     "rh-vc": lambda s, d, deg, nv, p, seed: route_edges_rh_vc(s, d, p, seed=seed),
     "cdbh": lambda s, d, deg, nv, p, seed: route_edges_cdbh(s, d, deg, p, seed=seed),
     "grid": lambda s, d, deg, nv, p, seed: route_edges_grid(s, d, p, seed=seed),
     "range": lambda s, d, deg, nv, p, seed: route_edges_range(s, d, nv, p),
     "rh-ec": lambda s, d, deg, nv, p, seed: route_edges_rh_ec(s, d, p, seed=seed),
+    "ebv": StatefulRouterSpec("ebv", "repro_torch.partition.ebv",
+                              "EBVRouterState"),
 }
 
 
@@ -171,6 +210,13 @@ def greedy_edge_cut(g: Graph, n_parts: int, *, seed: int = 0,
     return vpart[g.src].astype(np.int32)
 
 
+def _ebv_vertex_cut(g: Graph, n_parts: int, *, seed: int = 0) -> np.ndarray:
+    """EBV one-shot entry (imported on use: the partition package builds
+    on this module)."""
+    from repro_torch.partition.ebv import ebv_vertex_cut
+    return ebv_vertex_cut(g, n_parts, seed=seed)
+
+
 PARTITIONERS = {
     "rh-vc": random_hash_vertex_cut,
     "cdbh": cdbh_vertex_cut,
@@ -178,4 +224,5 @@ PARTITIONERS = {
     "range": range_vertex_cut,
     "rh-ec": random_hash_edge_cut,
     "greedy-ec": greedy_edge_cut,
+    "ebv": _ebv_vertex_cut,
 }

@@ -26,7 +26,7 @@ from typing import Callable, Optional, Sequence
 
 import numpy as np
 
-from repro_torch.core.graph import Graph, splitmix64
+from repro_torch.core.graph import Graph, splitmix64, unique_sorted
 from repro_torch.core.partition import route_vertices_rh
 
 __all__ = ["PartitionedGraph", "ShapePolicy", "resolve_shape_policy",
@@ -199,7 +199,7 @@ def partition_vertex_sets(src: np.ndarray, dst: np.ndarray,
     pair_part = np.concatenate([edge_part, edge_part]).astype(np.int64)
     pair_vid = np.concatenate([src, dst])
     key = pair_part * np.int64(n_vertices) + pair_vid
-    ukey = np.unique(key)
+    ukey = unique_sorted(key)
     up = (ukey // n_vertices).astype(np.int32)
     uv = (ukey % n_vertices).astype(np.int64)
     if isolated is not None and isolated.size:

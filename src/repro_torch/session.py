@@ -31,9 +31,19 @@ The device graph is uploaded again on the first query after a change, and
 runners whose padded shapes or layout capacities the graph left are
 dropped (``SessionStats.cache_evictions_shape``).
 
-``rebalance`` and ``query_batch`` raise ``NotImplementedError`` naming the
-ROADMAP item that will port them. Only the simulator backend exists; a
-``mesh`` is refused.
+``edge_backend='auto'`` resolves a backend per partition from the
+device's calibration table and pins the assignment per (padded shape,
+layout capacity) bucket, so in-bucket streaming never flips a partition's
+backend; a compaction or a rebalance clears the pin. ``from_graph(g, P,
+"ebv")`` streams the edges through the EBV router and keeps its state on
+the ``StreamContext``; ``rebalance="auto"|"manual"`` attaches a
+``LoadMonitor`` that reads edge counts and frontier occupancy at every
+graph event and each query's flops-apportioned per-partition sweep time,
+and ``rebalance()`` migrates edges off overloaded partitions through the
+remap chain of ``compact()`` (the JAX package's ``repro.partition``).
+
+``query_batch`` raises ``NotImplementedError`` naming the ROADMAP item that
+will port it. Only the simulator backend exists; a ``mesh`` is refused.
 """
 from __future__ import annotations
 
@@ -46,17 +56,22 @@ import numpy as np
 import torch
 
 from repro_torch.core.api import VertexProgram, numpy_dtype
-from repro_torch.core.engine import (EngineConfig, _check_supported,
+from repro_torch.core.engine import (EngineConfig, _auto_layout_blocks,
                                      _device_subgraph, _flops_per_sweep,
                                      _layout_block_from, _warm_block,
                                      make_sim_runner, normalize_edge_backend,
-                                     run_sim)
+                                     resolve_partition_backends, run_sim)
 from repro_torch.core.graph import Graph
 from repro_torch.core.metrics import ExecutionStats
-from repro_torch.core.partition import PARTITIONERS, STREAM_ROUTERS
+from repro_torch.core.partition import (PARTITIONERS, STREAM_ROUTERS,
+                                        is_stateful_router)
 from repro_torch.core.subgraph import (PartitionedGraph, ShapePolicy,
                                        build_partitioned_graph)
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.partition.monitor import LoadMonitor
+from repro_torch.partition.rebalance import (RebalanceStats,
+                                             execute_rebalance,
+                                             plan_rebalance)
 from repro_torch.stream.buffer import DeltaBuffer
 from repro_torch.stream.delta import CompactStats, DeltaStats, EdgeDelta
 from repro_torch.stream.delta import compact as _compact_pg
@@ -103,9 +118,17 @@ class SessionStats:
     warm_cache_bytes: int = 0      # host bytes of the warm-result memory
     warm_remaps_applied: int = 0   # deferred warm-block remaps replayed
     host_syncs: int = 0            # device->host reads across all queries
-    tile_density_min: float = 0.0
-    tile_density_mean: float = 0.0
-    tile_density_max: float = 0.0
+    rebalances: int = 0            # online migrations executed
+    load_imbalance: float = 1.0    # the LoadMonitor's latest blended gauge
+                                   # (1.0 when no monitor is attached)
+    partition_edge_counts: list = dataclasses.field(default_factory=list)
+                                   # latest per-partition resident edges
+    partition_sweep_time: list = dataclasses.field(default_factory=list)
+                                   # EWMA per-partition sweep seconds across
+                                   # queries (the monitor's measured work)
+    tile_density_min: float = 0.0  # spread of the per-partition tile
+    tile_density_mean: float = 0.0  # densities of the latest tiles or
+    tile_density_max: float = 0.0  # 'auto' query
 
 
 class _SessionBuffer(DeltaBuffer):
@@ -199,7 +222,14 @@ class GraphSession:
     a mutable one builds runners on the policy's bucketed slot capacity.
     ``shape_policy`` governs the padded shapes as in the reference.
     ``max_runners`` / ``max_warm_entries`` bound the runner cache and the
-    warm-result memory with LRU eviction (``None`` = unbounded)."""
+    warm-result memory with LRU eviction (``None`` = unbounded).
+
+    ``rebalance="auto"`` attaches a ``LoadMonitor`` (``monitor=`` to
+    configure it) whose hysteresis gauge, read at every flush, migrates
+    edges off overloaded partitions when it trips; ``"manual"`` keeps the
+    gauge live but only ``rebalance()`` migrates; ``"off"`` (default)
+    attaches a monitor only if one is passed. ``rebalance_target`` is the
+    edge balance the planner aims for."""
 
     def __init__(self, pg: PartitionedGraph, *,
                  ctx: Optional[StreamContext] = None, mesh=None,
@@ -210,6 +240,9 @@ class GraphSession:
                  shape_policy: Optional[ShapePolicy] = None,
                  max_runners: Optional[int] = 32,
                  max_warm_entries: Optional[int] = 64,
+                 rebalance: str = "off",
+                 monitor: Optional[LoadMonitor] = None,
+                 rebalance_target: float = 1.05,
                  device: DeviceLike = None):
         if mesh is not None:
             raise NotImplementedError(
@@ -222,6 +255,16 @@ class GraphSession:
         self.shape_policy = self._resolve_policy(shape_policy, pad_multiple)
         self.max_runners = max_runners
         self.max_warm_entries = max_warm_entries
+        if rebalance not in ("off", "auto", "manual"):
+            raise ValueError(
+                f"rebalance={rebalance!r}: expected 'off', 'manual' or "
+                "'auto'")
+        self._rebalance_mode = rebalance
+        self.rebalance_target = rebalance_target
+        self.monitor = monitor if monitor is not None else (
+            LoadMonitor() if rebalance != "off" else None)
+        self._rebalancing = False      # the auto trigger fires inside
+                                       # _on_flush, and rebalance() flushes
         self.stats = SessionStats()
         self.buffer = None if ctx is None else _SessionBuffer(
             self, pg, ctx, max_edges=max_buffer_edges,
@@ -232,6 +275,8 @@ class GraphSession:
         self._runners: OrderedDict = OrderedDict()
         self._warm: OrderedDict = OrderedDict()
         self._identity_blocks: dict = {}
+        self._auto_pin: dict = {}      # (shape, tiles, windows keys) ->
+                                       # pinned 'auto' assignment
         self._keepalive: dict = {}
         self._warm_epoch = 0           # advances per layout-moving event
         self._remap_log: list = []     # [(epoch, stats with remap_state)]
@@ -255,24 +300,32 @@ class GraphSession:
         """Partition + build + open a session in one call, with the
         reference's padding choice: streamable partitioners get the bucketed
         policy and a ``StreamContext`` (so ``update`` works), the others
-        exact padding and a read-only session."""
+        exact padding and a read-only session. A stateful router (``"ebv"``)
+        places the edges through the router state the context then keeps,
+        so later deltas find the resident edges."""
         dev = resolve_device(device)
         if shape_policy is None and partitioner not in STREAM_ROUTERS:
             shape_policy = ShapePolicy.exact(
                 8 if pad_multiple is None else pad_multiple)
         policy = cls._resolve_policy(shape_policy, pad_multiple)
         if partitioner not in PARTITIONERS:
-            raise ValueError(
-                f"partitioner={partitioner!r}: the port has "
-                f"{sorted(PARTITIONERS)} (EBV waits for ROADMAP Queue 1, "
-                "balanced vertex-cut)")
-        part = PARTITIONERS[partitioner](g, n_parts, seed=seed)
+            raise ValueError(f"partitioner={partitioner!r}: the port has "
+                             f"{sorted(PARTITIONERS)}")
+        entry = STREAM_ROUTERS.get(partitioner)
+        router_state = None
+        if is_stateful_router(entry):
+            router_state = entry.make_state(n_parts, g.n_vertices, seed)
+            part = np.minimum(router_state.route_adds(g.src, g.dst),
+                              n_parts - 1)
+        else:
+            part = PARTITIONERS[partitioner](g, n_parts, seed=seed)
         pg = build_partitioned_graph(g, part, n_parts, shape_policy=policy)
         ctx = None
         if partitioner in STREAM_ROUTERS:
             ctx = StreamContext(partitioner=partitioner, n_parts=n_parts,
                                 seed=seed, n_vertices=g.n_vertices,
-                                routing_degrees=g.total_degrees())
+                                routing_degrees=g.total_degrees(),
+                                router_state=router_state)
         return cls(pg, ctx=ctx, mesh=mesh, cfg=cfg, shape_policy=policy,
                    device=dev, **kwargs)
 
@@ -377,10 +430,9 @@ class GraphSession:
 
         self.stats.queries += 1
         eb, cfg = normalize_edge_backend(program, cfg)
-        _check_supported(cfg, eb)
         warm_in = bool(program.monotone)
         sgs = self.device_graph()
-        lay = self._layout_arg(program, eb) if eb != "coo" else None
+        lay = self._layout_arg(program, eb, cfg) if eb != "coo" else None
         wblk = self._warm_arg(program, entry, use_warm) if warm_in else None
         runner, compile_time = self._get_runner(program, pkey, params, cfg,
                                                 warm_in, eb)
@@ -391,21 +443,49 @@ class GraphSession:
         if use_warm:
             self.stats.warm_queries += 1
         self.stats.host_syncs += syncs + 1
-        stats = self._execution_stats(program, steps, msgs, sweeps, wall,
-                                      compile_time, eb)
+        stats = self._execution_stats(program, cfg, steps, msgs, sweeps,
+                                      wall, compile_time, eb)
         stats.host_syncs = syncs + 1
         if program.monotone:
             self._remember(program, wkey, res)
         return res, stats
 
-    def _layout_arg(self, program, eb):
+    def _resolve_assignment(self, program, cfg) -> tuple:
+        """The per-partition backends an ``'auto'`` query runs with, pinned
+        per (padded shape, layout capacity) bucket: the policy is consulted
+        when a bucket combination is first seen, and later queries in the
+        same buckets reuse the pick while streaming growth moves the
+        densities. Bucket crossings, compactions and rebalances
+        re-resolve."""
         lay = self.pg.ensure_edge_layouts(shape_policy=self.shape_policy)
+        key = (self.shape_key, lay.shape_key("pallas_tiles"),
+               lay.shape_key("pallas_windows"))
+        asg = self._auto_pin.get(key)
+        if asg is None:
+            asg = resolve_partition_backends(program, cfg, self.pg, lay=lay,
+                                             device=self.device)
+            self._auto_pin[key] = asg
+        return asg
+
+    def _layout_arg(self, program, eb, cfg):
+        lay = self.pg.ensure_edge_layouts(shape_policy=self.shape_policy)
+        if eb == "auto":
+            return _auto_layout_blocks(lay, self.pg, program,
+                                       self._resolve_assignment(program, cfg),
+                                       self.device)
         return _layout_block_from(lay, self.pg, program, eb, self.device)
 
-    def _layout_key(self, eb):
-        if eb == "coo" or self.pg.edge_layouts is None:
+    def _layout_key(self, program, eb, cfg):
+        lay = self.pg.edge_layouts
+        if eb == "coo" or lay is None:
             return None
-        return self.pg.edge_layouts.shape_key(eb)
+        if eb == "auto":
+            # the pinned assignment joins the key: a re-resolution that
+            # lands on other picks builds a runner of its own
+            return ("auto", self._resolve_assignment(program, cfg),
+                    lay.shape_key("pallas_tiles"),
+                    lay.shape_key("pallas_windows"))
+        return lay.shape_key(eb)
 
     def _warm_arg(self, program, entry, use_warm) -> torch.Tensor:
         """[P, v_max, K] warm tensor: the cached result when warming, the
@@ -459,7 +539,7 @@ class GraphSession:
     def _get_runner(self, program, pkey, params, cfg, warm_in, eb):
         """Cached runner for this (program, param structure, config,
         shapes); returns ``(runner, build_seconds)`` (0.0 on a hit)."""
-        full_shape = (self.shape_key, self._layout_key(eb))
+        full_shape = (self.shape_key, self._layout_key(program, eb, cfg))
         key = (pkey, params_struct_key(params), cfg, full_shape, warm_in)
         hit = self._runners.get(key)
         if hit is not None:
@@ -468,8 +548,9 @@ class GraphSession:
             return hit, 0.0
         self.stats.runner_builds += 1
         t0 = time.perf_counter()
+        asg = full_shape[1][1] if eb == "auto" else None
         runner = make_sim_runner(program, cfg, self.slot_capacity,
-                                 warm_start=warm_in)
+                                 warm_start=warm_in, partition_backends=asg)
         build_time = time.perf_counter() - t0
         self.stats.compile_time_total += build_time
         self._runners[key] = runner
@@ -494,7 +575,7 @@ class GraphSession:
         self._keepalive = {i: p for i, p in self._keepalive.items()
                            if i in live}
 
-    def _execution_stats(self, program, steps, msgs, sweeps, wall,
+    def _execution_stats(self, program, cfg, steps, msgs, sweeps, wall,
                          compile_time, eb) -> ExecutionStats:
         pg = self.pg
         K = program.payload
@@ -503,7 +584,12 @@ class GraphSession:
             * pg.n_parts
         lay = pg.edge_layouts
         epp = pg.edges_per_part.astype(np.int64)
-        flops_pp = sweeps * _flops_per_sweep(program, eb, pg, lay)
+        asg = self._resolve_assignment(program, cfg) if eb == "auto" \
+            else None
+        # per-partition sweep time: the wall time apportioned by each
+        # partition's flops share (partitions run lock-step supersteps, so
+        # the flops skew is the critical-path skew the monitor reads)
+        flops_pp = sweeps * _flops_per_sweep(program, eb, pg, lay, asg)
         tot_flops = int(flops_pp.sum())
         share = (flops_pp / tot_flops if tot_flops
                  else np.full(pg.n_parts, 1.0 / max(pg.n_parts, 1)))
@@ -517,16 +603,36 @@ class GraphSession:
             partition_flops=[int(x) for x in flops_pp],
             partition_sweep_time=[float(x) for x in wall * share],
             partition_sweeps=[int(x) for x in sweeps])
+        dens = None
         if eb == "pallas_tiles" and lay is not None:
             spec = program.sweep_spec
             st.tile_density = lay.density(pg, spec.semiring,
                                           spec.edge_values, program.dtype)
             dens = lay.partition_density(pg, spec.semiring,
                                          spec.edge_values, program.dtype)
+        elif eb == "auto" and lay is not None:
+            # from the geometry: 'auto' realizes only its tile group
+            st.tile_density, dens = lay.geometric_density()
+            st.partition_edge_backends = list(asg)
+        if dens is not None:
             st.partition_tile_density = [float(x) for x in dens]
             self.stats.tile_density_min = float(dens.min())
             self.stats.tile_density_mean = float(dens.mean())
             self.stats.tile_density_max = float(dens.max())
+        # the load gauges on SessionStats (EWMA of the measured signal),
+        # and the monitor's measured-work input
+        self.stats.partition_edge_counts = list(st.partition_edge_counts)
+        prev = self.stats.partition_sweep_time
+        cur = st.partition_sweep_time
+        if len(prev) != len(cur):
+            self.stats.partition_sweep_time = list(cur)
+        else:
+            a = self.monitor.cfg.ema if self.monitor is not None else 0.5
+            self.stats.partition_sweep_time = [
+                a * n + (1.0 - a) * o for n, o in zip(cur, prev)]
+        if self.monitor is not None:
+            self.monitor.observe_query(st)
+            self.stats.load_imbalance = self.monitor.gauge
         return st
 
     def _remember(self, program, wkey, res):
@@ -605,6 +711,58 @@ class GraphSession:
         self._prune_remap_log()
         self._sync_warm_bytes()
         self._evict_stale_runners()
+        # streaming churn drives the load monitor; under rebalance="auto" a
+        # tripped gauge migrates here, before the flush's caller sees the
+        # new graph version
+        if self.monitor is not None and not self._rebalancing:
+            self.stats.load_imbalance = self.monitor.observe_graph(self.pg)
+            if (self._rebalance_mode == "auto"
+                    and self.monitor.should_rebalance()):
+                self.rebalance()
+
+    def rebalance(self, *, target: Optional[float] = None
+                  ) -> Optional[RebalanceStats]:
+        """Migrate edges off overloaded partitions: plan a minimal
+        cheapest-first move set (``partition.rebalance``), execute it
+        through ``repack_partitions`` like ``compact`` (warm results ride
+        the remap chain, in-bucket runners survive) and record the moved
+        pairs in the routing context, so later deletes and re-adds find
+        them. Returns the ``RebalanceStats``, or None when the plan is
+        empty. Needs a ``StreamContext``, like every mutation."""
+        self._require_buffer("rebalance()")
+        if self._rebalancing:
+            return None
+        self._rebalancing = True
+        try:
+            if len(self.buffer):
+                self.flush()
+            # donors are chosen by the monitor's blended load vector when
+            # one is live; the moved objects are still edges
+            loads = self.monitor.blended_loads(self.pg.n_parts) \
+                if self.monitor is not None else None
+            plan = plan_rebalance(
+                self.pg, target=self.rebalance_target
+                if target is None else target, loads=loads)
+            if plan.n_moves == 0:
+                return None
+            rs = execute_rebalance(self.pg, self.ctx, plan,
+                                   shape_policy=self.shape_policy)
+            self._host_version += 1
+            self.stats.rebalances += 1
+            # the migration reshaped the per-partition densities: the next
+            # 'auto' query consults the policy again
+            self._auto_pin.clear()
+            self._warm_epoch += 1
+            self._remap_log.append((self._warm_epoch, rs))
+            self._prune_remap_log()
+            self._evict_stale_runners()
+            if self.monitor is not None:
+                self.monitor.notify_rebalanced()
+                self.stats.load_imbalance = self.monitor.observe_graph(
+                    self.pg)
+            return rs
+        finally:
+            self._rebalancing = False
 
     def compact(self) -> CompactStats:
         """Evict edge-less members, shrink the padded capacities to the
@@ -618,6 +776,7 @@ class GraphSession:
         cs = _compact_pg(self.pg, self.ctx, shape_policy=self.shape_policy)
         self._host_version += 1
         self.stats.compactions += 1
+        self._auto_pin.clear()         # the geometry moved: re-resolve
         self._warm_epoch += 1
         self._remap_log.append((self._warm_epoch, cs))
         self._prune_remap_log()
@@ -641,6 +800,15 @@ class GraphSession:
                 return False
             if not have_lay:
                 return True
+            if lkey[0] == "auto":
+                _, asg, tk, wk = lkey
+                now = (lay.shape_key("pallas_tiles"),
+                       lay.shape_key("pallas_windows"))
+                if (tk, wk) != now:
+                    return True
+                # a re-resolved pin with other picks stales the runner
+                pin = self._auto_pin.get((cur,) + now)
+                return pin is not None and pin != asg
             backend = "pallas_tiles" if lkey[0] == "tiles" \
                 else "pallas_windows"
             return lkey != lay.shape_key(backend)
@@ -660,7 +828,3 @@ class GraphSession:
     def query_batch(self, program, params_list, **kwargs):
         raise NotImplementedError(
             "query_batch waits for ROADMAP Queue 1, serving/batching")
-
-    def rebalance(self, **kwargs):
-        raise NotImplementedError(
-            "rebalance() waits for ROADMAP Queue 1, balanced vertex-cut")

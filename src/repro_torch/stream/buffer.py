@@ -175,6 +175,8 @@ class DeltaBuffer:
             hi = int(max(src.max(), dst.max()))
             if hi >= self.ctx.n_vertices:
                 self.ctx.grow(hi + 1)
+            # route() is the non-mutating preview: a stateful router must
+            # not commit placements for ops that are merely buffered
             self._parts.update(self.ctx.route(src, dst).tolist())
 
     def _maybe_flush(self) -> None:

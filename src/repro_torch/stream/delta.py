@@ -54,6 +54,7 @@ from typing import Optional
 
 import numpy as np
 
+from repro_torch.core.graph import unique_sorted
 from repro_torch.core.partition import route_vertices_rh
 from repro_torch.core.subgraph import (PartitionedGraph, ShapePolicy,
                                        localize_edges, recompute_frontier,
@@ -199,7 +200,10 @@ def apply_delta(pg: PartitionedGraph, ctx: StreamContext, delta: EdgeDelta,
     pg.n_vertices = new_v
 
     # ---- route mutations through the frozen routing context -------------- #
-    # (the pure hashes place an insert and find a delete alike)
+    # Adds first: a stateful router (EBV) commits placements as it routes,
+    # and its pair table is what lets the deletes of a DEL_ADD pair find the
+    # resident copies (placement is pair-sticky). For the pure hashes
+    # route_adds == route_deletes.
     add_part = ctx.route_adds(delta.add_src, delta.add_dst)
     del_part = ctx.route_deletes(delta.del_src, delta.del_dst)
     add_w = (np.ones(delta.n_adds, np.float32) if delta.add_w is None
@@ -247,7 +251,7 @@ def apply_delta(pg: PartitionedGraph, ctx: StreamContext, delta: EdgeDelta,
 
         # grow-only membership: old members stay, new endpoints join
         old_lv = pg.gvid[p][pg.vmask[p]]
-        lv = np.unique(np.concatenate([old_lv, gs, gd]))
+        lv = unique_sorted(np.concatenate([old_lv, gs, gd]))
         staged[p] = (lv, gs, gd, w, old_lv)
         need_e = max(need_e, gs.shape[0])
         need_v = max(need_v, lv.shape[0])
@@ -408,7 +412,7 @@ def compact(pg: PartitionedGraph, ctx: StreamContext,
         gs = pg.gvid[p][pg.esrc[p][m]]
         gd = pg.gvid[p][pg.edst[p][m]]
         part_edges.append((gs, gd, pg.ew[p][m]))
-        lv = np.unique(np.concatenate([gs, gd]))
+        lv = unique_sorted(np.concatenate([gs, gd]))
         members.append(lv)
         touched[lv] = True
 
@@ -418,7 +422,8 @@ def compact(pg: PartitionedGraph, ctx: StreamContext,
         for p in range(P):
             mine = iso[iso_part == p]
             if mine.size:
-                members[p] = np.unique(np.concatenate([members[p], mine]))
+                members[p] = unique_sorted(
+                    np.concatenate([members[p], mine]))
 
     stats.remap = repack_partitions(pg, members, part_edges,
                                     pad_multiple=pad_multiple,

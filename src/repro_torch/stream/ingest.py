@@ -22,8 +22,12 @@ measures every transient edge buffer the passes hold and
 ``streaming_ingest`` checks the measured peak against an analytic
 O(chunk_size) bound.
 
-Only pure routers are streamable in the port: the stateful ``"ebv"`` router
-of the JAX package raises ``NotImplementedError``.
+Stateful-streaming routers (the ``"ebv"`` ``STREAM_ROUTERS`` entry) route
+pass 2 through a router state built after the degree pass; the state rides
+on the returned ``StreamContext`` (``ctx.router_state``), so deltas keep
+routing through it. Its replica bitmask and exact pair table are
+O(V * P / 64) and O(distinct pairs) host memory, the documented price of
+load-aware placement; the transient chunk buffers stay bounded either way.
 """
 from __future__ import annotations
 
@@ -36,7 +40,9 @@ from typing import Optional, Union
 
 import numpy as np
 
-from repro_torch.core.partition import STREAM_ROUTERS, route_vertices_rh
+from repro_torch.core.graph import unique_sorted
+from repro_torch.core.partition import (STREAM_ROUTERS, is_stateful_router,
+                                        route_vertices_rh)
 from repro_torch.core.subgraph import (PartitionedGraph, ShapePolicy,
                                        assemble_partitioned_graph)
 from repro_torch.stream.edgelog import (BYTES_PER_EDGE, EdgeLogReader,
@@ -45,17 +51,12 @@ from repro_torch.stream.edgelog import (BYTES_PER_EDGE, EdgeLogReader,
 __all__ = ["StreamContext", "IngestStats", "ChunkAccountant",
            "streaming_ingest"]
 
-EBV_TODO = ("the stateful 'ebv' router is not ported yet (ROADMAP Queue 1: "
-            "balanced vertex-cut)")
-
 
 def check_stream_router(partitioner: str) -> None:
-    """Raise unless ``partitioner`` is one of the port's pure routers."""
-    if partitioner == "ebv":
-        raise NotImplementedError(EBV_TODO)
+    """Raise unless ``partitioner`` is one of the port's stream routers."""
     if partitioner not in STREAM_ROUTERS:
         raise ValueError(
-            f"partitioner {partitioner!r} is not pure per-edge "
+            f"partitioner {partitioner!r} is not streamable "
             f"(streamable: {sorted(STREAM_ROUTERS)})")
 
 
@@ -79,22 +80,54 @@ class StreamContext:
     # routing keeps the ingest-time value after growth (post-growth ids
     # clip to the last block; a no-op for ingest-time ids)
     routing_n_vertices: int = -1
+    # a stateful router's state (``"ebv"``: an ``EBVRouterState``), or the
+    # ``RelocationOverlay`` a rebalance installs over a pure hash; None for
+    # an untouched pure router
+    router_state: Optional[object] = None
 
     def __post_init__(self):
         check_stream_router(self.partitioner)
         if self.routing_n_vertices < 0:
             self.routing_n_vertices = self.n_vertices
 
-    def route(self, src: np.ndarray, dst: np.ndarray) -> np.ndarray:
-        """Partition of each edge under the frozen pure hash."""
-        part = STREAM_ROUTERS[self.partitioner](
-            src, dst, self.routing_degrees, self.routing_n_vertices,
-            self.n_parts, self.seed)
+    def _route_pure(self, src: np.ndarray, dst: np.ndarray) -> np.ndarray:
+        entry = STREAM_ROUTERS[self.partitioner]
+        if is_stateful_router(entry):
+            raise ValueError(
+                f"partitioner {self.partitioner!r} is stateful-streaming "
+                "but this StreamContext has no router_state; build the "
+                "context through streaming_ingest / GraphSession.from_graph "
+                "(or attach spec.make_state(...) yourself)")
+        part = entry(src, dst, self.routing_degrees,
+                     self.routing_n_vertices, self.n_parts, self.seed)
         return np.minimum(part, self.n_parts - 1)
 
-    # a pure router places inserts and finds deletes by the same hash
-    route_adds = route
-    route_deletes = route
+    def route(self, src: np.ndarray, dst: np.ndarray) -> np.ndarray:
+        """Non-mutating routing: the pure hash, or a router state's preview
+        of where an insert would land now. Mutations route through
+        ``route_adds`` / ``route_deletes``; for a pure hash all three are
+        the same."""
+        if self.router_state is not None:
+            return np.minimum(self.router_state.route_preview(src, dst),
+                              self.n_parts - 1)
+        return self._route_pure(src, dst)
+
+    def route_adds(self, src: np.ndarray, dst: np.ndarray) -> np.ndarray:
+        """Route inserted edges; a router state commits each placement
+        (load counters, replica sets, pair table) as it routes."""
+        if self.router_state is not None:
+            return np.minimum(self.router_state.route_adds(src, dst),
+                              self.n_parts - 1)
+        return self._route_pure(src, dst)
+
+    def route_deletes(self, src: np.ndarray, dst: np.ndarray) -> np.ndarray:
+        """Route deletions to the partition holding the resident copies:
+        a router state answers from its exact pair table, a pure hash
+        re-hashes (its placement never moves)."""
+        if self.router_state is not None:
+            return np.minimum(self.router_state.route_deletes(src, dst),
+                              self.n_parts - 1)
+        return self._route_pure(src, dst)
 
     def grow(self, n_vertices: int) -> None:
         if n_vertices > self.n_vertices:
@@ -102,6 +135,8 @@ class StreamContext:
                 [self.routing_degrees,
                  np.zeros(n_vertices - self.n_vertices, np.int64)])
             self.n_vertices = n_vertices
+            if self.router_state is not None:
+                self.router_state.grow(n_vertices)
 
 
 class ChunkAccountant:
@@ -190,6 +225,11 @@ def streaming_ingest(log: Union[str, EdgeLogReader], n_parts: int,
         acct.drop(held)
     ctx = StreamContext(partitioner=partitioner, n_parts=n_parts, seed=seed,
                         n_vertices=V, routing_degrees=out_deg + in_deg)
+    entry = STREAM_ROUTERS[partitioner]
+    if is_stateful_router(entry):
+        # a stateful router starts scoring from an empty state after the
+        # degree pass and rides on the returned ctx for later deltas
+        ctx.router_state = entry.make_state(n_parts, V, seed)
     stats.pass1_time = time.perf_counter() - t0
 
     # ---- pass 2: route chunks to per-partition spill shards -------------- #
@@ -255,9 +295,9 @@ def streaming_ingest(log: Union[str, EdgeLogReader], n_parts: int,
     part_vertices = []
     for p in range(n_parts):
         s, d, _ = readers[p].read_all()
-        lv = np.unique(np.concatenate([s, d]))
+        lv = unique_sorted(np.concatenate([s, d]))
         if iso.size:
-            lv = np.unique(np.concatenate([lv, iso[iso_part == p]]))
+            lv = unique_sorted(np.concatenate([lv, iso[iso_part == p]]))
         part_vertices.append(lv)
         acct.peak_assemble = max(acct.peak_assemble,
                                  s.nbytes + d.nbytes + lv.nbytes)

@@ -313,3 +313,81 @@ def test_betweenness_halts_on_card(cuda):
     for k in ("sigma", "delta", "bc"):
         np.testing.assert_allclose(out["cuda"][k], out["cpu"][k], rtol=1e-5,
                                    atol=1e-5, err_msg=k)
+
+
+@pytest.mark.parametrize("group", [(0,), (1, 4, 7), (0, 2, 3, 5, 6)])
+def test_group_lists_on_kernels_equal_full_list_rows(cuda, group):
+    """'auto' group-sliced device lists on the card: each kernel on the
+    group's list equals its plain version there, and gives the group's
+    partitions the rows the full list gives them."""
+    from repro_torch.core.api import DeviceSubgraph
+    from repro_torch.core.engine import (_tile_inputs, _tile_product,
+                                         _window_inputs, _window_product)
+    g = kronecker_graph(11, seed=7, weighted=True)
+    sess = GraphSession.from_graph(g, 8)
+    pg, spec = sess.pg, SSSP().sweep_spec
+    lay = pg.ensure_edge_layouts(shape_policy=sess.shape_policy)
+    sgs = sess.device_graph()
+    v = torch.rand((pg.n_parts, pg.v_max, 3), generator=torch.Generator(
+        ).manual_seed(len(group))).mul_(9).to(cuda)
+    gi = torch.tensor(group, device=cuda)
+    sub = DeviceSubgraph(*[None if x is None else x[gi] for x in sgs])
+    t_grp = lay.device_tiles(pg, spec.semiring, spec.edge_values, np.float32,
+                             cuda, parts=group)
+    w_grp = lay.device_windows(cuda, parts=group)
+    tl, td, tsrc, vv, ndt, plan = _tile_inputs(t_grp, v[gi], spec, pg.v_max)
+    kw = dict(n_dst_tiles=ndt, semiring=spec.semiring)
+    assert torch.equal(tb.bsp_spmv(tl, td, tsrc, vv, plan=plan, **kw),
+                       tb.bsp_spmv_plain(tl, td, tsrc, vv, **kw))
+    msgs, ldst, bwin, nw, plan = _window_inputs(sub, w_grp, v[gi], spec,
+                                                pg.v_max)
+    kw = dict(n_windows=nw, combiner=spec.combiner)
+    assert torch.equal(
+        ts.segment_combine_windowed(msgs, ldst, bwin, plan=plan, **kw),
+        ts.segment_combine_plain(msgs, ldst, bwin, **kw))
+    full_t = _tile_product(lay.device_tiles(pg, spec.semiring,
+                                            spec.edge_values, np.float32,
+                                            cuda), v, spec, pg.v_max)
+    full_w = _window_product(sgs, lay.device_windows(cuda), v, spec, pg.v_max)
+    assert torch.equal(_tile_product(t_grp, v[gi], spec, pg.v_max),
+                       full_t[gi])
+    assert torch.equal(_window_product(sub, w_grp, v[gi], spec, pg.v_max),
+                       full_w[gi])
+
+
+def test_measured_calibration_and_auto_on_card(cuda, tmp_path, monkeypatch):
+    """The calibration sweep timed on the card: a measured table named for
+    the card, the same JSON after a reload, finite non-negative unit
+    costs; a forced three-way mix launches both kernels and equals
+    ``coo``, and a calibrated 'auto' query equals ``coo`` too."""
+    from repro_torch.core import autotune
+    from repro_torch.core.engine import _auto_layout_blocks, make_sim_runner
+    monkeypatch.setenv("DRONE_AUTOTUNE_DIR", str(tmp_path))
+    table = autotune.get_table(force=True)
+    assert table.source == "measured"
+    assert table.platform.startswith("torch-cuda-sm")
+    assert autotune.load_table(table.platform).to_json() == table.to_json()
+    assert all(np.isfinite(c) and c >= 0 for c in table.unit_costs.values())
+    g = kronecker_graph(11, seed=7, weighted=True)
+    sess = GraphSession.from_graph(g, 8)
+    pg = sess.pg
+    want, wst = sess.query(SSSP(), {"source": 1}, warm=False)
+    asg = tuple(("coo", "pallas_tiles", "pallas_windows")[p % 3]
+                for p in range(pg.n_parts))
+    cfg = EngineConfig(edge_backend="auto")
+    lay = pg.ensure_edge_layouts(shape_policy=sess.shape_policy)
+    before = (tb.bsp_spmv.launches, ts.segment_combine_windowed.launches)
+    runner = make_sim_runner(SSSP(), cfg, sess.slot_capacity,
+                             partition_backends=asg)
+    res, steps, msgs, sweeps, _ = runner(
+        sess.device_graph(), _auto_layout_blocks(lay, pg, SSSP(), asg, cuda),
+        {"source": 1})
+    assert tb.bsp_spmv.launches > before[0]
+    assert ts.segment_combine_windowed.launches > before[1]
+    np.testing.assert_array_equal(res.cpu().numpy(), want)
+    assert (steps, msgs, list(sweeps)) == (wst.supersteps,
+                                           wst.total_messages,
+                                           wst.partition_sweeps)
+    got, gst = sess.query(SSSP(), {"source": 1}, warm=False, cfg=cfg)
+    np.testing.assert_array_equal(got, want)
+    assert len(gst.partition_edge_backends) == pg.n_parts

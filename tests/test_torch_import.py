@@ -17,7 +17,8 @@ PORT = ROOT / "src" / "repro_torch"
 def test_import_leaves_jax_and_reference_out():
     code = ("import sys, repro_torch, repro_torch.session, "
             "repro_torch.interop, repro_torch.kernels.ops, repro_torch.algos,"
-            " repro_torch.stream, chip_smoke;"
+            " repro_torch.stream, repro_torch.partition, "
+            "repro_torch.core.autotune, chip_smoke;"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]; print(bad); assert not bad, bad")
@@ -66,31 +67,59 @@ def test_entry_points_refuse_missing_gpu(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-def test_unported_paths_raise_not_implemented():
+def test_unported_paths_raise_not_implemented(tmp_path, monkeypatch):
     from repro_torch.algos import SSSP
     from repro_torch.core import EngineConfig, partition_and_build, run_sim
     from repro_torch.graphgen import ring_graph
     from repro_torch.session import GraphSession
-    from repro_torch.stream import StreamContext
 
+    monkeypatch.setenv("DRONE_AUTOTUNE_DIR", str(tmp_path))
     g = ring_graph(64)
     pg = partition_and_build(g, 2)
-    for cfg in (EngineConfig(backend="shard_map"),
-                EngineConfig(edge_backend="auto")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            run_sim(SSSP(), pg, {"source": 0}, cfg, device="cpu")
-    sess = GraphSession.from_graph(g, 2, device="cpu")
-    sess.update(adds=([0], [1]))          # the streaming lifecycle is ported
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        run_sim(SSSP(), pg, {"source": 0}, EngineConfig(backend="shard_map"),
+                device="cpu")
+    # ported since: the streaming lifecycle, 'auto', EBV and rebalance
+    run_sim(SSSP(), pg, {"source": 0}, EngineConfig(edge_backend="auto"),
+            device="cpu")
+    sess = GraphSession.from_graph(g, 2, "ebv", device="cpu",
+                                   rebalance="manual")
+    sess.update(adds=([0], [1]))
     assert sess.flush().n_added == 1 and sess.compact().remap is not None
-    for call in (sess.rebalance,
-                 lambda: sess.query_batch(SSSP(), [{"source": 0}]),
-                 lambda: sess.query(SSSP(), {"source": 0},
-                                    cfg=EngineConfig(edge_backend="auto")),
-                 lambda: StreamContext("ebv", 2, 0, 64, g.total_degrees()),
-                 lambda: GraphSession.from_graph(g, 2, "ebv", device="cpu")):
-        with pytest.raises((NotImplementedError, ValueError),
-                           match="ROADMAP"):
+    sess.query(SSSP(), {"source": 0}, cfg=EngineConfig(edge_backend="auto"))
+    sess.rebalance()
+    for call in (lambda: sess.query_batch(SSSP(), [{"source": 0}]),
+                 lambda: GraphSession(pg, mesh=object(), device="cpu")):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
+
+
+def test_ebv_auto_and_rebalance_load_no_jax(tmp_path):
+    """Routing through ``"ebv"`` (whose router spec names its module by
+    string), an ``'auto'`` query and a rebalance load no ``jax`` and no
+    module of the JAX package."""
+    code = ("import sys, numpy as np\n"
+            "from repro_torch.algos import SSSP\n"
+            "from repro_torch.core import EngineConfig\n"
+            "from repro_torch.graphgen import powerlaw_graph\n"
+            "from repro_torch.session import GraphSession\n"
+            "g = powerlaw_graph(300, seed=1, weighted=True).as_undirected()\n"
+            "s = GraphSession.from_graph(g, 3, 'ebv', device='cpu',\n"
+            "    rebalance='manual', cfg=EngineConfig(edge_backend='auto'))\n"
+            "_, st = s.query(SSSP(), {'source': 0})\n"
+            "assert len(st.partition_edge_backends) == 3\n"
+            "s.update(deletes=(g.src[:10], g.dst[:10])); s.flush()\n"
+            "s.rebalance(target=1.0)\n"
+            "assert type(s.ctx.router_state).__module__ == "
+            "'repro_torch.partition.ebv'\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]\n"
+            "print(bad); assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               DRONE_AUTOTUNE_DIR=str(tmp_path))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr + out.stdout
 
 
 def test_algos_export_the_reference_suite():

@@ -48,7 +48,7 @@ LAYOUT_SCALARS = ("n_parts", "v_max", "e_max", "t_max", "b_max",
 REALIZATIONS = [("min_plus", "weight", np.float32),    # SSSP
                 ("min_plus", "zero", np.int32),        # CC
                 ("plus_times", "one", np.float32)]     # PageRank
-PURE_ROUTERS = sorted(STREAM_ROUTERS)
+ROUTERS = sorted(STREAM_ROUTERS)
 
 
 def assert_same_pg(rpg, tpg, where=""):
@@ -169,7 +169,7 @@ def test_edge_log_writer_appends_and_widens_id_space(tmp_path):
 # --------------------------------------------------------------------------- #
 # streaming ingest
 # --------------------------------------------------------------------------- #
-@pytest.mark.parametrize("router", PURE_ROUTERS)
+@pytest.mark.parametrize("router", ROUTERS)
 def test_streaming_ingest_parity(tmp_path, router):
     rg, _ = _graphs(2000, 11)
     RS.write_edge_log(rg, str(tmp_path / "log"), chunk_size=4096)
@@ -194,10 +194,17 @@ def test_streaming_ingest_parity(tmp_path, router):
 
 
 def test_streaming_ingest_refuses_stateful_and_unknown_routers(tmp_path):
+    """A stateful router streams through the state ingest builds; a bare
+    context without one refuses to route, and an unknown router is
+    refused outright."""
     rg, _ = _graphs(300, 1)
     RS.write_edge_log(rg, str(tmp_path / "log"), chunk_size=1024)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        TS.streaming_ingest(str(tmp_path / "log"), 4, "ebv")
+    _, ctx, _ = TS.streaming_ingest(str(tmp_path / "log"), 4, "ebv")
+    assert ctx.router_state is not None
+    bare = TS.StreamContext("ebv", 4, 0, rg.n_vertices,
+                            np.zeros(rg.n_vertices, np.int64))
+    with pytest.raises(ValueError, match="stateful"):
+        bare.route(np.array([1]), np.array([2]))
     with pytest.raises(ValueError, match="streamable"):
         TS.streaming_ingest(str(tmp_path / "log"), 4, "greedy-ec")
 

@@ -99,3 +99,16 @@ def test_shape_policy_and_metrics_match():
     tm = T.partition_metrics(T.partition_and_build(tg, 8))
     assert dataclasses.asdict(rm) == dataclasses.asdict(tm)
     assert str(rm) == str(tm)
+
+
+@pytest.mark.parametrize("n,hi,dtype", [(0, 1, np.int64), (1, 1, np.int64),
+                                        (5000, 40, np.int32),
+                                        (200_000, 1 << 40, np.int64)])
+def test_unique_sorted_equals_np_unique(n, hi, dtype):
+    """The port's sort-based ``unique_sorted`` gives ``np.unique``'s sorted
+    distinct values and dtype (the layouts, builders and EBV use it)."""
+    from repro_torch.core.graph import unique_sorted
+    a = np.random.default_rng(n).integers(-hi, hi, n).astype(dtype)
+    got, want = unique_sorted(a), np.unique(a)
+    np.testing.assert_array_equal(got, want)
+    assert got.dtype == want.dtype
