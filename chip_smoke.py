@@ -95,18 +95,39 @@ Phases (the run exits non-zero if any of them fails):
      version on the group-sliced device lists. Per step it prints the
      flush's host time, the rebalance's plan and execution, the layout
      refresh and the re-upload.
+  9. Serving and micro-batching. On phase 8's kron-20 ebv session after
+     its last step, on ``pallas_windows``: ``query_batch`` of SSSP from 5
+     sources (the 8-lane bucket), each lane bit-identical to its
+     singleton query (results, supersteps, messages, per-partition
+     sweeps) and two lanes to scipy's Dijkstra, with the batch's
+     ``segment_combine`` launches equal to its singletons' sum; a batch
+     of 8 that builds no runner; SSSP B=4 on ``coo``, CC B=2, a leafless
+     PageRank (its lanes fan out from one runner call) and PageRank B=2
+     (within PR_RTOL); a ``ResultCache(store=DictStore())`` whose repeated
+     batch is an all-hit with no launch, then an insert that makes every
+     lane miss (Dijkstra again on the new edges). Then two kron-14 tenants
+     (seeds 7 and 8, one shape bucket) in one ``SessionPool`` on
+     ``pallas_tiles``: tenant b's first query builds no runner; 8 SSSP
+     requests through a ``MicroBatcher(max_batch=4)`` (2 inline batches,
+     each lane equal to its singleton, none degraded), a result-cache
+     fast-path repeat, and one ``start()`` / ``stop()`` round whose batch
+     the pump thread launches. Each kernel is checked against its plain
+     version on the device lists the phase ran on. It prints each batch's
+     host time beside its singletons' and the all-hit batch's time.
 
 A small-graph check holds the three programs against independent numpy
 oracles on all three backends. The kernel JSON line gives each kernel's
 launches per phase (``launches`` = phases 3-4, ``launches_streaming`` =
 phase 6, ``launches_algos`` = phase 7, ``launches_auto`` = phase 8's
 ``'auto'`` runs: its ``'auto'`` queries and the forced mix, without the
-uniform queries it compares them with) and its K = 16 rows (``k16``). The
+uniform queries it compares them with; ``launches_serving`` = phase 9's
+serving calls) and its K = 16 rows (``k16``). The
 line before the last is the card's name and power limit from
 ``nvidia-smi``; the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import subprocess
@@ -1113,54 +1134,64 @@ def stream_kernel_checks(sm: Smoke, errs: dict, win, tile, out) -> None:
     device lists of phase 6 (min exact; sums within SUM_RTOL)."""
     import torch
     from repro_torch.algos import SSSP, PageRank
+
+    dev = torch.device(DEVICE)
+    dist = torch.from_numpy(out["win_vals"]).to(dev)[..., None]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    for prog in (SSSP(), PageRank()):
+        vals = torch.rand(dist.shape, generator=gen, device=dev) \
+            if prog.delta_based else dist
+        kernel_vs_plain(sm, errs, "the post-compact kron-20", win[0],
+                        "pallas_windows", prog, vals)
+    for name, prog in (("sssp", SSSP()), ("pagerank", PageRank())):
+        v = torch.from_numpy(out["tile_res"][("pallas_tiles", name)]).to(
+            dev)[..., None]
+        kernel_vs_plain(sm, errs, "the post-compact kron-14", tile[2],
+                        "pallas_tiles", prog, v)
+
+
+def kernel_vs_plain(sm: Smoke, errs: dict, label: str, sess, eb: str, prog,
+                    vals) -> None:
+    """One kernel against its plain version on a session's device list at
+    ``vals`` ([P, v_max, K] on the card): min exact, sums within
+    SUM_RTOL."""
+    import torch
     from repro_torch.core.engine import (_layout_block_from, _tile_inputs,
                                          _window_inputs)
     from repro_torch.kernels import bsp_spmv as bk
     from repro_torch.kernels import segment_combine as sk
 
-    dev = torch.device(DEVICE)
-    sess, sq = win[0], tile[2]
-    sgs = sess.device_graph()
-    dist = torch.from_numpy(out["win_vals"]).to(dev)[..., None]
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(6)
-    for prog in (SSSP(), PageRank()):
-        blk = _layout_block_from(sess.pg.edge_layouts, sess.pg, prog,
-                                 "pallas_windows", dev)
-        vals = torch.rand(dist.shape, generator=gen, device=dev) \
-            if prog.delta_based else dist
+    spec = prog.sweep_spec
+    v_max = sess.pg.v_max
+    blk = _layout_block_from(sess.pg.ensure_edge_layouts(
+        shape_policy=sess.shape_policy), sess.pg, prog, eb, vals.device)
+    if eb == "pallas_windows":
         msgs, ldst, bwin, nw, plan = _window_inputs(
-            sgs, blk, vals, prog.sweep_spec, sgs.v_max)
-        comb = prog.sweep_spec.combiner
+            sess.device_graph(), blk, vals, spec, v_max)
         got = sk.segment_combine_windowed(msgs, ldst, bwin, n_windows=nw,
-                                          combiner=comb, plan=plan)
+                                          combiner=spec.combiner, plan=plan)
         want = sk.segment_combine_plain(msgs, ldst, bwin, n_windows=nw,
-                                        combiner=comb)
+                                        combiner=spec.combiner)
         torch.cuda.synchronize()
-        ok, err = compare(got, want, segment_magnitude(msgs, ldst, bwin, nw,
-                                                       comb))
+        ok, err = compare(got, want, segment_magnitude(
+            msgs, ldst, bwin, nw, spec.combiner))
         errs["segment_combine"] = max(errs["segment_combine"], err)
-        sm.check(ok, f"segment_combine {comb} on the post-compact kron-20 "
-                     f"list ({bwin.shape[0]} blocks) vs plain (max err "
+        sm.check(ok, f"segment_combine {spec.combiner} on {label} list "
+                     f"({bwin.shape[0]} blocks) vs plain (max err "
                      f"{err:.3g})")
-    for name, prog in (("sssp", SSSP()), ("pagerank", PageRank())):
-        v = torch.from_numpy(out["tile_res"][("pallas_tiles", name)]).to(
-            dev)[..., None]
-        blk = _layout_block_from(sq.pg.edge_layouts, sq.pg, prog,
-                                 "pallas_tiles", dev)
-        tiles, td, ts, vv, ndt, plan = _tile_inputs(blk, v, prog.sweep_spec,
-                                                    sq.pg.v_max)
-        semi = prog.sweep_spec.semiring
-        got = bk.bsp_spmv(tiles, td, ts, vv, n_dst_tiles=ndt, semiring=semi,
-                          plan=plan)
-        want = bk.bsp_spmv_plain(tiles, td, ts, vv, n_dst_tiles=ndt,
-                                 semiring=semi)
-        torch.cuda.synchronize()
-        ok, err = compare(got, want, spmv_magnitude(tiles, td, ts, vv, ndt,
-                                                    semi))
-        errs["bsp_spmv"] = max(errs["bsp_spmv"], err)
-        sm.check(ok, f"bsp_spmv {semi} on the post-compact kron-14 list "
-                     f"({tiles.shape[0]} tiles) vs plain (max err {err:.3g})")
+        return
+    tiles, td, ts, vv, ndt, plan = _tile_inputs(blk, vals, spec, v_max)
+    got = bk.bsp_spmv(tiles, td, ts, vv, n_dst_tiles=ndt,
+                      semiring=spec.semiring, plan=plan)
+    want = bk.bsp_spmv_plain(tiles, td, ts, vv, n_dst_tiles=ndt,
+                             semiring=spec.semiring)
+    torch.cuda.synchronize()
+    ok, err = compare(got, want, spmv_magnitude(tiles, td, ts, vv, ndt,
+                                                spec.semiring))
+    errs["bsp_spmv"] = max(errs["bsp_spmv"], err)
+    sm.check(ok, f"bsp_spmv {spec.semiring} on {label} list "
+                 f"({tiles.shape[0]} tiles) vs plain (max err {err:.3g})")
 
 
 # --------------------------------------------------------------------------- #
@@ -1858,16 +1889,24 @@ def pick_counts(picks) -> dict:
 
 
 def check_dijkstra(sm, label, sess, res, source, src, dst, w):
+    check_dijkstra_lanes(sm, label, sess, [res], [source], src, dst, w)
+
+
+def check_dijkstra_lanes(sm, label, sess, results, sources, src, dst, w):
+    """Each SSSP result against scipy's Dijkstra from its source, the
+    oracle run once for all of them."""
     import numpy as np
     t = time.perf_counter()
-    want = oracle_sssp_edges(sess.pg.n_vertices, src, dst, w, source)
-    d = sess.pg.collect(res, fill=np.float32(np.inf)).astype(np.float64)
-    fin = np.isfinite(want)
-    sm.check(bool(np.array_equal(np.isfinite(d), fin)
-                  and np.allclose(d[fin], want[fin], rtol=1e-5)),
-             f"{label}: SSSP from {source} agrees with scipy Dijkstra "
-             f"(rtol 1e-5; {int(fin.sum())} reachable; oracle "
-             f"{time.perf_counter() - t:.1f}s)")
+    want = oracle_sssp_edges(sess.pg.n_vertices, src, dst, w, sources)
+    took = time.perf_counter() - t
+    for res, source, ws in zip(results, sources, want):
+        d = sess.pg.collect(res, fill=np.float32(np.inf)).astype(np.float64)
+        fin = np.isfinite(ws)
+        sm.check(bool(np.array_equal(np.isfinite(d), fin)
+                      and np.allclose(d[fin], ws[fin], rtol=1e-5)),
+                 f"{label}: SSSP from {source} agrees with scipy Dijkstra "
+                 f"(rtol 1e-5; {int(fin.sum())} reachable; oracle "
+                 f"{took:.1f}s)")
 
 
 def calibration_part(sm: Smoke):
@@ -2366,7 +2405,404 @@ def auto_path(sm: Smoke, log: list, errs: dict, g20, ident: str) -> dict:
             f"{peak} bytes ({peak / 2**30:.2f} GiB)")
     return dict(launches=launches, steps=steps, peak=peak,
                 unit_costs=table.unit_costs, platform=table.platform,
-                ebv_s=k20["ebv_s"], picks=list(k20["picks"]))
+                ebv_s=k20["ebv_s"], picks=list(k20["picks"]),
+                sess=k20["sess"] if "source" in k20 else None)
+
+
+# --------------------------------------------------------------------------- #
+# phase 9: serving and micro-batching
+# --------------------------------------------------------------------------- #
+SERVE_SOURCES = 5             # the kron-20 batch: pads to the 8-lane bucket
+SERVE_REQUESTS = 8            # batcher requests to tenant a
+SERVE_MAX_BATCH = 4           # two inline batched launches of 4
+SERVE_INSERT_PAIRS = 64       # the insert that bumps the graph version
+
+
+class ServeRunner:
+    """Runs phase 9's calls with the launch counters set to 0 just before
+    each and read just after; the counts add up in ``launches`` (the
+    phase's ``launches_serving``)."""
+
+    def __init__(self, sm: Smoke, log: list):
+        self.sm, self.log = sm, log
+        self.launches = {"bsp_spmv": 0, "segment_combine_windowed": 0}
+
+    def counted(self, fn):
+        """``(fn(), {kernel: launches in fn}, host seconds)``, synchronized
+        before the clock stops."""
+        import torch
+        from repro_torch.kernels import bsp_spmv as bk
+        from repro_torch.kernels import segment_combine as sk
+        bk.bsp_spmv.launches = 0
+        sk.segment_combine_windowed.launches = 0
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        took = time.perf_counter() - t
+        n = {"bsp_spmv": bk.bsp_spmv.launches,
+             "segment_combine_windowed": sk.segment_combine_windowed.launches}
+        for k, v in n.items():
+            self.launches[k] += v
+        return out, n, took
+
+    def record(self, label, name, eb, lanes, host_s, n, st):
+        rec = dict(phase=9, graph=label, query=name, edge_backend=eb,
+                   lanes=lanes, host_s=host_s, wall_s=st.wall_time,
+                   supersteps=st.supersteps, batch_size=st.batch_size,
+                   result_cache_tier=st.result_cache_tier,
+                   kernel_launches=n)
+        self.log.append(rec)
+        print("query " + json.dumps(rec), flush=True)
+
+    def singles(self, sess, label, name, prog, plist, eb, **kw):
+        """Each request alone; returns ``(outs, launches, host seconds)``
+        summed over them."""
+        from repro_torch.core import EngineConfig
+        outs, total, secs = [], {}, 0.0
+        for p in plist:
+            out, n, took = self.counted(lambda: sess.query(
+                prog, p, warm=False, cfg=EngineConfig(edge_backend=eb),
+                **kw))
+            self.record(label, name, eb, 1, took, n, out[1])
+            outs.append(out)
+            secs += took
+            for k, v in n.items():
+                total[k] = total.get(k, 0) + v
+        return outs, total, secs
+
+    def batch(self, sess, label, name, prog, plist, eb, **kw):
+        """One ``query_batch``; returns ``(outs, launches, host seconds)``."""
+        from repro_torch.core import EngineConfig
+        outs, n, took = self.counted(lambda: sess.query_batch(
+            prog, plist, warm=False, cfg=EngineConfig(edge_backend=eb),
+            **kw))
+        self.record(label, name, eb, len(plist), took, n, outs[0][1])
+        return outs, n, took
+
+    def lanes_equal(self, label, name, got, want, delta_based=False):
+        """Each batch lane against its singleton: bit for bit with the same
+        supersteps, messages and per-partition sweeps, or PageRank within
+        PR_RTOL of the largest rank."""
+        import numpy as np
+        ok, errs = True, []
+        for (a, ast), (b, bst) in zip(got, want):
+            if delta_based:
+                err = float(np.abs(a - b).max())
+                errs.append(err)
+                ok &= err <= PR_RTOL * float(np.abs(b).max()) \
+                    and bool(np.isfinite(a).all())
+            else:
+                ok &= bool(np.array_equal(a, b)) and \
+                    (ast.supersteps, ast.total_messages,
+                     ast.partition_sweeps) == \
+                    (bst.supersteps, bst.total_messages,
+                     bst.partition_sweeps)
+        what = (f"within {PR_RTOL:g} of max rank (max err "
+                f"{max(errs):.3g})" if delta_based else
+                "bit for bit (results, supersteps, messages, "
+                "per-partition sweeps)")
+        return self.sm.check(
+            ok and len(got) == len(want) and len(got) > 0,
+            f"{label} {name}: each of the {len(got)} batch lanes equals its "
+            f"singleton query {what}")
+
+
+def _leafless_pagerank(n: int):
+    """PageRank with the vertex count as a field: a leafless, non-monotone
+    program, whose batch lanes are all one computation (they fan out from
+    one query)."""
+    from repro_torch.algos import PageRank
+
+    @dataclasses.dataclass
+    class LeaflessPageRank(PageRank):
+        n_vertices: int = 1
+
+        def init(self, sg, params, ec):
+            return super().init(sg, {"n_vertices": self.n_vertices}, ec)
+
+    return LeaflessPageRank(n_vertices=n)
+
+
+def serving_kron20_part(sm: Smoke, sr: ServeRunner, errs: dict, sess,
+                        g) -> dict:
+    """Batches on phase 8's kron-20 / ebv session after its last step:
+    SSSP on ``pallas_windows`` (B = 5, the 8-lane bucket) and on ``coo``
+    (B = 4), CC, a leafless fan-out, PageRank; the result cache's all-hit
+    batch and the version bump of an insert."""
+    import numpy as np
+    import torch
+    from repro_torch.algos import SSSP, ConnectedComponents, PageRank
+    from repro_torch.core import EngineConfig
+    from repro_torch.serving import DictStore, ResultCache
+
+    label, win = "kron-20 ebv", "pallas_windows"
+    deg = g.out_degrees()
+    rng = np.random.default_rng(9)
+    sources = [int(np.argmax(deg))] + [int(s) for s in rng.choice(
+        np.nonzero(deg)[0], SERVE_SOURCES - 1, replace=False)]
+    plist = [{"source": s} for s in sources]
+    out = dict(sources=sources)
+
+    # the session's windows device list (phase 8 ran 'auto'), built before
+    # the timed calls; it launches nothing
+    sess._layout_arg(SSSP(), win, EngineConfig(edge_backend=win))
+    singles, alone, alone_s = sr.singles(sess, label, "sssp", SSSP(), plist,
+                                         win)
+    builds = sess.stats.runner_builds
+    batch, n, batch_s = sr.batch(sess, label, "sssp", SSSP(), plist, win)
+    sr.lanes_equal(label, f"SSSP B={SERVE_SOURCES} on {win}", batch, singles)
+    sm.check(all(st.batch_size == SERVE_SOURCES for _, st in batch),
+             f"{label}: every lane reports batch_size {SERVE_SOURCES}")
+    seg = "segment_combine_windowed"
+    sm.check(n[seg] == alone[seg] > 0 and n["bsp_spmv"] == 0,
+             f"{label}: the batch launched segment_combine {n[seg]} times, "
+             f"its {SERVE_SOURCES} singletons {alone[seg]} together")
+    sm.check(sess.stats.runner_builds == builds + 1,
+             f"{label}: the batch built one runner (the 8-lane bucket)")
+    walls = (batch[0][1].wall_time, sum(st.wall_time for _, st in singles))
+    sm.note(f"{label} SSSP B={SERVE_SOURCES} on {win}: batch {batch_s:.4f}s "
+            f"host ({walls[0]:.4f}s runner wall), its lanes alone "
+            f"{alone_s:.4f}s host ({walls[1]:.4f}s wall) together")
+    out.update(batch_s=batch_s, singles_s=alone_s, batch_wall_s=walls[0],
+               singles_wall_s=walls[1])
+    check_dijkstra_lanes(sm, f"{label} batch lanes 0, 1", sess,
+                         [r for r, _ in batch[:2]], sources[:2],
+                         *resident_edges(sess.pg))
+    eight = [{"source": s} for s in sources] + [
+        {"source": int(s)} for s in rng.choice(np.nonzero(deg)[0], 8 -
+                                               SERVE_SOURCES)]
+    builds = sess.stats.runner_builds
+    b8, _, _ = sr.batch(sess, label, "sssp", SSSP(), eight, win)
+    sm.check(sess.stats.runner_builds == builds and
+             all(bool(np.array_equal(a[0], b[0]))
+                 for a, b in zip(b8, singles)),
+             f"{label}: a batch of 8 builds no runner (same bucket), its "
+             f"first {SERVE_SOURCES} lanes equal the singletons")
+
+    coo = plist[:4]
+    c_single, _, _ = sr.singles(sess, label, "sssp", SSSP(), coo, "coo")
+    c_batch, n, _ = sr.batch(sess, label, "sssp", SSSP(), coo, "coo")
+    sr.lanes_equal(label, "SSSP B=4 on coo", c_batch, c_single)
+    sm.check(sum(n.values()) == 0, f"{label}: the coo batch launched no "
+                                   f"kernel")
+
+    cc_single, _, _ = sr.singles(sess, label, "cc", ConnectedComponents(),
+                                 [None], win)
+    cc_batch, _, _ = sr.batch(sess, label, "cc", ConnectedComponents(),
+                              [None, None], win)
+    sr.lanes_equal(label, "CC B=2 (leafless, monotone: a batch)", cc_batch,
+                   cc_single * 2)
+    fan = _leafless_pagerank(sess.pg.n_vertices)
+    launches, batches = sess.stats.device_launches, sess.stats.batches
+    f_single, f_alone, _ = sr.singles(sess, label, "pagerank_leafless", fan,
+                                      [None], win)
+    f_batch, n, _ = sr.batch(sess, label, "pagerank_leafless", fan,
+                             [None, None], win)
+    sm.check(sess.stats.device_launches == launches + 2 and
+             sess.stats.batches == batches and n == f_alone and
+             all(st.batch_size == 2 for _, st in f_batch) and
+             f_batch[0][0] is f_batch[1][0],
+             f"{label}: a leafless non-monotone batch of 2 fans out from one "
+             f"runner call ({n[seg]} segment_combine launches, as alone)")
+    # PageRank's float sums (scatter_add_ in apply_frontier) may round
+    # differently from one run to the next on the card
+    sr.lanes_equal(label, "leafless PageRank B=2 (fanned out)", f_batch,
+                   f_single * 2, delta_based=True)
+    pr = {"n_vertices": sess.pg.n_vertices}
+    p_single, _, _ = sr.singles(sess, label, "pagerank", PageRank(), [pr],
+                                win)
+    p_batch, _, _ = sr.batch(sess, label, "pagerank", PageRank(), [pr, pr],
+                             win)
+    sr.lanes_equal(label, "PageRank B=2", p_batch, p_single * 2,
+                   delta_based=True)
+
+    # the result cache: an all-hit batch launches nothing
+    sess.result_cache = ResultCache(store=DictStore())
+    filled, _, _ = sr.batch(sess, label, "sssp", SSSP(), plist, win)
+    launches = sess.stats.device_launches
+    hit, n, hit_s = sr.batch(sess, label, "sssp", SSSP(), plist, win)
+    sm.check(sum(n.values()) == 0 and
+             sess.stats.device_launches == launches and
+             all(st.result_cache_tier == "l1" for _, st in hit) and
+             all(bool(np.array_equal(a[0], b[0]))
+                 for a, b in zip(hit, filled)),
+             f"{label}: the repeated batch is an all-hit on the result "
+             f"cache: no kernel launch, device_launches unchanged")
+    sm.note(f"{label}: result-cache all-hit batch of {SERVE_SOURCES} in "
+            f"{hit_s:.6f}s host")
+    out["hit_s"] = hit_s
+    # an insert bumps the graph version: every lane misses and runs again
+    a, b, w = sym_batch(rng, SERVE_INSERT_PAIRS, sess.pg.n_vertices)
+    t = time.perf_counter()
+    sess.update(adds=(a, b, w))
+    sess.flush()
+    out["flush_s"] = time.perf_counter() - t
+    miss, n, _ = sr.batch(sess, label, "sssp", SSSP(), plist, win)
+    sm.check(all(st.result_cache_tier == "miss" for _, st in miss) and
+             n[seg] > 0,
+             f"{label}: after an insert of {2 * SERVE_INSERT_PAIRS} edges "
+             f"(flush {out['flush_s']:.1f}s) every lane misses and the "
+             f"batch launches again ({n[seg]} segment_combine launches)")
+    check_dijkstra_lanes(sm, f"{label} batch lanes 0, 1 after the insert",
+                         sess, [r for r, _ in miss[:2]], sources[:2],
+                         *resident_edges(sess.pg))
+    dist = torch.from_numpy(miss[0][0]).to(DEVICE)[..., None]
+    kernel_vs_plain(sm, errs, f"the {label}", sess, win, SSSP(), dist)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(9)
+    kernel_vs_plain(sm, errs, f"the {label}", sess, win, PageRank(),
+                    torch.rand(dist.shape, generator=gen, device=DEVICE))
+    return out
+
+
+def serving_pool_part(sm: Smoke, sr: ServeRunner, errs: dict) -> dict:
+    """Two kron-14 tenants in one ``SessionPool`` on ``pallas_tiles``
+    (one shape bucket: tenant b builds no runner), a ``MicroBatcher`` over
+    the pool, and one round of its pump thread."""
+    import threading
+    import numpy as np
+    import torch
+    from repro_torch.algos import SSSP, PageRank
+    from repro_torch.core import EngineConfig
+    from repro_torch.graphgen import kronecker_graph
+    from repro_torch.serving import (BatchPolicy, MicroBatcher, ResultCache,
+                                     SessionPool)
+
+    tiles = "pallas_tiles"
+    t = time.perf_counter()
+    pool = SessionPool(cfg=EngineConfig(edge_backend=tiles),
+                       result_cache=ResultCache(), device=DEVICE)
+    graphs = {"a": kronecker_graph(14, seed=7),
+              "b": kronecker_graph(14, seed=8)}
+    a = pool.open("a", graphs["a"], n_parts=16)
+    b = pool.open("b", graphs["b"], n_parts=16)
+    la = a.pg.ensure_edge_layouts(shape_policy=a.shape_policy)
+    lb = b.pg.ensure_edge_layouts(shape_policy=b.shape_policy)
+    sm.note(f"kron-14 tenants a, b opened in {time.perf_counter() - t:.1f}s:"
+            f" shapes {a.shape_key} / {b.shape_key}, tile layouts "
+            f"{la.shape_key(tiles)} / {lb.shape_key(tiles)}")
+    sm.check(a.shape_key == b.shape_key and
+             la.shape_key(tiles) == lb.shape_key(tiles),
+             "kron-14 seeds 7 and 8 land in one shape bucket")
+    deg = graphs["a"].out_degrees()
+    rng = np.random.default_rng(14)
+    sources = [int(s) for s in rng.choice(np.nonzero(deg)[0],
+                                          SERVE_REQUESTS + 3, replace=False)]
+    (qa, _, _) = sr.singles(a, "kron-14 a", "sssp", SSSP(),
+                            [{"source": sources[0]}], tiles,
+                            use_result_cache=False)
+    (qb, _, _) = sr.singles(b, "kron-14 b", "sssp", SSSP(),
+                            [{"source": sources[0]}], tiles,
+                            use_result_cache=False)
+    rc = pool.runner_cache
+    sm.check(rc.misses == 1 and rc.hits == 1 and
+             qb[0][1].compile_time == 0.0,
+             f"tenant b's first query built no runner (runner cache misses "
+             f"{rc.misses}, hits {rc.hits})")
+    for tenant, res in (("a", qa[0][0]), ("b", qb[0][0])):
+        gt = graphs[tenant]
+        check_dijkstra(sm, f"kron-14 tenant {tenant}", pool.session(tenant),
+                       res, sources[0], gt.src, gt.dst,
+                       np.ones(gt.n_edges, np.float32))
+
+    reqs = [{"source": s} for s in sources[:SERVE_REQUESTS]]
+    bat = MicroBatcher(pool, BatchPolicy(max_batch=SERVE_MAX_BATCH))
+    (futs, n, took) = sr.counted(lambda: [
+        bat.submit(SSSP(), p, tenant="a", warm=False) for p in reqs])
+    got = [f.result(timeout=600) for f in futs]
+    want, alone, _ = sr.singles(a, "kron-14 a", "sssp", SSSP(), reqs, tiles,
+                                use_result_cache=False)
+    sr.lanes_equal("kron-14 a", f"SSSP through the batcher (max_batch "
+                   f"{SERVE_MAX_BATCH})", got, want)
+    st = bat.stats
+    sm.check(st.launched_batches == SERVE_REQUESTS // SERVE_MAX_BATCH and
+             st.batched_requests == SERVE_REQUESTS and st.degraded == 0 and
+             all(f.done() for f in futs) and
+             n["bsp_spmv"] == alone["bsp_spmv"] > 0,
+             f"the batcher launched {st.launched_batches} batches of "
+             f"{SERVE_MAX_BATCH} inline, degraded {st.degraded}; "
+             f"bsp_spmv {n['bsp_spmv']} launches, the singletons "
+             f"{alone['bsp_spmv']}")
+    sm.note(f"kron-14 a: {SERVE_REQUESTS} requests through the batcher in "
+            f"{took:.4f}s host")
+    (fast, n, fast_s) = sr.counted(lambda: bat.submit(
+        SSSP(), reqs[0], tenant="a", warm=False))
+    sm.check(fast.done() and st.fast_path_hits == 1 and
+             fast.result()[1].result_cache_tier == "l1" and
+             sum(n.values()) == 0 and
+             bool(np.array_equal(fast.result()[0], want[0][0])),
+             f"a repeated request is answered on the result-cache fast path "
+             f"in {fast_s:.6f}s, with no launch")
+
+    # the pump thread launches from a thread other than the main one
+    threads = set()
+
+    def recording(fn):
+        def call(*args, **kw):
+            threads.add(threading.current_thread().name)
+            return fn(*args, **kw)
+        return call
+
+    a.query_batch, a.query = recording(a.query_batch), recording(a.query)
+    later = [{"source": s} for s in sources[SERVE_REQUESTS:]]
+    pump = MicroBatcher(pool, BatchPolicy(max_batch=64, max_delay=0.05))
+    try:
+        def pumped():
+            pump.start()
+            fs = [pump.submit(SSSP(), p, tenant="a", warm=False)
+                  for p in later]
+            return [f.result(timeout=600) for f in fs]
+        got, n, _ = sr.counted(pumped)
+    finally:
+        pump.stop()
+        del a.query_batch, a.query
+    want, _, _ = sr.singles(a, "kron-14 a", "sssp", SSSP(), later, tiles,
+                            use_result_cache=False)
+    sr.lanes_equal("kron-14 a", "SSSP through the pump thread", got, want)
+    sm.check(threads == {"micro-batcher"} and pump.stats.degraded == 0 and
+             n["bsp_spmv"] > 0,
+             f"the pump thread launched the batch ({sorted(threads)}; "
+             f"{pump.stats.launched_batches} batches, "
+             f"{pump.stats.launched_singletons} singletons, bsp_spmv "
+             f"{n['bsp_spmv']} launches)")
+
+    dist = torch.from_numpy(want[0][0]).to(DEVICE)[..., None]
+    kernel_vs_plain(sm, errs, "kron-14 tenant a's", a, tiles, SSSP(), dist)
+    pr, _ = a.query(PageRank(), {"n_vertices": a.pg.n_vertices},
+                    use_result_cache=False)
+    kernel_vs_plain(sm, errs, "kron-14 tenant a's", a, tiles, PageRank(),
+                    torch.from_numpy(pr).to(DEVICE)[..., None])
+    stats = pool.stats()
+    pool.close_all()
+    return dict(runner_cache={k: v for k, v in stats["runner_cache"].items()
+                              if k != "by_owner"},
+                batcher=dataclasses.asdict(st))
+
+
+def serving_path(sm: Smoke, log: list, errs: dict, sess, g20) -> dict:
+    """Phase 9 (see the module docstring): returns the launches per
+    kernel, the timings and the peak device memory."""
+    import torch
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    sr = ServeRunner(sm, log)
+    k20 = {}
+    if sm.check(sess is not None, "phase 8 left its kron-20 ebv session"):
+        t = time.perf_counter()
+        k20 = serving_kron20_part(sm, sr, errs, sess, g20)
+        sm.note(f"phase 9 kron-20 part: {time.perf_counter() - t:.1f}s")
+    t = time.perf_counter()
+    pool = serving_pool_part(sm, sr, errs)
+    sm.note(f"phase 9 pool part: {time.perf_counter() - t:.1f}s")
+    sm.note(f"launches in phase 9's serving runs: {sr.launches}")
+    sm.check(all(v > 0 for v in sr.launches.values()),
+             "phase 9's serving runs launched both kernels")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    sm.note(f"phase 9: {time.perf_counter() - t0:.1f}s, peak device memory "
+            f"{peak} bytes ({peak / 2**30:.2f} GiB)")
+    return dict(launches=sr.launches, peak=peak, kron20=k20, pool=pool)
 
 
 def main() -> int:
@@ -2454,6 +2890,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     auto = auto_path(sm, log, errs, g20, ident)
     peak["auto and rebalance"] = auto["peak"]
+    serve = serving_path(sm, log, errs, auto.pop("sess"), g20)
+    peak["serving"] = serve["peak"]
     kernels = []
     for r in recs:
         t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
@@ -2474,6 +2912,7 @@ def main() -> int:
             launches_streaming=stream_launches[r["name"]],
             launches_algos=algos["launches"][r["name"]],
             launches_auto=auto["launches"][r["name"]],
+            launches_serving=serve["launches"][r["name"]],
             k16=algos["rows"][r["name"]], **extra))
     Path(ROOT / "chiprun_out").mkdir(exist_ok=True)
     (ROOT / "chiprun_out" / "chip_smoke_queries.json").write_text(
@@ -2484,6 +2923,8 @@ def main() -> int:
                                       unit_costs=auto["unit_costs"]),
                         kron20_ebv=dict(routing_s=auto["ebv_s"],
                                         picks=auto["picks"]),
+                        serving=dict(kron20=serve["kron20"],
+                                     pool=serve["pool"]),
                         peak_memory_bytes=peak,
                         algo_row_launches=algos["row_launches"],
                         kernel_shapes={r["name"]: r["shape"] for r in recs},

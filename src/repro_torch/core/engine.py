@@ -568,11 +568,24 @@ def make_sim_runner(program: VertexProgram, cfg: EngineConfig, n_slots: int,
     ``dict(state, last_out, merged, step)``; ``resume`` is such a carry to
     continue from (a BSP checkpoint). ``results`` stays on the device; the
     counts are host ints (``sweeps_per_part`` a [P] int64 array) and cover
-    the supersteps this call ran."""
-    if batch:
-        raise NotImplementedError(
-            "batched runners are not ported yet (ROADMAP Queue 1: "
-            "serving/batching)")
+    the supersteps this call ran.
+
+    ``batch=True`` builds the micro-batching variant
+
+        runner(sgs, lay, params_list, warm=None) ->
+            (results [B, ...], supersteps [B], messages [B],
+             sweeps [B, P], host_syncs)
+
+    over ``B = len(params_list)`` lanes that share ``sgs`` / ``lay``, with
+    ``warm`` a [B, P, v_max, K] stack (``warm_start=True``). On every
+    backend it runs each lane's whole BSP loop in turn through the
+    singleton superstep — what the reference's ``lax.scan`` branch does
+    for its kernel backends — so each lane gets exactly its singleton's
+    results, supersteps, messages and per-partition sweeps (which the
+    reference's vmapped ``coo`` branch also guarantees). ``host_syncs`` is
+    the lanes' sum. ``GraphSession.query_batch`` keys the runner by the
+    lane count padded to a power of two but passes only the real lanes:
+    the reference discards the pad lanes' outputs, so they are not run."""
     edge_backend = resolve_edge_backend(program, cfg)
     _check_supported(cfg)
     groups = None
@@ -638,7 +651,20 @@ def make_sim_runner(program: VertexProgram, cfg: EngineConfig, n_slots: int,
         return (results, step, tot_msgs,
                 tot_sweeps.cpu().numpy().astype(np.int64), syncs)
 
-    return runner
+    if not batch:
+        return runner
+
+    def batched(sgs: DeviceSubgraph, lay, params_list, warm=None):
+        if (warm is not None) != warm_start:
+            raise ValueError(f"this runner was built with warm_start="
+                             f"{warm_start}; pass warm accordingly")
+        lanes = [runner(sgs, lay, p, None if warm is None else warm[i])
+                 for i, p in enumerate(params_list)]
+        res, steps, msgs, sweeps, syncs = zip(*lanes)
+        return (torch.stack(res), np.asarray(steps, np.int64),
+                np.asarray(msgs, np.int64), np.stack(sweeps), sum(syncs))
+
+    return batched
 
 
 # --------------------------------------------------------------------------- #

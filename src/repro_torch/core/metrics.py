@@ -61,11 +61,21 @@ class ExecutionStats:
     active_parts_per_step: list = dataclasses.field(default_factory=list)
     wall_time: float = 0.0             # execution, ending in a device sync
     compile_time: float = 0.0          # runner build on a session cache miss
+    evicted_runners: int = 0           # runner-cache evictions this query's
+                                       # runner admission forced (sessions)
     processed_edges: int = 0
     edge_backend: str = "coo"
     backend_flops: int = 0             # semiring ops the backend issued
     tile_density: float = 0.0          # non-identity fraction of real tiles
     host_syncs: int = 0                # device->host reads the loop made
+    queue_time: float = 0.0            # admission-queue dwell before launch
+                                       # (serving/batcher.py fills it in)
+    batch_size: int = 1                # lanes of the micro-batched launch
+                                       # that served this query (1 = alone)
+    result_cache_tier: str = ""        # '' when no result cache was asked;
+                                       # 'l1'/'l2' when the converged result
+                                       # was served without a launch, 'miss'
+                                       # when it ran and was stored
     partition_edge_counts: list = dataclasses.field(default_factory=list)
     partition_flops: list = dataclasses.field(default_factory=list)
     partition_sweep_time: list = dataclasses.field(default_factory=list)

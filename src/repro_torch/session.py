@@ -42,8 +42,14 @@ graph event and each query's flops-apportioned per-partition sweep time,
 and ``rebalance()`` migrates edges off overloaded partitions through the
 remap chain of ``compact()`` (the JAX package's ``repro.partition``).
 
-``query_batch`` raises ``NotImplementedError`` naming the ROADMAP item that
-will port it. Only the simulator backend exists; a ``mesh`` is refused.
+Serving (the JAX package's ``repro.serving``): ``query_batch`` serves a
+list of same-structure queries of one program in one runner call, each
+lane exactly what ``query`` would return; ``runner_cache=`` shares a
+``RunnerCache`` across sessions (a ``SessionPool``), ``result_cache=``
+attaches a tiered ``ResultCache`` that answers repeated queries with no
+launch, ``tenant=`` names the session in both; ``close()`` releases the
+resident graph and the session's pins. Only the simulator backend exists;
+a ``mesh`` is refused.
 """
 from __future__ import annotations
 
@@ -72,6 +78,13 @@ from repro_torch.partition.monitor import LoadMonitor
 from repro_torch.partition.rebalance import (RebalanceStats,
                                              execute_rebalance,
                                              plan_rebalance)
+from repro_torch.serving.result_cache import ResultCache, result_key
+from repro_torch.serving.runner_cache import (RunnerCache, RunnerEntry,
+                                              canonical_params,
+                                              params_fingerprint,
+                                              params_leaves,
+                                              params_struct_key, program_key,
+                                              runner_nbytes)
 from repro_torch.stream.buffer import DeltaBuffer
 from repro_torch.stream.delta import CompactStats, DeltaStats, EdgeDelta
 from repro_torch.stream.delta import compact as _compact_pg
@@ -106,17 +119,29 @@ class SessionStats:
     """Serving-side counters across the session lifetime."""
     queries: int = 0
     cache_hits: int = 0
-    runner_builds: int = 0         # runner-cache misses
+    runner_builds: int = 0         # runner-cache misses (the reference's
+                                   # cache_misses)
     warm_queries: int = 0          # queries served from a previous result
     flushes: int = 0               # delta batches applied to the host graph
     compactions: int = 0
     uploads: int = 0               # device-graph uploads
     compile_time_total: float = 0.0
-    cache_evictions_lru: int = 0   # runners dropped by max_runners
+    cache_evictions_lru: int = 0   # runners dropped by the max_runners /
+                                   # max_runner_bytes bounds
     cache_evictions_shape: int = 0  # runners dropped by a bucket change
-    warm_evictions: int = 0        # warm results dropped by max_warm_entries
+    warm_evictions: int = 0        # warm results dropped by
+                                   # max_warm_entries / max_warm_bytes
+    runner_cache_bytes: int = 0    # estimated device bytes of the runner
+                                   # cache (runner_nbytes per entry)
     warm_cache_bytes: int = 0      # host bytes of the warm-result memory
     warm_remaps_applied: int = 0   # deferred warm-block remaps replayed
+    device_launches: int = 0       # runner calls; a result-cache hit
+                                   # serves with none
+    batches: int = 0               # micro-batched runner calls (query_batch)
+    batched_queries: int = 0       # queries served inside those calls
+    result_cache_l1_hits: int = 0  # converged results served from the
+    result_cache_l2_hits: int = 0  # in-process / external tier
+    result_cache_misses: int = 0   # result-cache consultations that ran
     host_syncs: int = 0            # device->host reads across all queries
     rebalances: int = 0            # online migrations executed
     load_imbalance: float = 1.0    # the LoadMonitor's latest blended gauge
@@ -148,67 +173,6 @@ class _SessionBuffer(DeltaBuffer):
 
 
 # --------------------------------------------------------------------------- #
-# cache keys
-# --------------------------------------------------------------------------- #
-def program_key(program: VertexProgram):
-    """Hashable identity of a program's static structure: its type plus every
-    dataclass field. Programs with unhashable fields fall back to identity."""
-    try:
-        fields = tuple((f.name, getattr(program, f.name))
-                       for f in dataclasses.fields(program))
-        hash(fields)
-        return (type(program), fields)
-    except TypeError:
-        return (type(program), id(program))
-
-
-def _leaves(params, path=()):
-    if params is None:
-        return
-    if isinstance(params, dict):
-        for k in sorted(params):
-            yield from _leaves(params[k], path + (k,))
-    elif isinstance(params, (list, tuple)):
-        for i, v in enumerate(params):
-            yield from _leaves(v, path + (i,))
-    else:
-        yield path, params
-
-
-def _leaf_spec(x) -> tuple:
-    """(shape, canonical dtype) of a params leaf: 0-d numbers of any width
-    normalize to int32 / float32 / bool, as the reference's
-    ``canonical_params`` does, so caller habits never split the cache."""
-    a = x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
-        else np.asarray(x)
-    if a.ndim == 0:
-        if a.dtype.kind == "b":
-            return (), "bool", np.asarray(bool(a))
-        if a.dtype.kind in "iu":
-            v = int(a)
-            wide = not (-2**31 <= v < 2**31)
-            dt = np.int64 if wide else np.int32
-            return (), np.dtype(dt).name, np.asarray(v, dt)
-        if a.dtype.kind == "f":
-            return (), "float32", np.asarray(float(a), np.float32)
-    return a.shape, a.dtype.name, a
-
-
-def params_struct_key(params) -> tuple:
-    """Structure-only key (paths + leaf shape/dtype)."""
-    return tuple((p,) + _leaf_spec(v)[:2] for p, v in _leaves(params))
-
-
-def params_fingerprint(params) -> tuple:
-    """Value-level key: warm results are reusable only for the same query."""
-    out = []
-    for p, v in _leaves(params):
-        shape, dt, a = _leaf_spec(v)
-        out.append((p, shape, dt, np.ascontiguousarray(a).tobytes()))
-    return tuple(out)
-
-
-# --------------------------------------------------------------------------- #
 class GraphSession:
     """Resident-graph query session over one ``PartitionedGraph`` on one
     device (``device=None``: the CUDA card; ``device="cpu"``: the plain
@@ -222,7 +186,21 @@ class GraphSession:
     a mutable one builds runners on the policy's bucketed slot capacity.
     ``shape_policy`` governs the padded shapes as in the reference.
     ``max_runners`` / ``max_warm_entries`` bound the runner cache and the
-    warm-result memory with LRU eviction (``None`` = unbounded).
+    warm-result memory with LRU eviction (``None`` = unbounded);
+    ``max_runner_bytes`` / ``max_warm_bytes`` bound the same caches by
+    estimated bytes per entry (``runner_nbytes`` per runner, host bytes per
+    warm result).
+
+    Serving: ``runner_cache=`` injects a shared ``RunnerCache`` (how a
+    ``SessionPool`` makes same-bucket tenants reuse one runner; the
+    session's own bounds are then ignored for the shared ones),
+    ``result_cache=`` attaches a tiered ``ResultCache`` that ``query``
+    consults before launching anything, ``tenant=`` names the session in
+    both caches' keys and pins. ``close()`` (or the context-manager form)
+    drops the resident graph and releases every pin; a closed session
+    raises ``RuntimeError`` on use. The reference's ``debug_sanitize``
+    (its JAX retrace guard) has no counterpart: a PyTorch runner does not
+    trace.
 
     ``rebalance="auto"`` attaches a ``LoadMonitor`` (``monitor=`` to
     configure it) whose hysteresis gauge, read at every flush, migrates
@@ -240,6 +218,11 @@ class GraphSession:
                  shape_policy: Optional[ShapePolicy] = None,
                  max_runners: Optional[int] = 32,
                  max_warm_entries: Optional[int] = 64,
+                 max_runner_bytes: Optional[int] = None,
+                 max_warm_bytes: Optional[int] = None,
+                 runner_cache: Optional[RunnerCache] = None,
+                 result_cache: Optional[ResultCache] = None,
+                 tenant: Optional[str] = None,
                  rebalance: str = "off",
                  monitor: Optional[LoadMonitor] = None,
                  rebalance_target: float = 1.05,
@@ -253,8 +236,8 @@ class GraphSession:
         self.ctx = ctx
         self.cfg = self._normalize_cfg(cfg or EngineConfig())
         self.shape_policy = self._resolve_policy(shape_policy, pad_multiple)
-        self.max_runners = max_runners
         self.max_warm_entries = max_warm_entries
+        self.max_warm_bytes = max_warm_bytes
         if rebalance not in ("off", "auto", "manual"):
             raise ValueError(
                 f"rebalance={rebalance!r}: expected 'off', 'manual' or "
@@ -265,6 +248,11 @@ class GraphSession:
             LoadMonitor() if rebalance != "off" else None)
         self._rebalancing = False      # the auto trigger fires inside
                                        # _on_flush, and rebalance() flushes
+        self.tenant = f"session-{id(self):x}" if tenant is None else tenant
+        self._runner_cache = runner_cache if runner_cache is not None \
+            else RunnerCache(max_runners, max_runner_bytes)
+        self.result_cache = result_cache
+        self._closed = False
         self.stats = SessionStats()
         self.buffer = None if ctx is None else _SessionBuffer(
             self, pg, ctx, max_edges=max_buffer_edges,
@@ -272,7 +260,6 @@ class GraphSession:
         self._device_graph = None
         self._device_version = -1
         self._host_version = 0         # bumped by every applied flush/compact
-        self._runners: OrderedDict = OrderedDict()
         self._warm: OrderedDict = OrderedDict()
         self._identity_blocks: dict = {}
         self._auto_pin: dict = {}      # (shape, tiles, windows keys) ->
@@ -371,9 +358,71 @@ class GraphSession:
         return (pg.n_parts, pg.v_max, pg.e_max, self.slot_capacity,
                 pg.vlabel is not None)
 
+    @property
+    def _runners(self):
+        """The runner entries (key -> ``RunnerEntry``, LRU order); on a
+        pool-shared cache the whole shared map. Mutate through
+        ``self._runner_cache``."""
+        return self._runner_cache.entries
+
+    # the bounds live on the (possibly shared) cache; setting one re-bounds
+    # the cache this session uses, applied on the next insert
+    @property
+    def max_runners(self) -> Optional[int]:
+        return self._runner_cache.max_entries
+
+    @max_runners.setter
+    def max_runners(self, v: Optional[int]) -> None:
+        self._runner_cache.max_entries = v
+
+    @property
+    def max_runner_bytes(self) -> Optional[int]:
+        return self._runner_cache.max_bytes
+
+    @max_runner_bytes.setter
+    def max_runner_bytes(self, v: Optional[int]) -> None:
+        self._runner_cache.max_bytes = v
+
+    # ------------------------------------------------------------------ #
+    # lifecycle
+    # ------------------------------------------------------------------ #
+    @property
+    def closed(self) -> bool:
+        return self._closed
+
+    def close(self) -> None:
+        """Release what the session holds: the resident device graph, its
+        pins in the (possibly shared) runner cache, the warm memory,
+        identity blocks and program pins. Idempotent; any later query or
+        mutation raises ``RuntimeError``."""
+        if self._closed:
+            return
+        self._closed = True
+        self._runner_cache.release(self.tenant)
+        self._warm.clear()
+        self._remap_log.clear()
+        self._identity_blocks.clear()
+        self._keepalive.clear()
+        self._device_graph = None
+        self._device_version = -1
+        self._sync_warm_bytes()
+        self._sync_runner_bytes()
+
+    def __enter__(self) -> "GraphSession":
+        self._check_open()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def _check_open(self) -> None:
+        if self._closed:
+            raise RuntimeError("GraphSession is closed")
+
     def device_graph(self):
         """The resident stacked DeviceSubgraph, uploaded again only when
         the host graph changed since the last upload."""
+        self._check_open()
         if self._device_graph is None \
                 or self._device_version != self._host_version:
             self._device_graph = None      # free the old copy first
@@ -386,7 +435,7 @@ class GraphSession:
     # query path
     # ------------------------------------------------------------------ #
     def query(self, program: VertexProgram, params=None, *, warm="auto",
-              cfg: Optional[EngineConfig] = None):
+              cfg: Optional[EngineConfig] = None, use_result_cache=True):
         """Run ``program`` over the resident graph; returns
         ``(results, ExecutionStats)`` with numpy results in the
         [P, v_max(, K)] local layout (``self.pg.collect`` maps them to
@@ -396,17 +445,201 @@ class GraphSession:
         (program, params) pair's last converged result; ``False`` forces a
         cold start; ``True`` requires a warm start. ``cfg`` overrides the
         session config for this query; ``cfg.trace=True`` delegates to the
-        uncached ``run_sim``. Buffered updates are flushed first."""
+        uncached ``run_sim``. With a ``result_cache`` attached, the
+        converged result of this exact (graph version, program, params,
+        cfg) query may be served from the cache with no launch
+        (``ExecutionStats.result_cache_tier`` names the tier);
+        ``use_result_cache=False`` forces a run. Buffered updates are
+        flushed first."""
+        self._check_open()
         if self.buffer is not None and len(self.buffer):
             self.flush()
         cfg = self._normalize_cfg(cfg or self.cfg)
+        params_c = canonical_params(params)
         pkey = program_key(program)
         if isinstance(pkey[1], int):
             self._keepalive[pkey[1]] = program
+        entry, wkey, use_warm = self._warm_lookup(program, pkey, params_c,
+                                                  warm)
+        if cfg.trace:
+            init = entry.global_values if use_warm else None
+            return run_sim(program, self.pg, params, cfg, init_state=init,
+                           device=self.device)
 
+        self.stats.queries += 1
+        eb, cfg = normalize_edge_backend(program, cfg)
+        use_rc = use_result_cache and self.result_cache is not None
+        rkey = None
+        if use_rc:
+            rkey = result_key(self.tenant, self._host_version, program,
+                              params_c, cfg)
+            t0 = time.perf_counter()
+            val, tier = self.result_cache.get(rkey)
+            if val is not None:
+                self._bill_hit(tier)
+                return np.asarray(val["results"]), ExecutionStats(
+                    supersteps=int(val["supersteps"]),
+                    wall_time=time.perf_counter() - t0,
+                    edge_backend=str(val.get("edge_backend", eb)),
+                    result_cache_tier=tier)
+            self.stats.result_cache_misses += 1
+
+        warm_in = bool(program.monotone)
+        sgs = self.device_graph()
+        lay = self._layout_arg(program, eb, cfg) if eb != "coo" else None
+        wblk = self._warm_arg(program, entry, use_warm) if warm_in else None
+        runner, compile_time, evicted = self._get_runner(
+            program, pkey, params_c, cfg, warm_in, eb)
+        t0 = time.perf_counter()
+        res, steps, msgs, sweeps, syncs = runner(sgs, lay, params, wblk)
+        self.stats.device_launches += 1
+        res = res.cpu().numpy()
+        wall = time.perf_counter() - t0
+        if use_warm:
+            self.stats.warm_queries += 1
+        self.stats.host_syncs += syncs + 1
+        stats = self._execution_stats(program, cfg, steps, msgs, sweeps,
+                                      wall, compile_time, eb)
+        stats.host_syncs = syncs + 1
+        stats.evicted_runners = evicted
+        if program.monotone:
+            self._remember(program, wkey, res)
+        if use_rc:
+            stats.result_cache_tier = "miss"
+            self.result_cache.put(rkey, dict(
+                results=res, supersteps=stats.supersteps, edge_backend=eb))
+        return res, stats
+
+    def query_batch(self, program: VertexProgram, params_list, *,
+                    warm="auto", cfg: Optional[EngineConfig] = None,
+                    use_result_cache=True):
+        """Serve ``len(params_list)`` queries of one program in ONE runner
+        call (the entry point ``serving.MicroBatcher`` coalesces traffic
+        into). Returns ``[(results, ExecutionStats), ...]`` in input order,
+        each exactly what ``query`` would return: the batched runner runs
+        each lane's BSP loop through the singleton superstep
+        (``make_sim_runner(batch=True)``).
+
+        Every lane must share the program and the param structure
+        (``ValueError`` otherwise). The runner is built and keyed for the
+        lane count padded up to the next power of two, so the cache holds
+        O(log max_batch) batched runners per program; the pad lanes, whose
+        outputs the reference discards, are not run. Leafless lanes of a
+        non-monotone program are one computation: one singleton query
+        answers them all. Warm starts and the result cache work per lane;
+        the result cache short-circuits only when EVERY lane hits (a
+        partial hit runs the whole batch)."""
+        self._check_open()
+        if self.buffer is not None and len(self.buffer):
+            self.flush()
+        B = len(params_list)
+        if B == 0:
+            return []
+        cfg = self._normalize_cfg(cfg or self.cfg)
+        if cfg.trace:
+            raise ValueError("query_batch does not support cfg.trace — "
+                             "trace one query at a time")
+        params_cs = [canonical_params(p) for p in params_list]
+        skey = params_struct_key(params_cs[0])
+        if any(params_struct_key(pc) != skey for pc in params_cs[1:]):
+            raise ValueError(
+                "query_batch needs an identical param structure on every "
+                "lane (same tree, leaf shapes and dtypes); mismatched "
+                "requests must go through query()")
+        if B == 1 or (not params_leaves(params_cs[0])
+                      and not program.monotone):
+            # one lane, or leafless lanes (nothing differs between them):
+            # one singleton query answers every lane
+            res, st = self.query(program, params_list[0], warm=warm,
+                                 cfg=cfg, use_result_cache=use_result_cache)
+            if B == 1:
+                return [(res, st)]
+            return [(res, dataclasses.replace(st, batch_size=B))
+                    for _ in range(B)]
+
+        pkey = program_key(program)
+        if isinstance(pkey[1], int):
+            self._keepalive[pkey[1]] = program
+        eb, cfg = normalize_edge_backend(program, cfg)
+        use_rc = use_result_cache and self.result_cache is not None
+        rkeys = None
+        if use_rc:
+            rkeys = [result_key(self.tenant, self._host_version, program, pc,
+                                cfg) for pc in params_cs]
+            if all(self.result_cache.peek(k) is not None for k in rkeys):
+                out = []
+                for k in rkeys:
+                    t0 = time.perf_counter()
+                    val, tier = self.result_cache.get(k)
+                    self._bill_hit(tier)
+                    out.append((np.asarray(val["results"]), ExecutionStats(
+                        supersteps=int(val["supersteps"]),
+                        wall_time=time.perf_counter() - t0,
+                        edge_backend=str(val.get("edge_backend", eb)),
+                        result_cache_tier=tier, batch_size=B)))
+                self.stats.queries += B
+                return out
+            self.stats.result_cache_misses += B
+
+        lanes = [self._warm_lookup(program, pkey, pc, warm)
+                 for pc in params_cs]
+        self.stats.queries += B
+        self.stats.batches += 1
+        self.stats.batched_queries += B
+        warm_in = bool(program.monotone)
+        Bp = 1 << (B - 1).bit_length()           # power-of-2 lane bucket
+        sgs = self.device_graph()
+        lay = self._layout_arg(program, eb, cfg) if eb != "coo" else None
+        wstack = None
+        if warm_in:
+            wstack = torch.stack([self._warm_arg(program, e, u)
+                                  for e, _, u in lanes])
+        runner, compile_time, evicted = self._get_runner(
+            program, pkey, params_cs[0], cfg, warm_in, eb, batch=Bp)
+        t0 = time.perf_counter()
+        res_b, steps_b, msgs_b, sweeps_b, syncs = runner(
+            sgs, lay, list(params_list), wstack)
+        self.stats.device_launches += 1
+        res_b = res_b.cpu().numpy()
+        wall = time.perf_counter() - t0
+        self.stats.host_syncs += syncs + 1
+
+        results = []
+        for i, (_, wkey, use_warm) in enumerate(lanes):
+            res = res_b[i]
+            st = self._execution_stats(program, cfg, int(steps_b[i]),
+                                       int(msgs_b[i]), sweeps_b[i], wall,
+                                       compile_time, eb)
+            st.host_syncs = syncs + 1
+            st.evicted_runners = evicted
+            st.batch_size = B
+            if use_warm:
+                self.stats.warm_queries += 1
+            if program.monotone:
+                self._remember(program, wkey, res)
+            if use_rc:
+                st.result_cache_tier = "miss"
+                self.result_cache.put(rkeys[i], dict(
+                    results=res, supersteps=st.supersteps, edge_backend=eb))
+            results.append((res, st))
+        return results
+
+    def result_key_for(self, program: VertexProgram, params=None,
+                       cfg: Optional[EngineConfig] = None) -> str:
+        """The result-cache key ``query`` would consult for this request
+        now (tenant, current graph version, normalized config): the
+        batcher's fast path peeks it before queueing."""
+        cfg = self._normalize_cfg(cfg or self.cfg)
+        _, cfg = normalize_edge_backend(program, cfg)
+        return result_key(self.tenant, self._host_version, program,
+                          canonical_params(params), cfg)
+
+    def _warm_lookup(self, program, pkey, params_c, warm) -> tuple:
+        """``(entry, wkey, use_warm)`` of one query under the ``warm``
+        rules of ``query``."""
         entry = wkey = None
         if program.monotone:
-            wkey = (pkey, params_fingerprint(params))
+            wkey = (pkey, params_fingerprint(params_c))
             entry = self._warm.get(wkey)
             if entry is not None:
                 self._warm.move_to_end(wkey)
@@ -421,34 +654,13 @@ class GraphSession:
                     "warm=True but no previous converged result is cached "
                     "for this (program, params) query; use warm='auto' to "
                     "fall back to cold")
-        use_warm = entry is not None and warm in ("auto", True)
+        return entry, wkey, entry is not None and warm in ("auto", True)
 
-        if cfg.trace:
-            init = entry.global_values if use_warm else None
-            return run_sim(program, self.pg, params, cfg, init_state=init,
-                           device=self.device)
-
-        self.stats.queries += 1
-        eb, cfg = normalize_edge_backend(program, cfg)
-        warm_in = bool(program.monotone)
-        sgs = self.device_graph()
-        lay = self._layout_arg(program, eb, cfg) if eb != "coo" else None
-        wblk = self._warm_arg(program, entry, use_warm) if warm_in else None
-        runner, compile_time = self._get_runner(program, pkey, params, cfg,
-                                                warm_in, eb)
-        t0 = time.perf_counter()
-        res, steps, msgs, sweeps, syncs = runner(sgs, lay, params, wblk)
-        res = res.cpu().numpy()
-        wall = time.perf_counter() - t0
-        if use_warm:
-            self.stats.warm_queries += 1
-        self.stats.host_syncs += syncs + 1
-        stats = self._execution_stats(program, cfg, steps, msgs, sweeps,
-                                      wall, compile_time, eb)
-        stats.host_syncs = syncs + 1
-        if program.monotone:
-            self._remember(program, wkey, res)
-        return res, stats
+    def _bill_hit(self, tier: str) -> None:
+        if tier == "l1":
+            self.stats.result_cache_l1_hits += 1
+        else:
+            self.stats.result_cache_l2_hits += 1
 
     def _resolve_assignment(self, program, cfg) -> tuple:
         """The per-partition backends an ``'auto'`` query runs with, pinned
@@ -536,33 +748,60 @@ class GraphSession:
         self.stats.warm_cache_bytes = sum(e.nbytes
                                           for e in self._warm.values())
 
-    def _get_runner(self, program, pkey, params, cfg, warm_in, eb):
+    def _get_runner(self, program, pkey, params_c, cfg, warm_in, eb,
+                    batch=0):
         """Cached runner for this (program, param structure, config,
-        shapes); returns ``(runner, build_seconds)`` (0.0 on a hit)."""
+        shapes); returns ``(runner, build_seconds, n_lru_evictions)``
+        (0.0 seconds on a hit). The cache may be shared (``SessionPool``):
+        keys carry shapes and never the tenant, so a same-bucket lookup by
+        another tenant hits the same entry. ``batch`` (``query_batch``'s
+        padded lane count) joins the key, so a batched runner never
+        collides with a singleton one."""
         full_shape = (self.shape_key, self._layout_key(program, eb, cfg))
-        key = (pkey, params_struct_key(params), cfg, full_shape, warm_in)
-        hit = self._runners.get(key)
+        key = (pkey, params_struct_key(params_c), cfg, full_shape, warm_in)
+        if batch:
+            key = key + (("batch", batch),)
+        hit = self._runner_cache.lookup(key, self.tenant)
         if hit is not None:
-            self._runners.move_to_end(key)
             self.stats.cache_hits += 1
-            return hit, 0.0
+            return hit.compiled, 0.0, 0
         self.stats.runner_builds += 1
         t0 = time.perf_counter()
         asg = full_shape[1][1] if eb == "auto" else None
         runner = make_sim_runner(program, cfg, self.slot_capacity,
-                                 warm_start=warm_in, partition_backends=asg)
+                                 warm_start=warm_in, batch=bool(batch),
+                                 partition_backends=asg)
         build_time = time.perf_counter() - t0
         self.stats.compile_time_total += build_time
-        self._runners[key] = runner
-        self.stats.cache_evictions_lru += self._evict_lru(
-            self._runners, self.max_runners)
-        return runner, build_time
+        entry = RunnerEntry(
+            compiled=runner, shape_key=full_shape,
+            program=type(program).__name__, compile_time=build_time,
+            nbytes=runner_nbytes(program, self.pg.n_parts, self.pg.v_max,
+                                 self.slot_capacity, max(batch, 1)))
+        evicted = self._runner_cache.insert(key, entry, self.tenant)
+        if evicted:
+            self.stats.cache_evictions_lru += evicted
+            self._prune_keepalive()
+        self._sync_runner_bytes()
+        return runner, build_time, evicted
 
-    def _evict_lru(self, cache: OrderedDict, bound: Optional[int]) -> int:
+    def _sync_runner_bytes(self) -> None:
+        self.stats.runner_cache_bytes = self._runner_cache.total_bytes
+
+    def _evict_lru(self, cache: OrderedDict, bound: Optional[int],
+                   max_bytes: Optional[int] = None) -> int:
+        """Pop least-recently-used entries until ``cache`` fits ``bound``
+        and its bytes fit ``max_bytes`` (the most recent entry always
+        stays); returns how many went."""
         evicted = 0
         if bound is not None:
             while len(cache) > bound:
                 cache.popitem(last=False)
+                evicted += 1
+        if max_bytes is not None:
+            total = sum(e.nbytes for e in cache.values())
+            while total > max_bytes and len(cache) > 1:
+                total -= cache.popitem(last=False)[1].nbytes
                 evicted += 1
         if evicted:
             self._prune_keepalive()
@@ -648,8 +887,8 @@ class GraphSession:
             device_epoch=self._warm_epoch,
             polarity=program.warm_under)
         self._warm.move_to_end(wkey)
-        self.stats.warm_evictions += self._evict_lru(self._warm,
-                                                     self.max_warm_entries)
+        self.stats.warm_evictions += self._evict_lru(
+            self._warm, self.max_warm_entries, self.max_warm_bytes)
         self._prune_remap_log()
         self._sync_warm_bytes()
 
@@ -657,6 +896,7 @@ class GraphSession:
     # streaming lifecycle
     # ------------------------------------------------------------------ #
     def _require_buffer(self, what: str) -> DeltaBuffer:
+        self._check_open()
         if self.buffer is None:
             raise ValueError(
                 f"{what} needs a StreamContext (this session was opened "
@@ -792,8 +1032,8 @@ class GraphSession:
         lay = self.pg.edge_layouts
         have_lay = lay is not None and lay.matches(self.pg)
 
-        def stale(full_shape) -> bool:
-            base, lkey = full_shape
+        def stale(e: RunnerEntry) -> bool:
+            base, lkey = e.shape_key
             if base != cur:
                 return True
             if lkey is None:
@@ -813,18 +1053,23 @@ class GraphSession:
                 else "pallas_windows"
             return lkey != lay.shape_key(backend)
 
-        dead = [k for k in self._runners if stale(k[3])]
-        for k in dead:
-            del self._runners[k]
-        self.stats.cache_evictions_shape += len(dead)
+        # on a shared cache this releases the session's pins: a tenant
+        # leaving a bucket never invalidates its neighbours' runners
+        self.stats.cache_evictions_shape += self._runner_cache.release_stale(
+            self.tenant, stale)
+        self._sync_runner_bytes()
         self._prune_keepalive()
         self._identity_blocks = {
             k: v for k, v in self._identity_blocks.items()
             if k[:2] == (self.pg.n_parts, self.pg.v_max)}
 
     # ------------------------------------------------------------------ #
-    # not ported yet
+    # introspection
     # ------------------------------------------------------------------ #
-    def query_batch(self, program, params_list, **kwargs):
-        raise NotImplementedError(
-            "query_batch waits for ROADMAP Queue 1, serving/batching")
+    def cache_info(self) -> list:
+        """Snapshot of the runner cache in LRU order (next to be evicted
+        first): per entry the program type, the (padded shape, layout) key
+        it was built for, its hits, its build time, its estimated device
+        bytes (what ``max_runner_bytes`` evicts against) and the tenants
+        pinning it (more than one on a pool-shared cache)."""
+        return self._runner_cache.info()

@@ -391,3 +391,38 @@ def test_measured_calibration_and_auto_on_card(cuda, tmp_path, monkeypatch):
     got, gst = sess.query(SSSP(), {"source": 1}, warm=False, cfg=cfg)
     np.testing.assert_array_equal(got, want)
     assert len(gst.partition_edge_backends) == pg.n_parts
+
+
+@pytest.mark.parametrize("eb", ["pallas_tiles", "pallas_windows"])
+def test_query_batch_on_kernels_equals_singletons(cuda, eb):
+    """Each lane of a batch on a kernel backend equals its singleton query
+    bit for bit (PageRank within 1e-5), and the batch launches the kernel
+    exactly as often as its singletons together; a result-cache all-hit
+    batch launches nothing."""
+    from repro_torch.serving import ResultCache
+    g = kronecker_graph(11, seed=7, weighted=True)
+    sess = GraphSession.from_graph(g, 8, cfg=EngineConfig(edge_backend=eb))
+    counter = tb.bsp_spmv if eb == "pallas_tiles" \
+        else ts.segment_combine_windowed
+    plist = [{"source": s} for s in (1, 5, 40)]
+    before = counter.launches
+    singles = [sess.query(SSSP(), p, warm=False) for p in plist]
+    alone = counter.launches - before
+    before = counter.launches
+    out = sess.query_batch(SSSP(), plist, warm=False)
+    assert counter.launches - before == alone > 0
+    for (a, ast), (b, bst) in zip(singles, out):
+        np.testing.assert_array_equal(b, a)
+        assert (bst.supersteps, bst.total_messages, bst.partition_sweeps) \
+            == (ast.supersteps, ast.total_messages, ast.partition_sweeps)
+        assert bst.batch_size == 3
+    pr = {"n_vertices": g.n_vertices}
+    want, _ = sess.query(PageRank(), pr)
+    for got, _ in sess.query_batch(PageRank(), [pr, pr]):
+        assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+    sess.result_cache = ResultCache()
+    sess.query_batch(SSSP(), plist, warm=False)
+    before = counter.launches
+    hits = sess.query_batch(SSSP(), plist, warm=False)
+    assert counter.launches == before
+    assert all(st.result_cache_tier == "l1" for _, st in hits)

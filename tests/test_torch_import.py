@@ -18,6 +18,8 @@ def test_import_leaves_jax_and_reference_out():
     code = ("import sys, repro_torch, repro_torch.session, "
             "repro_torch.interop, repro_torch.kernels.ops, repro_torch.algos,"
             " repro_torch.stream, repro_torch.partition, "
+            "repro_torch.serving, repro_torch.serving.pool, "
+            "repro_torch.serving.batcher, "
             "repro_torch.core.autotune, chip_smoke;"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
@@ -79,7 +81,8 @@ def test_unported_paths_raise_not_implemented(tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         run_sim(SSSP(), pg, {"source": 0}, EngineConfig(backend="shard_map"),
                 device="cpu")
-    # ported since: the streaming lifecycle, 'auto', EBV and rebalance
+    # ported since: the streaming lifecycle, 'auto', EBV, rebalance and
+    # serving (query_batch); only the multi-GPU backend is refused
     run_sim(SSSP(), pg, {"source": 0}, EngineConfig(edge_backend="auto"),
             device="cpu")
     sess = GraphSession.from_graph(g, 2, "ebv", device="cpu",
@@ -88,10 +91,38 @@ def test_unported_paths_raise_not_implemented(tmp_path, monkeypatch):
     assert sess.flush().n_added == 1 and sess.compact().remap is not None
     sess.query(SSSP(), {"source": 0}, cfg=EngineConfig(edge_backend="auto"))
     sess.rebalance()
-    for call in (lambda: sess.query_batch(SSSP(), [{"source": 0}]),
-                 lambda: GraphSession(pg, mesh=object(), device="cpu")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    out = sess.query_batch(SSSP(), [{"source": 0}, {"source": 1}])
+    assert [st.batch_size for _, st in out] == [2, 2]
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        GraphSession(pg, mesh=object(), device="cpu")
+
+
+def test_serving_loads_no_jax():
+    """``repro_torch.serving`` and a ``SessionPool`` / ``MicroBatcher``
+    round (a result cache, a batched launch, a fast-path hit) load no
+    ``jax`` and no module of the JAX package."""
+    code = ("import sys, numpy as np\n"
+            "import repro_torch.serving as S\n"
+            "from repro_torch.algos import SSSP\n"
+            "from repro_torch.graphgen import powerlaw_graph\n"
+            "g = powerlaw_graph(300, seed=1, weighted=True).as_undirected()\n"
+            "rc = S.ResultCache(store=S.DictStore())\n"
+            "pool = S.SessionPool(result_cache=rc, device='cpu')\n"
+            "pool.open('a', g, n_parts=3)\n"
+            "bat = S.MicroBatcher(pool, S.BatchPolicy(max_batch=2))\n"
+            "fs = [bat.submit(SSSP(), {'source': s}, tenant='a')"
+            " for s in (0, 1)]\n"
+            "assert all(f.result(timeout=60)[1].batch_size == 2 for f in fs)\n"
+            "f = bat.submit(SSSP(), {'source': 0}, tenant='a')\n"
+            "assert f.done() and bat.stats.fast_path_hits == 1\n"
+            "pool.close_all()\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]\n"
+            "print(bad); assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr + out.stdout
 
 
 def test_ebv_auto_and_rebalance_load_no_jax(tmp_path):
