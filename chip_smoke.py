@@ -115,13 +115,46 @@ Phases (the run exits non-zero if any of them fails):
      version on the device lists the phase ran on. It prints each batch's
      host time beside its singletons' and the all-hit batch's time.
 
+ 10. The ``shard_map`` backend (``backend='shard_map'`` over
+     ``torch.distributed``). 10a, one process, before the earlier sessions
+     are dropped: the S = 2 edge-sharded geometry of phase 3's kron-20
+     session (windows) and phase 4's grid session (tiles); each kernel on
+     every (partition, shard) device list against its plain version (min
+     exact, sums within 1e-5 of |terms|), min_plus and plus_times, and the
+     shards' products reduced (min, or summed) against each partition's
+     unsharded product. 10b, after phase 9: 4 processes on the one card,
+     spawned by ``torch.multiprocessing``, one gloo job over CUDA tensors
+     (the collectives stage through the host); each rank loads the
+     parent's host arrays (the parent builds kron-20 / cdbh at P = 4 and
+     P = 2 from phase 3's graph and grid / range at P = 2, and saves them
+     under ``build/shard``), then runs through ``repro_torch.core.run``
+     on a ``(4,)`` mesh SSSP from phase 3's two sources, CC and PageRank
+     on kron-20 P = 4, on ``pallas_windows`` and on ``coo``, and on a
+     ``(2, 2)`` sub x edge mesh SSSP, CC and PageRank on kron-20 P = 2
+     (windows) and CC on the grid P = 2 (tiles). Every rank's results must
+     equal a one-process ``run_sim`` of the same partitioned graph on the
+     card (bit for bit, PageRank within PR_RTOL; supersteps, messages and
+     per-partition sweeps equal for every program), and each P = 4
+     windows run its ``coo`` twin the same way; each rank's kernel
+     counters (set to 0 before each query) must be positive, each kernel
+     must equal its plain version on the rank's own list (the query's
+     program, min_plus and plus_times), and every exit code must be 0.
+     10c: a world of one over NCCL: ``GraphSession(mesh=)`` on kron-14 /
+     cdbh / P = 1 on both kernel backends, a query, an insert batch with
+     ``flush`` and a warm query, against the simulator session (counters
+     set to 0 before each query). It prints per query the
+     wall time, supersteps, host syncs and collective calls, the launches
+     per kernel (``launches_shard``), the peak device memory per rank and
+     the phase's seconds.
+
 A small-graph check holds the three programs against independent numpy
 oracles on all three backends. The kernel JSON line gives each kernel's
 launches per phase (``launches`` = phases 3-4, ``launches_streaming`` =
 phase 6, ``launches_algos`` = phase 7, ``launches_auto`` = phase 8's
 ``'auto'`` runs: its ``'auto'`` queries and the forced mix, without the
 uniform queries it compares them with; ``launches_serving`` = phase 9's
-serving calls) and its K = 16 rows (``k16``). The
+serving calls; ``launches_shard`` = phase 10b's queries over every rank
+and phase 10c's sharded sessions) and its K = 16 rows (``k16``). The
 line before the last is the card's name and power limit from
 ``nvidia-smi``; the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -130,6 +163,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import os
 import subprocess
 import sys
 import time
@@ -2805,6 +2839,492 @@ def serving_path(sm: Smoke, log: list, errs: dict, sess, g20) -> dict:
     return dict(launches=sr.launches, peak=peak, kron20=k20, pool=pool)
 
 
+# --------------------------------------------------------------------------- #
+# phase 10: the shard_map backend
+# --------------------------------------------------------------------------- #
+SHARD_S = 2                   # edge shards of phase 10a's lists
+SHARD_WORLD = 4               # phase 10b's processes, all on the one card
+SHARD_TIMEOUT_S = 600         # phase 10b's ranks are killed past this
+
+
+def list_vs_plain(pg, lay, backend: str, prog, pl, vals):
+    """The kernel of ``backend`` on the device list that
+    ``_shard_layout_block`` hands a rank at ``pl`` (its partition, edge
+    shard and shard count) for ``prog``, against its plain version on the
+    same inputs (min exact; sums within SUM_RTOL of |terms|). ``vals``:
+    the rank's [1, v_max, K] values. Returns ``(the kernel's product
+    [1, v_max, K], ok, max err)``."""
+    from repro_torch.core.engine import (_device_subgraph, _shard_layout_block,
+                                         _tile_inputs, _window_inputs)
+    from repro_torch.kernels import bsp_spmv as bk
+    from repro_torch.kernels import segment_combine as sk
+
+    spec, v_max, K = prog.sweep_spec, pg.v_max, vals.shape[-1]
+    blk = _shard_layout_block(lay, pg, prog, backend, vals.device, pl)
+    if backend == "pallas_tiles":
+        tl, td, ts, vv, ndt, plan = _tile_inputs(blk, vals, spec, v_max)
+        kw = dict(n_dst_tiles=ndt, semiring=spec.semiring)
+        got = bk.bsp_spmv(tl, td, ts, vv, plan=plan, **kw)
+        want = bk.bsp_spmv_plain(tl, td, ts, vv, **kw)
+        mag = spmv_magnitude(tl, td, ts, vv, ndt, spec.semiring)
+    else:
+        sg = _device_subgraph(pg, vals.device,
+                              block=(pl.part, pl.shard, pl.n_edge))
+        msgs, ldst, bwin, nw, plan = _window_inputs(sg, blk, vals, spec,
+                                                    v_max)
+        kw = dict(n_windows=nw, combiner=spec.combiner)
+        got = sk.segment_combine_windowed(msgs, ldst, bwin, plan=plan, **kw)
+        want = sk.segment_combine_plain(msgs, ldst, bwin, **kw)
+        mag = segment_magnitude(msgs, ldst, bwin, nw, spec.combiner)
+    ok, err = compare(got, want, mag)
+    return got.reshape(1, -1, K)[:, :v_max], ok, err
+
+
+def list_values(prog, v_max: int, K: int, dev, seed: int):
+    """Seeded [1, v_max, K] values of ``prog``'s dtype for a list check
+    (integers below 2**20, floats in [0, 9))."""
+    import numpy as np
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if np.dtype(prog.dtype).kind == "i":
+        return torch.randint(0, 1 << 20, (1, v_max, K), generator=gen,
+                             device=dev, dtype=torch.int32)
+    return torch.rand((1, v_max, K), generator=gen, device=dev) * 9
+
+
+def shard_lists_path(sm: Smoke, errs: dict, win, tile) -> dict:
+    """Phase 10a: each kernel on every (partition, shard) device list of
+    the S = 2 edge-sharded geometry of phase 3's kron-20 session (windows)
+    and phase 4's grid session (tiles), against its plain version (min
+    exact; sums within SUM_RTOL of |terms|), and the shards' products
+    reduced (min, or summed) against the partition's unsharded product.
+    Returns per graph the geometry's counts and seconds."""
+    import types
+    import numpy as np
+    import torch
+    from repro_torch.algos import SSSP, PageRank
+    from repro_torch.core.engine import _tile_product, _window_product
+
+    dev = torch.device(DEVICE)
+    S = SHARD_S
+    out = {}
+    for label, sess, backend in (("kron-20", win[0], "pallas_windows"),
+                                 (f"grid-{GRID_SIDE}", tile[0],
+                                  "pallas_tiles")):
+        pg = sess.pg
+        P, v_max, Se = pg.n_parts, pg.v_max, pg.e_max // S
+        lay = pg.ensure_edge_layouts(shape_policy=sess.shape_policy)
+        t = time.perf_counter()
+        geom = lay.shard_counts(pg, S)
+        geo_s = time.perf_counter() - t
+        empty = sum(1 for p in range(P) for s in range(S)
+                    if not pg.emask[p, s * Se:(s + 1) * Se].any())
+        unit = "n_tiles" if backend == "pallas_tiles" else "n_blocks"
+        rec = dict(geometry_s=geo_s, lists=P * S, empty_shards=empty,
+                   units_sharded=int(geom[unit].sum()),
+                   units_unsharded=int(getattr(lay, unit).sum()),
+                   t_loc=geom["t_loc"], b_loc=geom["b_loc"])
+        sm.note(f"10a {label}: S={S} geometry in {geo_s:.1f}s, "
+                f"{P * S} lists, {empty} without an edge, {unit} "
+                f"{rec['units_sharded']} sharded vs "
+                f"{rec['units_unsharded']} unsharded")
+        full_sgs = sess.device_graph()
+        for prog in (SSSP(), PageRank()):
+            spec = prog.sweep_spec
+            gen = torch.Generator(device=dev).manual_seed(10)
+            V = torch.rand((P, v_max, 1), generator=gen, device=dev) * 9
+            if backend == "pallas_tiles":
+                full = _tile_product(lay.device_tiles(
+                    pg, spec.semiring, spec.edge_values, np.float32, dev),
+                    V, spec, v_max)
+            else:
+                full = _window_product(full_sgs, lay.device_windows(dev), V,
+                                       spec, v_max)
+            ok_k = ok_r = True
+            err_k = err_r = 0.0
+            t = time.perf_counter()
+            for p in range(P):
+                parts = []
+                for s in range(S):
+                    pl = types.SimpleNamespace(part=p, shard=s, n_edge=S)
+                    got, ok, err = list_vs_plain(pg, lay, backend, prog, pl,
+                                                 V[p:p + 1])
+                    ok_k, err_k = ok_k and ok, max(err_k, err)
+                    parts.append(got)
+                stack = torch.stack(parts)
+                red = stack.amin(0) if spec.semiring == "min_plus" \
+                    else stack.sum(0)
+                # every term is non-negative: |sum| is the sum of |terms|
+                ok, err = compare(red, full[p:p + 1],
+                                  None if spec.semiring == "min_plus"
+                                  else full[p:p + 1].abs())
+                ok_r, err_r = ok_r and ok, max(err_r, err)
+            torch.cuda.synchronize()
+            key = "bsp_spmv" if backend == "pallas_tiles" \
+                else "segment_combine"
+            errs[key] = max(errs[key], err_k)
+            sm.check(ok_k, f"10a {label} {spec.semiring}: {key} equals its "
+                           f"plain version on all {P * S} (partition, "
+                           f"shard) lists (max err {err_k:.3g})")
+            sm.check(ok_r, f"10a {label} {spec.semiring}: the shards' "
+                           f"products reduced equal each partition's "
+                           f"unsharded product (max err {err_r:.3g}; "
+                           f"{time.perf_counter() - t:.1f}s)")
+        lay.drop_sharded()
+        out[label] = rec
+    return out
+
+
+def shard_queries(g20):
+    """Phase 10b's queries: ``(id, graph, mesh, program, source, edge
+    backend)``; the SSSP sources are phase 3's."""
+    import numpy as np
+    deg = g20.out_degrees()
+    s0 = int(np.argmax(deg))
+    s1 = int(np.random.default_rng(7).choice(np.nonzero(deg)[0]))
+    qs = []
+    for eb in ("pallas_windows", "coo"):
+        qs += [(f"k20p4-sssp_a-{eb}", "kron20_p4", "4", "sssp", s0, eb),
+               (f"k20p4-sssp_b-{eb}", "kron20_p4", "4", "sssp", s1, eb),
+               (f"k20p4-cc-{eb}", "kron20_p4", "4", "cc", None, eb),
+               (f"k20p4-pagerank-{eb}", "kron20_p4", "4", "pagerank", None,
+                eb)]
+    qs += [("k20p2-sssp_a-pallas_windows", "kron20_p2", "22", "sssp", s0,
+            "pallas_windows"),
+           ("k20p2-cc-pallas_windows", "kron20_p2", "22", "cc", None,
+            "pallas_windows"),
+           ("k20p2-pagerank-pallas_windows", "kron20_p2", "22", "pagerank",
+            None, "pallas_windows"),
+           ("gridp2-cc-pallas_tiles", "grid_p2", "22", "cc", None,
+            "pallas_tiles")]
+    return qs
+
+
+def _shard_program(name, source, n_vertices):
+    from repro_torch.algos import SSSP, ConnectedComponents, PageRank
+    if name == "sssp":
+        return SSSP(), {"source": source}
+    if name == "cc":
+        return ConnectedComponents(), None
+    return PageRank(), {"n_vertices": n_vertices}
+
+
+def _shard_rank(rank: int, world: int, store: str, work: str, queries,
+                device: str) -> None:
+    """One phase 10b process: a gloo job over CUDA tensors on the one card.
+    Loads the parent's host arrays, runs every query through
+    ``repro_torch.core.run`` on its block of the (4,) or (2, 2) mesh, and
+    writes its results and a report (launches per query, counted from 0
+    just before it; seconds; peak device memory). After each kernel query
+    it holds the kernel against its plain version on its own list, the one
+    the query ran on: for the query's program and for min_plus (SSSP) and
+    plus_times (PageRank), on seeded values."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    t0 = time.perf_counter()
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    from repro_torch.algos import SSSP, PageRank
+    from repro_torch.core import EngineConfig, run
+    from repro_torch.core.mesh import placement
+    from repro_torch.interop import partitioned_graph_from_arrays
+    from repro_torch.kernels import bsp_spmv as bk
+    from repro_torch.kernels import segment_combine as sk
+    # the mesh names the rank layout only; the tensors live on the card
+    meshes = {"4": (init_device_mesh("cpu", (4,), mesh_dim_names=("sub",)),
+                    ("sub",), ()),
+              "22": (init_device_mesh("cpu", (2, 2),
+                                      mesh_dim_names=("sub", "edge")),
+                     ("sub",), ("edge",))}
+    t = time.perf_counter()
+    pgs = {}
+    for key in sorted({q[1] for q in queries}):
+        with np.load(os.path.join(work, key + ".npz")) as z:
+            pgs[key] = partitioned_graph_from_arrays(dict(z))
+    report = dict(rank=rank, start_s=t - t0,
+                  load_s=time.perf_counter() - t, queries=[])
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    rec = {}
+    for qid, gk, mk, pname, source, eb in queries:
+        mesh, sub, edge = meshes[mk]
+        pg = pgs[gk]
+        prog, params = _shard_program(pname, source, pg.n_vertices)
+        cfg = EngineConfig(backend="shard_map", subgraph_axes=sub,
+                           edge_axes=edge, edge_backend=eb)
+        bk.bsp_spmv.launches = 0
+        sk.segment_combine_windowed.launches = 0
+        t = time.perf_counter()
+        res, st = run(prog, pg, params, cfg, mesh=mesh, device=device)
+        if cuda:
+            torch.cuda.synchronize()
+        host_s = time.perf_counter() - t
+        rec[qid + "/res"] = res
+        rec[qid + "/counts"] = np.array([st.supersteps, st.total_messages])
+        rec[qid + "/sweeps"] = np.array(st.partition_sweeps, np.int64)
+        q = dict(query=qid, host_s=host_s, wall_s=st.wall_time,
+                 supersteps=st.supersteps, messages=st.total_messages,
+                 host_syncs=st.host_syncs, collectives=st.collectives,
+                 bsp_spmv=bk.bsp_spmv.launches,
+                 segment_combine_windowed=sk.segment_combine_windowed.launches)
+        if eb != "coo":
+            pl = placement(mesh, sub, edge)
+            lay = pg.ensure_edge_layouts()
+            specs, checks = set(), []
+            for i, cp in enumerate((prog, SSSP(), PageRank())):
+                sw = cp.sweep_spec
+                key = (sw.semiring, sw.edge_values, str(cp.dtype))
+                if key in specs:
+                    continue
+                specs.add(key)
+                vals = list_values(cp, pg.v_max, 1, torch.device(device),
+                                   100 * rank + i)
+                _, ok, err = list_vs_plain(pg, lay, eb, cp, pl, vals)
+                checks.append(dict(semiring=cp.sweep_spec.semiring,
+                                   program=type(cp).__name__, ok=ok,
+                                   max_err=err))
+            q["list_checks"] = checks
+        report["queries"].append(q)
+    report["peak_bytes"] = torch.cuda.max_memory_allocated() if cuda else 0
+    report["total_s"] = time.perf_counter() - t0
+    np.savez(os.path.join(work, f"rank{rank}.npz"), **rec)
+    dist.destroy_process_group()
+    if rank == 0:
+        # the one-process simulator on the card, on the same host graphs
+        # (whose layouts the sharded runs built), after the job ended
+        from repro_torch.core import run_sim
+        t = time.perf_counter()
+        ref = {}
+        for i, (qid, gk, _, pname, source, eb) in enumerate(queries):
+            pg = pgs[gk]
+            prog, params = _shard_program(pname, source, pg.n_vertices)
+            res, st = run_sim(prog, pg, params,
+                              EngineConfig(edge_backend=eb), device=device)
+            ref[qid + "/res"] = res
+            ref[qid + "/counts"] = np.array([st.supersteps,
+                                             st.total_messages])
+            ref[qid + "/sweeps"] = np.array(st.partition_sweeps, np.int64)
+            report["queries"][i].update(
+                run_sim_wall_s=st.wall_time, run_sim_host_syncs=st.host_syncs)
+        report["run_sim_s"] = time.perf_counter() - t
+        np.savez(os.path.join(work, "run_sim.npz"), **ref)
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+
+
+def shard_ranks_path(sm: Smoke, g20) -> dict:
+    """Phase 10b (see the module docstring). Returns the launches per
+    kernel over every rank and the per-rank reports."""
+    import shutil
+    import numpy as np
+    import torch
+    import torch.multiprocessing as tmp
+    from repro_torch.core import partition_and_build
+    from repro_torch.graphgen import grid_graph
+
+    t0 = time.perf_counter()
+    work = ROOT / "build" / "shard"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t = time.perf_counter()
+    pgs = {"kron20_p4": partition_and_build(g20, 4, "cdbh"),
+           "kron20_p2": partition_and_build(g20, 2, "cdbh"),
+           "grid_p2": partition_and_build(
+               grid_graph(GRID_SIDE, weighted=True, seed=9), 2, "range")}
+    build_s = time.perf_counter() - t
+    t = time.perf_counter()
+    for key, pg in pgs.items():
+        np.savez(work / f"{key}.npz", **{
+            f.name: getattr(pg, f.name) for f in dataclasses.fields(pg)
+            if f.name != "edge_layouts" and getattr(pg, f.name) is not None})
+    save_s = time.perf_counter() - t
+    sm.note(f"10b: kron-20 cdbh P=4 and P=2, grid-{GRID_SIDE} range P=2 "
+            f"built in {build_s:.1f}s, host arrays saved for the ranks in "
+            f"{save_s:.1f}s (v_max/e_max: " + ", ".join(
+                f"{k} {pg.v_max}/{pg.e_max}" for k, pg in pgs.items()) + ")")
+    queries = shard_queries(g20)
+    pgs = None
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    ctx = tmp.get_context("spawn")
+    store = str(work / "store")
+    procs = [ctx.Process(target=_shard_rank,
+                         args=(r, SHARD_WORLD, store, str(work), queries,
+                               DEVICE))
+             for r in range(SHARD_WORLD)]
+    for p in procs:
+        p.start()
+    deadline = time.perf_counter() + SHARD_TIMEOUT_S
+    for p in procs:
+        p.join(max(deadline - time.perf_counter(), 1))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    ranks_s = time.perf_counter() - t
+    codes = [p.exitcode for p in procs]
+    ok = sm.check(codes == [0] * SHARD_WORLD,
+                  f"10b: all {SHARD_WORLD} ranks exited 0 (exit codes "
+                  f"{codes}; {ranks_s:.1f}s)")
+    launches = {"bsp_spmv": 0, "segment_combine_windowed": 0}
+    list_err = dict.fromkeys(launches, 0.0)
+    reports = []
+    if not ok:
+        return dict(launches=launches, reports=reports, seconds=ranks_s,
+                    list_err=list_err)
+    ref = dict(np.load(work / "run_sim.npz"))
+    got = []
+    for r in range(SHARD_WORLD):
+        reports.append(json.loads((work / f"rank{r}.json").read_text()))
+        got.append(dict(np.load(work / f"rank{r}.npz")))
+        rep = reports[-1]
+        if r == 0:
+            sm.note(f"10b: rank 0 ran the one-process run_sim references "
+                    f"on the card in {rep['run_sim_s']:.1f}s after the job")
+        sm.note(f"10b rank {r}: started in {rep['start_s']:.1f}s, loaded the "
+                f"parent's host arrays in {rep['load_s']:.1f}s, peak device "
+                f"memory {rep['peak_bytes']} bytes "
+                f"({rep['peak_bytes'] / 2**30:.2f} GiB), "
+                f"{rep['total_s']:.1f}s in all")
+    def same(a, b, qa, qb, pagerank):
+        """Results bit for bit (PageRank: within PR_RTOL of max |rank|,
+        and finite), supersteps, messages and per-partition sweeps equal."""
+        x, y = a[qa + "/res"], b[qb + "/res"]
+        if pagerank:
+            close = (np.isfinite(x).all() and float(np.abs(x - y).max())
+                     <= PR_RTOL * float(np.abs(y).max()))
+        else:
+            close = np.array_equal(x, y)
+        return bool(close
+                    and np.array_equal(a[qa + "/counts"], b[qb + "/counts"])
+                    and np.array_equal(a[qa + "/sweeps"], b[qb + "/sweeps"]))
+
+    for i, (qid, _, _, pname, _, eb) in enumerate(queries):
+        steps, msgs = (int(x) for x in ref[qid + "/counts"])
+        pr = pname == "pagerank"
+        res_what = f"within {PR_RTOL:g} of max |rank|" if pr \
+            else "bit for bit"
+        bad = [r for r in range(SHARD_WORLD)
+               if not same(got[r], ref, qid, qid, pr)]
+        sm.check(not bad, f"10b {qid}: all {SHARD_WORLD} ranks equal the "
+                          f"one-process run_sim (results {res_what}; "
+                          f"supersteps {steps}, messages {msgs} and "
+                          f"per-partition sweeps equal; ranks that differ: "
+                          f"{bad})")
+        twin = qid.replace(eb, "coo")
+        if eb != "coo" and twin + "/res" in got[0]:
+            bad = [r for r in range(SHARD_WORLD)
+                   if not same(got[r], got[r], qid, twin, pr)]
+            sm.check(not bad, f"10b {qid}: every rank's run equals its coo "
+                              f"twin {twin} (results {res_what}; counts and "
+                              f"sweeps equal; ranks that differ: {bad})")
+        qs = [rep["queries"][i] for rep in reports]
+        used = {"pallas_windows": "segment_combine_windowed",
+                "pallas_tiles": "bsp_spmv"}.get(eb)
+        if used:
+            n = [q[used] for q in qs]
+            sm.check(min(n) > 0, f"10b {qid}: {used} launches per rank {n}")
+            for c in range(len(qs[0]["list_checks"])):
+                cs = [q["list_checks"][c] for q in qs]
+                errs_r = [x["max_err"] for x in cs]
+                list_err[used] = max(list_err[used], max(errs_r))
+                sm.check(all(x["ok"] for x in cs),
+                         f"10b {qid}: {used} {cs[0]['semiring']} "
+                         f"({cs[0]['program']}) equals its plain version on "
+                         f"each rank's own list (max err per rank {errs_r})")
+        for k in launches:
+            launches[k] += sum(q[k] for q in qs)
+        print("shard query " + json.dumps(dict(
+            qs[0], wall_s_max=max(x["wall_s"] for x in qs))), flush=True)
+    sm.note(f"10b: {time.perf_counter() - t0:.1f}s; launches over every "
+            f"rank {launches}")
+    return dict(launches=launches, reports=reports, seconds=ranks_s,
+                list_err=list_err)
+
+
+def nccl_path(sm: Smoke) -> dict:
+    """Phase 10c: a world of one over NCCL. ``GraphSession(mesh=)`` on
+    kron-14 / cdbh / P = 1 against the simulator session, on both kernel
+    backends: a query, an insert batch with ``flush``, a warm query.
+    Returns the launches of the sharded sessions' queries."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.algos import SSSP
+    from repro_torch.core import EngineConfig
+    from repro_torch.graphgen import kronecker_graph
+    from repro_torch.kernels import bsp_spmv as bk
+    from repro_torch.kernels import segment_combine as sk
+    from repro_torch.session import GraphSession
+
+    t0 = time.perf_counter()
+    store = ROOT / "build" / "shard" / "nccl_store"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    if store.exists():
+        store.unlink()
+    nccl = DEVICE == "cuda"
+    dist.init_process_group("nccl" if nccl else "gloo",
+                            init_method=f"file://{store}", rank=0,
+                            world_size=1)
+    launches = {"bsp_spmv": 0, "segment_combine_windowed": 0}
+    try:
+        mesh = init_device_mesh(DEVICE, (1,), mesh_dim_names=("sub",))
+        g = kronecker_graph(14, seed=7)
+        for eb in ("pallas_windows", "pallas_tiles"):
+            cfg = EngineConfig(edge_backend=eb)
+            shard = GraphSession.from_graph(g, 1, "cdbh", mesh=mesh, cfg=cfg,
+                                            device=DEVICE)
+            sim = GraphSession.from_graph(g, 1, "cdbh", cfg=cfg,
+                                          device=DEVICE)
+            sm.check(shard.cfg.backend == "shard_map"
+                     and sim.cfg.backend == "sim",
+                     f"10c {eb}: the mesh picks shard_map")
+            batch = sym_batch(np.random.default_rng(5), 256, g.n_vertices)
+            out = {}
+            for name, sess in (("shard", shard), ("sim", sim)):
+                rows = []
+                for step in ("query", "insert", "warm"):
+                    if step == "insert":
+                        sess.update(adds=batch)
+                        sess.flush()
+                    bk.bsp_spmv.launches = 0
+                    sk.segment_combine_windowed.launches = 0
+                    res, st = sess.query(SSSP(), {"source": 0})
+                    if name == "shard":
+                        launches["bsp_spmv"] += bk.bsp_spmv.launches
+                        launches["segment_combine_windowed"] += \
+                            sk.segment_combine_windowed.launches
+                    rows.append((res, st))
+                out[name] = rows
+            for i, step in enumerate(("query", "after the insert", "warm")):
+                (a, sa), (b, sb) = out["shard"][i], out["sim"][i]
+                sm.check(bool(np.array_equal(a, b))
+                         and (sa.supersteps, sa.total_messages) ==
+                         (sb.supersteps, sb.total_messages),
+                         f"10c {eb} {step}: the NCCL session equals the "
+                         f"simulator session ({sa.supersteps} supersteps, "
+                         f"{sa.collectives} collectives, wall "
+                         f"{sa.wall_time:.4f}s vs {sb.wall_time:.4f}s)")
+            sm.check(shard.stats.warm_queries == sim.stats.warm_queries == 2,
+                     f"10c {eb}: the queries after the insert ran warm, as "
+                     f"the simulator session's did")
+    finally:
+        dist.destroy_process_group()
+    sm.check(all(v > 0 for v in launches.values()),
+             f"10c: the NCCL sessions launched both kernels {launches}")
+    sm.note(f"10c: {time.perf_counter() - t0:.1f}s")
+    return dict(launches=launches)
+
+
 def main() -> int:
     try:
         import torch
@@ -2882,6 +3402,11 @@ def main() -> int:
     stream_kernel_checks(sm, errs, win, tile, stream)
     algos = algos_path(sm, log, errs, win, tile)
     peak.update({f"algorithms, {k}": v for k, v in algos["peak"].items()})
+    t = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    shard_lists = shard_lists_path(sm, errs, win, tile)
+    peak["shard lists (10a)"] = torch.cuda.max_memory_allocated()
+    sm.note(f"10a: {time.perf_counter() - t:.1f}s")
     # close the earlier sessions, so that phase 8's peak is its own
     g20 = win[2]
     win = tile = None
@@ -2892,6 +3417,21 @@ def main() -> int:
     peak["auto and rebalance"] = auto["peak"]
     serve = serving_path(sm, log, errs, auto.pop("sess"), g20)
     peak["serving"] = serve["peak"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    ranks = shard_ranks_path(sm, g20)
+    errs["bsp_spmv"] = max(errs["bsp_spmv"], ranks["list_err"]["bsp_spmv"])
+    errs["segment_combine"] = max(
+        errs["segment_combine"],
+        ranks["list_err"]["segment_combine_windowed"])
+    nccl = nccl_path(sm)
+    shard_launches = {k: ranks["launches"][k] + nccl["launches"][k]
+                      for k in ranks["launches"]}
+    sm.check(all(v > 0 for v in shard_launches.values()),
+             f"phase 10's sharded runs launched both kernels "
+             f"{shard_launches}")
+    sm.note(f"phase 10b-c: {time.perf_counter() - t:.1f}s")
     kernels = []
     for r in recs:
         t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
@@ -2913,6 +3453,7 @@ def main() -> int:
             launches_algos=algos["launches"][r["name"]],
             launches_auto=auto["launches"][r["name"]],
             launches_serving=serve["launches"][r["name"]],
+            launches_shard=shard_launches[r["name"]],
             k16=algos["rows"][r["name"]], **extra))
     Path(ROOT / "chiprun_out").mkdir(exist_ok=True)
     (ROOT / "chiprun_out" / "chip_smoke_queries.json").write_text(
@@ -2925,6 +3466,10 @@ def main() -> int:
                                         picks=auto["picks"]),
                         serving=dict(kron20=serve["kron20"],
                                      pool=serve["pool"]),
+                        shard=dict(lists=shard_lists,
+                                   ranks=ranks["reports"],
+                                   ranks_s=ranks["seconds"],
+                                   launches=shard_launches),
                         peak_memory_bytes=peak,
                         algo_row_launches=algos["row_launches"],
                         kernel_shapes={r["name"]: r["shape"] for r in recs},

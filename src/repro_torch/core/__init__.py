@@ -1,7 +1,9 @@
 from repro_torch.core.api import DeviceSubgraph, SemiringSweep, VertexProgram
 from repro_torch.core.engine import (EdgeCombine, EngineConfig,
-                                     make_sim_runner, normalize_edge_backend,
-                                     resolve_edge_backend, run, run_sim)
+                                     make_bsp_runner, make_sim_runner,
+                                     normalize_edge_backend,
+                                     resolve_edge_backend, run, run_shard_map,
+                                     run_sim)
 from repro_torch.core.graph import Graph
 from repro_torch.core.layouts import EdgeLayouts, TileBlock, WindowBlock
 from repro_torch.core.metrics import (ExecutionStats, PartitionMetrics,
@@ -14,7 +16,8 @@ from repro_torch.core.subgraph import (PartitionedGraph, ShapePolicy,
 
 __all__ = [
     "DeviceSubgraph", "SemiringSweep", "VertexProgram", "EdgeCombine",
-    "EngineConfig", "run", "run_sim", "make_sim_runner",
+    "EngineConfig", "run", "run_sim", "run_shard_map", "make_sim_runner",
+    "make_bsp_runner",
     "resolve_edge_backend", "normalize_edge_backend", "EdgeLayouts",
     "TileBlock", "WindowBlock", "Graph", "ExecutionStats",
     "PartitionMetrics", "partition_metrics", "PARTITIONERS",

@@ -1,4 +1,5 @@
-"""SVHM BSP engine (paper §4), simulator backend on one device.
+"""SVHM BSP engine (paper §4): the simulator on one device and the
+``shard_map`` backend over ``torch.distributed``.
 
 Executes a ``VertexProgram`` over a ``PartitionedGraph`` in bulk-synchronous
 supersteps:
@@ -33,9 +34,22 @@ The backend names ``pallas_tiles``/``pallas_windows`` are kept from the
 reference so configurations carry across; here they select the CUDA
 kernels. ``edge_backend='auto'`` picks a backend per partition from the
 calibration table of the device (``core/autotune.py``,
-``resolve_partition_backends``). ``backend='shard_map'`` is accepted by
-``EngineConfig`` (same values and validation as the reference) but not
-implemented yet: using it raises ``NotImplementedError``.
+``resolve_partition_backends``).
+
+``backend='shard_map'`` (``make_bsp_runner`` / ``run_shard_map``) keeps
+the reference's name and semantics but runs SPMD: every rank of a
+``torch.distributed`` job runs the same program on its own block of a
+``DeviceMesh`` (``core/mesh.py``) — one partition, and under
+``cfg.edge_axes`` one contiguous chunk of its edge columns — as a stacked
+``DeviceSubgraph`` of one, so ``_batched_local_phase`` and the device
+lists apply unchanged. SBS is an ``all_reduce`` with the program's
+combiner over the subgraph process group (``sbs.ShardExchange``), or the
+compacted all-gather (``cfg.sparse_sync_capacity``), or the slot-sharded
+exchange (``cfg.shard_slots``); ``EdgeCombine`` all-reduces edge-derived
+aggregates over the edge group. Each superstep reads one host value,
+``(messages, active partitions)`` all-reduced as one int32 pair, so every
+rank halts at the same superstep; at the end results and sweep counts are
+all-gathered, and every rank returns the global ``[P, ...]`` results.
 """
 from __future__ import annotations
 
@@ -54,6 +68,7 @@ from repro_torch.core.api import (DeviceSubgraph, SemiringSweep,
                                   VertexProgram, coo_semiring_product,
                                   numpy_dtype)
 from repro_torch.core.layouts import EdgeLayouts, TileBlock, WindowBlock
+from repro_torch.core.mesh import placement
 from repro_torch.core.metrics import ExecutionStats
 from repro_torch.core.subgraph import PartitionedGraph
 from repro_torch.device import DeviceLike, resolve_device
@@ -62,31 +77,39 @@ from repro_torch.kernels.ref import combine_identity, tile_pad_identity
 from repro_torch.kernels.segment_combine import W, segment_combine_windowed
 
 __all__ = ["EngineConfig", "EdgeCombine", "run", "run_sim",
-           "make_sim_runner", "resolve_edge_backend",
-           "normalize_edge_backend", "resolve_partition_backends",
+           "run_shard_map", "make_sim_runner", "make_bsp_runner",
+           "resolve_edge_backend", "normalize_edge_backend",
+           "resolve_partition_backends", "resolve_mesh_backends",
            "params_to_device", "save_checkpoint", "load_checkpoint"]
 
-_SHARD_MAP_TODO = ("backend='shard_map' is not ported yet (ROADMAP Queue 1: "
-                   "multi-GPU backend over torch.distributed)")
 
-
-@dataclasses.dataclass(frozen=True)
 class EdgeCombine:
-    """Merges edge-parallel partial aggregates inside a partition. On one
-    device every partition's edges are local, so this is the identity; a
-    multi-device backend would reduce over the devices sharding the edge
-    list."""
+    """Merges edge-parallel partial aggregates inside a partition. Programs
+    call ``ec.sum/min/max`` on every value derived from a reduction over
+    the partition's edges. With no ``group`` (the simulator, or a mesh
+    without edge sharding) every partition's edges are local and this is
+    the identity; under ``shard_map`` with ``edge_axes`` it all-reduces
+    over the edge group, the ranks holding the partition's edge shards.
+    ``calls`` counts the collectives issued."""
 
-    axis_names: tuple = ()
+    def __init__(self, group=None):
+        self.group = group
+        self.calls = 0
+
+    def _reduce(self, x, combiner: str):
+        if self.group is None:
+            return x
+        self.calls += 1
+        return sbs.all_combine(x, combiner, self.group)
 
     def sum(self, x):
-        return x
+        return self._reduce(x, "sum")
 
     def min(self, x):
-        return x
+        return self._reduce(x, "min")
 
     def max(self, x):
-        return x
+        return self._reduce(x, "max")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,11 +124,12 @@ class EngineConfig:
     edge_backend: str = "coo"         # 'coo' | 'pallas_tiles' |
                                       # 'pallas_windows' | 'auto'
     trace: bool = False               # per-superstep stats
-    sparse_sync_capacity: int = 0     # shard_map only
-    shard_slots: bool = False         # shard_map only
-    lean_frontier: bool = False       # shard_map only
-    subgraph_axes: tuple = ("sub",)   # shard_map only
-    edge_axes: tuple = ()             # shard_map only
+    sparse_sync_capacity: int = 0     # >0: compacted all-gather SBS
+                                      # (shard_map)
+    shard_slots: bool = False         # shard the SBS buffer over edge_axes
+    lean_frontier: bool = False       # detect changes vs the merged view
+    subgraph_axes: tuple = ("sub",)   # mesh axes carrying partitions
+    edge_axes: tuple = ()             # mesh axes sharding edges in-partition
     checkpoint_every: int = 0         # supersteps; 0 = off (trace mode)
     checkpoint_dir: Optional[str] = None
 
@@ -149,28 +173,37 @@ class EngineConfig:
         return 1 if self.mode == "vc" else self.max_local_iters
 
 
-def _check_supported(cfg: EngineConfig) -> None:
-    if cfg.backend != "sim":
-        raise NotImplementedError(_SHARD_MAP_TODO)
-
-
 # --------------------------------------------------------------------------- #
-def _device_subgraph(pg: PartitionedGraph, device) -> DeviceSubgraph:
-    """Stacked [P, ...] DeviceSubgraph on ``device``."""
+def _device_subgraph(pg: PartitionedGraph, device,
+                     block=None) -> DeviceSubgraph:
+    """Stacked [P, ...] DeviceSubgraph on ``device``; with ``block = (part,
+    shard, n_shards)`` only a ``shard_map`` rank's block: a stack of one
+    holding partition ``part``'s vertex tables and its edge columns
+    ``[shard * Se, (shard + 1) * Se)``, ``Se = e_max / n_shards``."""
     if pg.n_vertices >= 2**31:
         raise ValueError("vertex ids must fit int32 on the device")
-    vid32 = pg.gvid.astype(np.int64).copy()
-    vid32[~pg.vmask] = np.iinfo(np.int32).max
+    rows, cols = slice(None), slice(None)
+    if block is not None:
+        part, shard, n_shards = block
+        if pg.e_max % n_shards:
+            raise ValueError(f"e_max={pg.e_max} must divide by the "
+                             f"{n_shards} edge shards")
+        se = pg.e_max // n_shards
+        rows, cols = slice(part, part + 1), slice(shard * se,
+                                                  (shard + 1) * se)
+    vid32 = pg.gvid[rows].astype(np.int64)
+    vid32[~pg.vmask[rows]] = np.iinfo(np.int32).max
 
-    def t(a):
+    def t(a, edge=False):
+        a = a[rows, cols] if edge else a[rows]
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
     return DeviceSubgraph(
-        esrc=t(pg.esrc), edst=t(pg.edst), ew=t(pg.ew), emask=t(pg.emask),
-        slot=t(pg.slot), vmask=t(pg.vmask),
-        vid32=t(vid32.astype(np.int32)), is_frontier=t(pg.is_frontier),
-        out_deg=t(pg.out_deg), in_deg=t(pg.in_deg),
-        is_master=t(pg.is_master),
+        esrc=t(pg.esrc, True), edst=t(pg.edst, True), ew=t(pg.ew, True),
+        emask=t(pg.emask, True), slot=t(pg.slot), vmask=t(pg.vmask),
+        vid32=torch.from_numpy(vid32.astype(np.int32)).to(device),
+        is_frontier=t(pg.is_frontier), out_deg=t(pg.out_deg),
+        in_deg=t(pg.in_deg), is_master=t(pg.is_master),
         vlabel=None if pg.vlabel is None else t(pg.vlabel),
     )
 
@@ -380,6 +413,60 @@ def _auto_layout_blocks(lay: EdgeLayouts, pg: PartitionedGraph,
     return t_blk, w_blk
 
 
+#: backend ids of an ``'auto'`` assignment on the wire (the reference's
+#: ``lax.switch`` branch ids)
+_BACKEND_IDS = {"coo": 0, "pallas_tiles": 1, "pallas_windows": 2}
+
+
+def resolve_mesh_backends(program: VertexProgram, cfg: EngineConfig,
+                          pg: PartitionedGraph, mesh, *, lay=None,
+                          device: DeviceLike = None) -> tuple:
+    """``resolve_partition_backends`` for a ``shard_map`` job: under
+    ``'auto'`` the rank at the mesh's first coordinate resolves the
+    assignment (a measured calibration runs there alone, or its cache file
+    is read) and broadcasts it over the mesh, so every rank sweeps with
+    the same picks; uniform configs broadcast nothing. Collective: every
+    rank of the mesh calls it at the same point."""
+    import torch.distributed as dist
+    eb = resolve_edge_backend(program, cfg)
+    if eb != "auto":
+        return (eb,) * pg.n_parts
+    pl = placement(mesh, cfg.subgraph_axes, cfg.edge_axes)
+    dev = resolve_device(device)
+    ids = torch.zeros(pg.n_parts, dtype=torch.int32, device=dev)
+    if dist.get_rank() == pl.root:
+        asg = resolve_partition_backends(program, cfg, pg, lay=lay,
+                                         device=dev)
+        ids = torch.tensor([_BACKEND_IDS[b] for b in asg],
+                           dtype=torch.int32, device=dev)
+    dist.broadcast(ids, src=pl.root, group=pl.mesh_group)
+    names = {i: b for b, i in _BACKEND_IDS.items()}
+    return tuple(names[i] for i in ids.tolist())
+
+
+def _shard_layout_block(lay: EdgeLayouts, pg: PartitionedGraph,
+                        program: VertexProgram, backend: str, device, pl):
+    """A ``shard_map`` rank's device list for its partition's concrete
+    ``backend`` (None on ``coo``): the group list of its one partition,
+    or under edge sharding the list of its (partition, shard)."""
+    if backend == "coo":
+        return None
+    spec = program.sweep_spec
+    parts = None if pg.n_parts == 1 else [pl.part]
+    if backend == "pallas_tiles":
+        _check_tile_ids(program, pg)
+        if pl.n_edge > 1:
+            return lay.device_tiles_sharded(
+                pg, spec.semiring, spec.edge_values, program.dtype,
+                pl.n_edge, device, pl.part, pl.shard)
+        return lay.device_tiles(pg, spec.semiring, spec.edge_values,
+                                program.dtype, device, parts=parts)
+    if pl.n_edge > 1:
+        return lay.device_windows_sharded(pg, pl.n_edge, device, pl.part,
+                                          pl.shard)
+    return lay.device_windows(device, parts=parts)
+
+
 def _mixed_inputs(groups, sgs: DeviceSubgraph, lay_blks) -> list:
     """Per group ``(backend, index tensor, sub-stack, device list)`` for one
     runner call: the sub-stack (COO and windows groups) holds the group's
@@ -501,11 +588,32 @@ def _warm_block(program: VertexProgram, pg: PartitionedGraph,
     return wv
 
 
+def _exchange_bytes_per_step(cfg: EngineConfig, n_slots: int, K: int,
+                             dtype, n_parts: int, n_edge_shards: int) -> int:
+    """Collective bytes one superstep's SBS exchange moves, for the
+    exchange the runner runs: the inter-partition (subgraph group)
+    collective only, as the reference counts it (edge-group combines are
+    left out, like the paper's network-message metric)."""
+    itemsize = numpy_dtype(dtype).itemsize
+    if cfg.shard_slots and n_edge_shards > 1:
+        # each of the n_edge_shards slot slices is all-reduced over the
+        # subgraph group: n_loc + 1 rows per rank, n_parts * n_edge_shards
+        # ranks
+        n_loc = -(-(n_slots + 1) // n_edge_shards)
+        return (n_loc + 1) * K * itemsize * n_parts * n_edge_shards
+    if cfg.sparse_sync_capacity > 0:
+        # compacted all-gather: capacity (int32 idx, K-vector val) pairs
+        cap = min(cfg.sparse_sync_capacity, n_slots + 1)
+        return cap * (4 + K * itemsize) * n_parts
+    return (n_slots + 1) * K * itemsize * n_parts
+
+
 def _flops_per_sweep(program: VertexProgram, edge_backend: str,
                      pg: PartitionedGraph, lay: Optional[EdgeLayouts],
-                     assignment=None) -> np.ndarray:
+                     assignment=None, n_edge_shards: int = 1) -> np.ndarray:
     """[P] semiring ops one local sweep issues per partition: 2*K per
-    resident edge on COO, the dense tile/block work on the kernels; under
+    resident edge on COO, the dense tile/block work on the kernels (every
+    edge shard's list, fillers included, under edge sharding); under
     ``'auto'`` each partition at its assigned backend's rate."""
     K = program.payload
     flops = 2 * K * pg.edges_per_part.astype(np.int64)
@@ -516,9 +624,11 @@ def _flops_per_sweep(program: VertexProgram, edge_backend: str,
         for b in ("pallas_tiles", "pallas_windows"):
             m = asg == b
             if m.any():
-                flops[m] = lay.flops_per_sweep(b, K)[m]
+                flops[m] = lay.flops_per_sweep(
+                    b, K, n_shards=n_edge_shards, pg=pg)[m]
         return flops
-    return lay.flops_per_sweep(edge_backend, K)
+    return lay.flops_per_sweep(edge_backend, K, n_shards=n_edge_shards,
+                               pg=pg)
 
 
 # --------------------------------------------------------------------------- #
@@ -528,7 +638,7 @@ def _make_sim_superstep(program: VertexProgram, cfg: EngineConfig,
                         n_slots: int, edge_backend: str = "coo"):
     """One BSP superstep over the stacked [P, ...] graph."""
     ident = program.identity
-    ec = EdgeCombine(())
+    ec = EdgeCombine()
     ex = sbs.SimExchange()
 
     def superstep(sgs, lay, params, state, last_out, merged_buf, first):
@@ -587,7 +697,6 @@ def make_sim_runner(program: VertexProgram, cfg: EngineConfig, n_slots: int,
     lane count padded to a power of two but passes only the real lanes:
     the reference discards the pad lanes' outputs, so they are not run."""
     edge_backend = resolve_edge_backend(program, cfg)
-    _check_supported(cfg)
     groups = None
     if edge_backend == "auto":
         if partition_backends is None:
@@ -601,7 +710,7 @@ def make_sim_runner(program: VertexProgram, cfg: EngineConfig, n_slots: int,
         else edge_backend
     K = program.payload
     ident = program.identity.item()
-    ec = EdgeCombine(())
+    ec = EdgeCombine()
     superstep = _make_sim_superstep(program, cfg, n_slots, sweep_backend)
 
     def runner(sgs: DeviceSubgraph, lay, params, warm=None,
@@ -665,6 +774,230 @@ def make_sim_runner(program: VertexProgram, cfg: EngineConfig, n_slots: int,
                 np.asarray(msgs, np.int64), np.stack(sweeps), sum(syncs))
 
     return batched
+
+
+# --------------------------------------------------------------------------- #
+# shard_map backend (SPMD over torch.distributed)
+# --------------------------------------------------------------------------- #
+def make_bsp_runner(program: VertexProgram, mesh, cfg: EngineConfig,
+                    n_slots: int, *, warm_start: bool = False,
+                    batch: bool = False,
+                    partition_backends=None) -> Callable:
+    """Build this rank's ``shard_map`` BSP loop
+
+        runner(sgs, lay, params, warm=None) ->
+            (results, supersteps, total_messages, sweeps_per_part,
+             host_syncs, collectives)
+
+    over the rank's block of ``mesh`` (``core/mesh.py``): ``sgs`` is its
+    stacked ``DeviceSubgraph`` of one (``_device_subgraph(block=)``),
+    ``lay`` its device list (``_shard_layout_block``; None on ``coo``),
+    ``warm`` (``warm_start=True``) its [1, v_max, K] warm block. Every rank
+    of the mesh calls the runner together. ``results`` is the global
+    [P, v_max(, ...)] result on every rank, ``sweeps_per_part`` a [P]
+    int64 array, ``collectives`` the collective calls this rank issued.
+
+    Per superstep, as the reference's ``shard_map`` body: apply the merged
+    view, sweep to the local fixed point (``_batched_local_phase``; each
+    edge-derived aggregate all-reduced over the edge group by
+    ``EdgeCombine``), mark the frontier values that changed against the
+    last emitted ones (or, with ``cfg.lean_frontier``, against the merged
+    view), exchange — the dense buffer all-reduced over the subgraph
+    group, or the compacted all-gather (``cfg.sparse_sync_capacity``), or
+    with ``cfg.shard_slots`` each edge shard owning the slots ``slot %
+    n_edge == shard`` and the merged view rebuilt over the edge group —
+    then all-reduce ``(messages, active partitions)`` as one int32 pair:
+    the superstep's one host read, the same on every rank, so every rank
+    halts together. The local-sweep loop reads one flag per sweep; under
+    edge sharding it agrees across the edge group, because each sweep's
+    changed count comes from aggregates the group already reduced.
+
+    Under ``'auto'`` each rank sweeps its partition with the backend the
+    ``partition_backends`` assignment gives it (the reference's
+    ``lax.switch`` on backend ids); the caller passes the same assignment
+    on every rank (``resolve_mesh_backends``). ``batch=True`` builds
+
+        runner(sgs, lay, params_list, warm=None) ->
+            (results [B, ...], supersteps [B], messages [B],
+             sweeps [B, P], host_syncs, collectives)
+
+    running the lanes in turn, as the reference's ``lax.scan`` over
+    lanes does."""
+    edge_backend = resolve_edge_backend(program, cfg)
+    if edge_backend == "auto" and partition_backends is None:
+        raise ValueError("edge_backend='auto' runners need the resolved "
+                         "partition_backends assignment "
+                         "(resolve_mesh_backends)")
+    pl = placement(mesh, cfg.subgraph_axes, cfg.edge_axes)
+    if edge_backend == "auto":
+        sweep_backend = partition_backends[pl.part]
+    else:
+        sweep_backend = edge_backend
+    K = program.payload
+    ident = program.identity
+    iv = ident.item()
+    S = pl.n_edge
+    shard_slots = cfg.shard_slots and S > 1
+    n_loc = -(-(n_slots + 1) // S)
+    order = np.argsort(np.asarray(pl.sub_parts))     # group rank -> part
+
+    def runner(sgs: DeviceSubgraph, lay, params, warm=None):
+        if (warm is not None) != warm_start:
+            raise ValueError(f"this runner was built with warm_start="
+                             f"{warm_start}; pass warm accordingly")
+        if sgs.n_parts != 1:
+            raise ValueError(f"a shard_map rank holds one partition's "
+                             f"block, got {sgs.n_parts}")
+        dev = sgs.device
+        ex = sbs.ShardExchange(pl.sub_group)
+        ec = EdgeCombine(pl.edge_group)
+        params = params_to_device(params, dev)
+        slot = sgs.slot.long()
+        own = (slot % S) == pl.shard
+
+        def exchange_dense(out, changed):
+            buf = sbs.scatter_combine(out, sgs.slot, changed, n_slots,
+                                      program.combiner, ident)[0]
+            if cfg.sparse_sync_capacity > 0:
+                merged = sbs.compact_allgather_exchange(
+                    buf, ident, program.combiner, n_slots,
+                    cfg.sparse_sync_capacity, ex)
+            else:
+                merged = ex.all_combine(buf, program.combiner)
+            merged[n_slots] = iv
+            return sbs.gather_merged(merged, sgs.slot)
+
+        def exchange_sharded(out, changed):
+            # frontier slots belong to the edge shard slot % S; the
+            # subgraph all-reduce runs on that 1/S slice and the merged
+            # view is rebuilt with an edge-group combine
+            owned = changed & own
+            slot_loc = torch.where(owned, slot // S, n_loc)
+            buf = sbs.scatter_combine(out, slot_loc, owned, n_loc,
+                                      program.combiner, ident)[0]
+            merged = ex.all_combine(buf, program.combiner)
+            gather_own = sgs.frontier & own
+            mv = torch.where(gather_own[..., None],
+                             merged[torch.clamp(slot // S, 0, n_loc)], iv)
+            if program.combiner == "min":
+                return ec.min(mv)
+            if program.combiner == "max":
+                return ec.max(mv)
+            return ec.sum(torch.where(gather_own[..., None], mv,
+                                      torch.zeros_like(mv)))
+
+        exchange = exchange_sharded if shard_slots else exchange_dense
+        state = program.init(sgs, params, ec)
+        if warm_start:
+            state = program.warm_init(sgs, params, state, warm)
+        merged_v = torch.full((1, sgs.v_max, K), iv,
+                              dtype=program.torch_dtype, device=dev)
+        last_out = merged_v
+        step = tot_msgs = syncs = 0
+        msgs = active = 1
+        tot_sweeps = torch.zeros(1, dtype=torch.int32, device=dev)
+        while step == 0 or ((msgs > 0 or active > 0)
+                            and step < cfg.max_supersteps):
+            state, out, sweeps, last_ch, s = _batched_local_phase(
+                program, sgs, lay, params, state, merged_v, ec,
+                cfg.local_bound, step == 0, sweep_backend)
+            ref = merged_v if cfg.lean_frontier else last_out
+            changed = program.changed_mask(out, ref) & sgs.frontier
+            merged_v = exchange(out, changed)
+            last_out = out
+            counts = ex.all_sum(torch.stack([
+                changed.sum(dtype=torch.int32),
+                (last_ch > 0).sum(dtype=torch.int32)]))
+            msgs, active = counts.tolist()
+            tot_sweeps += sweeps
+            tot_msgs += msgs
+            syncs += s + 1
+            step += 1
+        res = program.result(sgs, params, state)
+        parts = ex.all_gather(res)
+        results = torch.cat([parts[i] for i in order])
+        sw = ex.all_gather(tot_sweeps)
+        sweeps_h = torch.cat([sw[i] for i in order]).cpu().numpy()
+        return (results, step, tot_msgs, sweeps_h.astype(np.int64), syncs,
+                ex.calls + ec.calls)
+
+    if not batch:
+        return runner
+
+    def batched(sgs: DeviceSubgraph, lay, params_list, warm=None):
+        if (warm is not None) != warm_start:
+            raise ValueError(f"this runner was built with warm_start="
+                             f"{warm_start}; pass warm accordingly")
+        lanes = [runner(sgs, lay, p, None if warm is None else warm[i])
+                 for i, p in enumerate(params_list)]
+        res, steps, msgs, sweeps, syncs, calls = zip(*lanes)
+        return (torch.stack(res), np.asarray(steps, np.int64),
+                np.asarray(msgs, np.int64), np.stack(sweeps), sum(syncs),
+                sum(calls))
+
+    return batched
+
+
+def run_shard_map(program: VertexProgram, pg: PartitionedGraph, mesh,
+                  params=None, cfg: EngineConfig = EngineConfig(), *,
+                  init_state=None, device: DeviceLike = None):
+    """One-shot ``shard_map`` job on this rank's block of ``mesh`` (every
+    rank holds the same host ``pg`` and calls this together). Uploads the
+    rank's block to ``device``, runs, and returns ``(numpy results
+    [P, v_max(, K)], ExecutionStats)`` — the global results on every rank.
+    ``pg.n_parts`` must equal the subgraph axes' size and ``pg.e_max``
+    divide by the edge axes' size. ``init_state`` warm-starts monotone
+    programs as in ``run_sim``."""
+    pl = placement(mesh, cfg.subgraph_axes, cfg.edge_axes)
+    if pg.n_parts != pl.n_sub:
+        raise ValueError(f"the graph has {pg.n_parts} partitions, the "
+                         f"subgraph axes {cfg.subgraph_axes} {pl.n_sub}")
+    if pg.e_max % pl.n_edge:
+        raise ValueError(f"e_max={pg.e_max} must divide by the edge axes' "
+                         f"{pl.n_edge} shards; pad edges to a multiple")
+    dev = resolve_device(device)
+    n_slots, K = pg.n_slots, program.payload
+    warm = init_state is not None and program.monotone
+    edge_backend = resolve_edge_backend(program, cfg)
+    sgs = _device_subgraph(pg, dev, block=(pl.part, pl.shard, pl.n_edge))
+    lay = lay_blk = assignment = None
+    if edge_backend != "coo":
+        lay = pg.ensure_edge_layouts()
+        backend = edge_backend
+        if edge_backend == "auto":
+            assignment = resolve_mesh_backends(program, cfg, pg, mesh,
+                                               lay=lay, device=dev)
+            backend = assignment[pl.part]
+        lay_blk = _shard_layout_block(lay, pg, program, backend, dev, pl)
+    runner = make_bsp_runner(program, mesh, cfg, n_slots, warm_start=warm,
+                             partition_backends=assignment)
+    wblk = None
+    if warm:
+        wblk = torch.from_numpy(np.ascontiguousarray(_warm_block(
+            program, pg, init_state)[pl.part:pl.part + 1])).to(dev)
+    t0 = time.perf_counter()
+    results, steps, tot_msgs, sweeps_h, syncs, calls = runner(
+        sgs, lay_blk, params, wblk)
+    results = results.cpu().numpy()
+    stats = ExecutionStats(
+        supersteps=steps, total_messages=tot_msgs,
+        processed_edges=int(
+            (sweeps_h * pg.edges_per_part.astype(np.int64)).sum()),
+        total_bytes=steps * _exchange_bytes_per_step(
+            cfg, n_slots, K, program.dtype, pg.n_parts, pl.n_edge),
+        wall_time=time.perf_counter() - t0, edge_backend=edge_backend,
+        backend_flops=int((sweeps_h * _flops_per_sweep(
+            program, edge_backend, pg, lay, assignment,
+            n_edge_shards=pl.n_edge)).sum()),
+        host_syncs=syncs, collectives=calls,
+        partition_sweeps=[int(x) for x in sweeps_h])
+    if edge_backend in ("pallas_tiles", "auto"):
+        # counted from the geometry: a rank realizes only its own tiles
+        stats.tile_density, dens = lay.geometric_density()
+        stats.partition_tile_density = list(dens)
+    if assignment is not None:
+        stats.partition_edge_backends = list(assignment)
+    return results, stats
 
 
 # --------------------------------------------------------------------------- #
@@ -756,7 +1089,6 @@ def run_sim(program: VertexProgram, pg: PartitionedGraph, params=None,
         raise ValueError("resume_from requires trace mode (cfg.trace=True)")
     dev = resolve_device(device)
     edge_backend = resolve_edge_backend(program, cfg)
-    _check_supported(cfg)
     sgs = _device_subgraph(pg, dev)
     params = params_to_device(params, dev)
     n_slots, K = pg.n_slots, program.payload
@@ -807,7 +1139,7 @@ def run_sim(program: VertexProgram, pg: PartitionedGraph, params=None,
     if resume_from is not None:
         dt = program.torch_dtype
         like = dict(
-            state=program.init(sgs, params, EdgeCombine(())),
+            state=program.init(sgs, params, EdgeCombine()),
             last_out=torch.empty((pg.n_parts, pg.v_max, K), dtype=dt),
             merged=torch.empty((n_slots + 1, K), dtype=dt), step=0)
         resume = load_checkpoint(resume_from, like, dev)
@@ -831,8 +1163,17 @@ def run_sim(program: VertexProgram, pg: PartitionedGraph, params=None,
 def run(program: VertexProgram, pg: PartitionedGraph, params=None,
         cfg: EngineConfig = EngineConfig(), mesh: Any = None, *,
         init_state=None, resume_from=None, device: DeviceLike = None):
-    """Dispatch on ``cfg.backend``; only the simulator is ported."""
-    if cfg.backend != "sim":
-        raise NotImplementedError(_SHARD_MAP_TODO)
-    return run_sim(program, pg, params, cfg, init_state=init_state,
-                   resume_from=resume_from, device=device)
+    """Dispatch on ``cfg.backend``: the simulator, or ``shard_map`` on
+    ``mesh`` (which it needs; checkpoint resume is a simulator trace-mode
+    feature, as in the reference)."""
+    if cfg.backend == "sim":
+        return run_sim(program, pg, params, cfg, init_state=init_state,
+                       resume_from=resume_from, device=device)
+    if mesh is None:
+        raise ValueError("shard_map backend needs a mesh")
+    if resume_from is not None:
+        raise NotImplementedError(
+            "checkpoint resume is a trace-mode feature of the simulator "
+            "backend; rerun with cfg.backend='sim' (and cfg.trace=True)")
+    return run_shard_map(program, pg, mesh, params, cfg,
+                         init_state=init_state, device=device)

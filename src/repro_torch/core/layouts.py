@@ -40,13 +40,22 @@ tile density comes from the geometry too (``geometric_density``: the
 distinct (tile, row, col) positions of each partition's edges), so it needs
 no realization at all.
 
+The ``shard_map`` backend with ``edge_axes`` splits each partition's edge
+columns into ``S`` contiguous chunks of ``e_max / S`` (one per edge shard)
+and gives every (partition, shard) its own tile and window geometry
+(``_sharded_geometry``, array for array the reference's: per-shard
+coverage fillers, shard-local slots, grow-only per-shard caps
+``_shard_caps``). A rank's device list (``device_tiles_sharded`` /
+``device_windows_sharded``) is the compact list of its own (partition,
+shard) with a chunk plan of its own; a shard with no edge is all fillers.
+
 Under streaming (``repro_torch.stream``) the host rows are refreshed in
 place: ``rebuild_partitions`` rebuilds the partitions a delta patched and
 ``sync_capacity`` column-grows the per-edge arrays; both drop every device
 list (a stale list would have the kernels read the graph as it was before
-the flush), and the next kernel query builds the compact list and its
-chunk plans anew. A ``v_max`` change rebuilds the whole layout as a new
-object.
+the flush) and the sharded geometry, and the next kernel query builds the
+compact list and its chunk plans anew. A ``v_max`` change rebuilds the
+whole layout as a new object.
 """
 from __future__ import annotations
 
@@ -189,6 +198,11 @@ class EdgeLayouts:
     # [P] distinct (tile, row, col) positions of each partition's edges
     # (-1: not counted since the partition was last built)
     _positions: Optional[np.ndarray] = None
+    # edge-sharded geometry per shard count S (rebuilt on any graph change)
+    # and its per-shard caps S -> (t_loc, b_loc), grow-only across rebuilds
+    _shard_geom: Dict[int, Dict] = dataclasses.field(default_factory=dict)
+    _shard_caps: Dict[int, Tuple[int, int]] = dataclasses.field(
+        default_factory=dict)
 
     @property
     def n_dst_tiles(self) -> int:
@@ -202,9 +216,21 @@ class EdgeLayouts:
     def n_windows(self) -> int:
         return max(-(-self.v_max // W), 1)
 
-    def shape_key(self, backend: str) -> tuple:
+    def shape_key(self, backend: str, n_shards: int = 1, pg=None) -> tuple:
         """What a runner is additionally specialized to on a kernel
-        backend — joins the session's padded-shape key."""
+        backend — joins the session's padded-shape key. ``n_shards > 1``
+        keys the edge-sharded variant by its per-shard caps (``pg``
+        required)."""
+        if n_shards > 1:
+            if pg is None:
+                raise ValueError("a sharded shape_key needs the graph")
+            self._sharded_geometry(pg, n_shards)
+            t_loc, b_loc = self._shard_caps[int(n_shards)]
+            if backend == "pallas_tiles":
+                return ("tiles", int(n_shards), t_loc, self.n_dst_tiles,
+                        self.n_src_tiles)
+            return ("windows", int(n_shards), b_loc, self.block_edges,
+                    self.n_windows)
         if backend == "pallas_tiles":
             return ("tiles", self.t_max, self.n_dst_tiles, self.n_src_tiles)
         return ("windows", self.b_max, self.block_edges, self.n_windows)
@@ -388,12 +414,178 @@ class EdgeLayouts:
         return blk
 
     # ------------------------------------------------------------------ #
+    # edge-sharded geometry (shard_map with edge_axes)
+    # ------------------------------------------------------------------ #
+    def _sharded_geometry(self, pg, n_shards: int) -> Dict:
+        """Per-(partition, shard) tile/window geometry over the ``n_shards``
+        contiguous ``e_max / n_shards`` column chunks of the edge arrays.
+        A partition's valid edges ascend by dst along the columns, so each
+        chunk's valid subset does too and the per-partition builders apply
+        unchanged. Each shard gets its own coverage fillers and shard-local
+        slot ids; the caps ``t_loc`` / ``b_loc`` are shared, bucketed and
+        grow-only, so the stacked arrays split evenly: tile_dst/tile_src
+        [P, S*t_loc], bwin [P, S*b_loc], ldst [P, S*b_loc*Be], eslot
+        [P, e_max] (shard-local), edge_tile [P, e_max] (into the [S*t_loc]
+        list), n_tiles/n_blocks [P, S]. The reference's arrays, array for
+        array."""
+        S = int(n_shards)
+        geom = self._shard_geom.get(S)
+        if geom is not None:
+            return geom
+        if self.e_max % S:
+            raise ValueError(f"e_max={self.e_max} must divide by n_shards="
+                             f"{S}; pad edges to a multiple of the edge "
+                             "axes")
+        Se = self.e_max // S
+        ndt, nst, nw = self.n_dst_tiles, self.n_src_tiles, self.n_windows
+        Be = self.block_edges
+        P = self.n_parts
+
+        per = []                       # (p, s) -> geometry pieces
+        need_t = need_b = 1
+        for p in range(P):
+            m = pg.emask[p]
+            for s in range(S):
+                cols = slice(s * Se, (s + 1) * Se)
+                ms = m[cols]
+                ls, ld = pg.esrc[p][cols][ms], pg.edst[p][cols][ms]
+                td, ts, et, er, ec = _tile_geometry(ls, ld, ndt, nst)
+                es, ldst, bw, nb = _window_geometry(ld, nw, Be)
+                per.append((np.nonzero(ms)[0] + s * Se, td, ts, et, er, ec,
+                            es, ldst, bw, nb))
+                need_t = max(need_t, td.shape[0])
+                need_b = max(need_b, nb)
+        prev_t, prev_b = self._shard_caps.get(S, (0, 0))
+        t_loc = max(prev_t, self.policy.bucket(need_t))
+        b_loc = max(prev_b, self.policy.bucket(need_b))
+        self._shard_caps[S] = (t_loc, b_loc)
+
+        geom = dict(
+            n_shards=S, t_loc=t_loc, b_loc=b_loc,
+            tile_dst=np.full((P, S * t_loc), ndt - 1, np.int32),
+            tile_src=np.full((P, S * t_loc), nst - 1, np.int32),
+            edge_tile=np.full((P, self.e_max), -1, np.int32),
+            edge_r=np.zeros((P, self.e_max), np.int32),
+            edge_c=np.zeros((P, self.e_max), np.int32),
+            eslot=np.full((P, self.e_max), -1, np.int32),
+            ldst=np.zeros((P, S * b_loc * Be), np.int32),
+            bwin=np.full((P, S * b_loc), nw - 1, np.int32),
+            n_tiles=np.zeros((P, S), np.int64),
+            n_blocks=np.zeros((P, S), np.int64),
+        )
+        it = iter(per)
+        for p in range(P):
+            for s in range(S):
+                cols, td, ts, et, er, ec, es, ldst, bw, nb = next(it)
+                T = td.shape[0]
+                t0, b0 = s * t_loc, s * b_loc
+                geom["tile_dst"][p, t0:t0 + T] = td
+                geom["tile_src"][p, t0:t0 + T] = ts
+                geom["n_tiles"][p, s] = T
+                geom["edge_tile"][p, cols] = et + t0
+                geom["edge_r"][p, cols] = er
+                geom["edge_c"][p, cols] = ec
+                geom["eslot"][p, cols] = es        # shard-local slot ids
+                geom["ldst"][p, b0 * Be:b0 * Be + ldst.shape[0]] = ldst
+                geom["bwin"][p, b0:b0 + nb] = bw
+                geom["n_blocks"][p, s] = nb
+        self._shard_geom[S] = geom
+        return geom
+
+    def shard_counts(self, pg, n_shards: int) -> Dict:
+        """The ``n_shards`` geometry's counts: ``n_tiles`` and ``n_blocks``
+        [P, S] per (partition, shard) list, coverage fillers included, and
+        the shared per-shard caps ``t_loc`` / ``b_loc``."""
+        g = self._sharded_geometry(pg, n_shards)
+        return {k: g[k] for k in ("n_tiles", "n_blocks", "t_loc", "b_loc")}
+
+    def drop_sharded(self) -> None:
+        """Drop every edge-sharded geometry and its device lists (the
+        grow-only caps stay); the next sharded use builds them anew."""
+        self._shard_geom.clear()
+        self._device = {k: v for k, v in self._device.items()
+                        if k[0] not in ("tiles_sharded", "windows_sharded")}
+
+    def device_tiles_sharded(self, pg, semiring: str, kind: str, dtype,
+                             n_shards: int, device, part: int,
+                             shard: int) -> TileBlock:
+        """The compact tile list of one (partition, shard) on ``device``
+        (cached): its ``n_tiles[part, shard]`` tiles, fillers included,
+        with their values realized from that shard's edges alone and a
+        chunk plan over one partition's dst tiles."""
+        S, dev = int(n_shards), torch.device(device)
+        key = ("tiles_sharded", S, int(part), int(shard), semiring, kind,
+               np.dtype(dtype).str, str(dev))
+        blk = self._device.get(key)
+        if blk is None:
+            g = self._sharded_geometry(pg, S)
+            dt = np.dtype(dtype)
+            Se = self.e_max // S
+            t0 = int(shard) * g["t_loc"]
+            T = int(g["n_tiles"][part, shard])
+            cols = slice(int(shard) * Se, (int(shard) + 1) * Se)
+            et = g["edge_tile"][part, cols]
+            valid = et >= 0
+            vals = np.full((T, TM, TN), tile_pad_identity(semiring, dt), dt)
+            idx = (et[valid] - t0, g["edge_r"][part, cols][valid],
+                   g["edge_c"][part, cols][valid])
+            ev = _edge_values(kind, pg.ew[part][cols][valid], dt)
+            if semiring == "plus_times":
+                np.add.at(vals, idx, ev)
+            else:
+                np.minimum.at(vals, idx, ev)
+            tile_dst = torch.from_numpy(np.ascontiguousarray(
+                g["tile_dst"][part, t0:t0 + T])).to(dev)
+            blk = TileBlock(
+                tiles=torch.from_numpy(vals).to(dev), tile_dst=tile_dst,
+                tile_src=torch.from_numpy(np.ascontiguousarray(
+                    g["tile_src"][part, t0:t0 + T])).to(dev),
+                plan=plan_tiles(tile_dst, self.n_dst_tiles))
+            self._device[key] = blk
+        return blk
+
+    def device_windows_sharded(self, pg, n_shards: int, device, part: int,
+                               shard: int) -> WindowBlock:
+        """The compact block list of one (partition, shard) on ``device``
+        (cached): its ``n_blocks[part, shard]`` blocks, ``slot`` over the
+        shard's ``e_max / n_shards`` edge columns (padding edges: the dump
+        row), and a chunk plan over one partition's windows."""
+        S, dev = int(n_shards), torch.device(device)
+        key = ("windows_sharded", S, int(part), int(shard), str(dev))
+        blk = self._device.get(key)
+        if blk is None:
+            g = self._sharded_geometry(pg, S)
+            Se, Be = self.e_max // S, self.block_edges
+            nb = int(g["n_blocks"][part, shard])
+            b0 = int(shard) * g["b_loc"]
+            es = g["eslot"][part, int(shard) * Se:(int(shard) + 1) * Se]
+            slot = np.where(es >= 0, es, nb * Be).astype(np.int64)
+            bwin = torch.from_numpy(np.ascontiguousarray(
+                g["bwin"][part, b0:b0 + nb])).to(dev)
+            blk = WindowBlock(
+                slot=torch.from_numpy(slot).to(dev),
+                ldst=torch.from_numpy(np.ascontiguousarray(
+                    g["ldst"][part, b0 * Be:(b0 + nb) * Be])).to(dev),
+                bwin=bwin, plan=plan_windows(bwin, self.n_windows))
+            self._device[key] = blk
+        return blk
+
+    # ------------------------------------------------------------------ #
     # accounting
     # ------------------------------------------------------------------ #
-    def flops_per_sweep(self, backend: str, K: int) -> np.ndarray:
+    def flops_per_sweep(self, backend: str, K: int, n_shards: int = 1,
+                        pg=None) -> np.ndarray:
         """[P] semiring ops one local sweep costs per partition: the dense
         work the kernels issue, identity padding inside real tiles/blocks
-        included."""
+        included; ``n_shards > 1`` bills every shard's list, its coverage
+        fillers included (``pg`` required)."""
+        if n_shards > 1:
+            g = self._sharded_geometry(pg, n_shards)
+            if backend == "pallas_tiles":
+                return (g["n_tiles"].sum(axis=1)
+                        * (2 * TM * TN * K)).astype(np.int64)
+            return (g["n_blocks"].sum(axis=1)
+                    * (2 * W * self.block_edges * K)).astype(np.int64)
         if backend == "pallas_tiles":
             return (self.n_tiles * (2 * TM * TN * K)).astype(np.int64)
         return (self.n_blocks * (2 * W * self.block_edges * K)).astype(
@@ -506,6 +698,7 @@ class EdgeLayouts:
             for p in parts:
                 cache.pop(p, None)
         self._device.clear()
+        self.drop_sharded()         # its caps stay (grow-only)
 
     def sync_capacity(self, pg) -> bool:
         """Column-grow the per-edge arrays after ``e_max`` growth. Returns
@@ -527,6 +720,7 @@ class EdgeLayouts:
             self.eslot = grow(self.eslot, -1)
             self.e_max = pg.e_max
             self._device.clear()
+            self.drop_sharded()
         return self.e_max == pg.e_max
 
     def matches(self, pg) -> bool:

@@ -68,6 +68,8 @@ class ExecutionStats:
     backend_flops: int = 0             # semiring ops the backend issued
     tile_density: float = 0.0          # non-identity fraction of real tiles
     host_syncs: int = 0                # device->host reads the loop made
+    collectives: int = 0               # torch.distributed calls this rank
+                                       # made (shard_map backend)
     queue_time: float = 0.0            # admission-queue dwell before launch
                                        # (serving/batcher.py fills it in)
     batch_size: int = 1                # lanes of the micro-batched launch

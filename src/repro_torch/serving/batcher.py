@@ -26,6 +26,13 @@ A result-cache fast path answers ``submit`` at once (no queueing, no
 launch) when the session's result cache holds the converged result and no
 mutation is buffered. A group key pins the graph version at submit time,
 so a flush between submit and launch starts a new group.
+
+Over a mesh (a ``shard_map`` session or pool) every launch is a collective,
+so every rank must decide alike though each reads its own clock: the ranks
+submit the same requests in the same order, ``poll()`` launches the groups
+the mesh's first rank finds due, the fast path and the result cache's TTL
+hits hold only where every rank hits, and ``start()`` raises (a pump
+thread would poll at a different moment on each rank).
 """
 from __future__ import annotations
 
@@ -127,19 +134,16 @@ class MicroBatcher:
         now = self.clock()
         self._count(submitted=1)
 
-        if (use_result_cache and sess.result_cache is not None
-                and (sess.buffer is None or not len(sess.buffer))):
-            rkey = sess.result_key_for(program, params, cfg)
-            if sess.result_cache.peek(rkey) is not None:
-                try:
-                    res, st = sess.query(program, params, warm=warm, cfg=cfg)
-                except Exception as e:               # the caller's future
-                    fut.set_exception(e)             # carries the error
-                    return fut
-                st.queue_time = 0.0
-                fut.set_result((res, st))
-                self._count(fast_path_hits=1)
+        if use_result_cache and sess.result_cached(program, params, cfg):
+            try:
+                res, st = sess.query(program, params, warm=warm, cfg=cfg)
+            except Exception as e:                   # the caller's future
+                fut.set_exception(e)                 # carries the error
                 return fut
+            st.queue_time = 0.0
+            fut.set_result((res, st))
+            self._count(fast_path_hits=1)
+            return fut
 
         key = (id(sess), sess._host_version, program_key(program),
                params_struct_key(canonical_params(params)), cfg, warm,
@@ -163,19 +167,56 @@ class MicroBatcher:
         ``max_delay``, or a lane's deadline is within ``max_delay`` of
         now). Returns the number of groups launched."""
         now = self.clock()
-        due = []
         with self._lock:
-            for key in list(self._groups):
-                grp = self._groups[key]
-                deadlines = [r.deadline for r in grp.requests
-                             if r.deadline is not None]
-                if (now - grp.t_first >= self.policy.max_delay
-                        or (deadlines and now >= min(deadlines)
-                            - self.policy.max_delay)):
-                    due.append(self._groups.pop(key))
+            keys = [k for k, grp in self._groups.items()
+                    if self._is_due(grp, now)]
+            if self._mesh is None:
+                due = [self._groups.pop(k) for k in keys]
+        if self._mesh is not None:
+            due = self._mesh_due(set(keys))
         for grp in due:
             self._launch(grp)
         return len(due)
+
+    def _is_due(self, grp: _Group, now: float) -> bool:
+        deadlines = [r.deadline for r in grp.requests
+                     if r.deadline is not None]
+        return (now - grp.t_first >= self.policy.max_delay
+                or bool(deadlines and now >= min(deadlines)
+                        - self.policy.max_delay))
+
+    @property
+    def _mesh(self):
+        return getattr(self.target, "mesh", None)
+
+    def _mesh_due(self, mine: set) -> list:
+        """Under a mesh, pop the groups that the mesh's first rank found
+        due, on every rank: the ranks queue the same groups in the same
+        order (they submit the same requests), but each reads its own
+        clock, and a launch is a collective."""
+        import torch
+        import torch.distributed as dist
+        from repro_torch.core.mesh import mesh_group
+        group, root = mesh_group(self._mesh)
+        dev = self.target.device
+        with self._lock:
+            keys = list(self._groups)
+        n = torch.tensor([len(keys), -len(keys)], dtype=torch.int64,
+                         device=dev)
+        dist.all_reduce(n, op=dist.ReduceOp.MAX, group=group)
+        if int(n[0]) != -int(n[1]):
+            raise RuntimeError(
+                f"the mesh's ranks queue between {-int(n[1])} and "
+                f"{int(n[0])} groups: every rank must submit the same "
+                "requests in the same order")
+        if not keys:
+            return []
+        mask = torch.tensor([k in mine for k in keys], dtype=torch.int32,
+                            device=dev)
+        dist.broadcast(mask, src=root, group=group)
+        with self._lock:
+            return [self._groups.pop(k)
+                    for k, m in zip(keys, mask.tolist()) if m]
 
     def flush(self) -> int:
         """Launch every pending group now."""
@@ -240,6 +281,11 @@ class MicroBatcher:
         (default ``max_delay / 2``) until ``stop()``."""
         if self._thread is not None:
             return
+        if self._mesh is not None:
+            raise ValueError(
+                "start(): under a mesh every launch is a collective, and a "
+                "pump thread would poll at a different moment on each "
+                "rank; call poll() from every rank's program instead")
         interval = self.policy.max_delay / 2 if interval is None else interval
         self._stop_evt.clear()
 

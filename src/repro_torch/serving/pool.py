@@ -16,7 +16,13 @@ session-per-graph loop would duplicate (the JAX package's
     closes the least recently served (``GraphSession.close`` releases its
     device graph and its pins; entries other tenants pin survive).
 
-Every session runs on the pool's ``device`` (``None``: the CUDA card).
+Every session runs on the pool's ``device`` (``None``: the CUDA card), and
+with ``mesh=`` on the ``shard_map`` backend over that ``DeviceMesh``: every
+rank of the job runs the same pool calls (``GraphSession``'s docstring).
+What a rank decides from its own clock agrees across the mesh before a
+collective follows: a result-cache hit under a TTL serves only where every
+rank hits, and a ``MicroBatcher`` launches what the mesh's first rank finds
+due (``batcher``'s docstring).
 """
 from __future__ import annotations
 
@@ -36,8 +42,8 @@ class SessionPool:
     bound the SHARED runner cache (the per-session bounds are bypassed),
     ``result_cache`` attaches a shared tiered result cache,
     ``max_sessions`` closes the least recently served tenant when exceeded
-    (``None`` = unbounded), ``rebalance`` is every session's default. The
-    multi-GPU backend is not ported: ``mesh=`` raises."""
+    (``None`` = unbounded), ``rebalance`` is every session's default,
+    ``mesh`` every session's mesh (``shard_map``; None: the simulator)."""
 
     def __init__(self, *, mesh=None, cfg=None, shape_policy=None,
                  max_runners: Optional[int] = 64,
@@ -46,10 +52,7 @@ class SessionPool:
                  max_sessions: Optional[int] = None,
                  rebalance: str = "off", device: DeviceLike = None):
         from repro_torch.core.subgraph import ShapePolicy
-        if mesh is not None:
-            raise NotImplementedError(
-                "the shard_map backend is not ported yet (ROADMAP Queue 1 "
-                "item 2: multi-GPU backend over torch.distributed)")
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.cfg = cfg
         self.shape_policy = shape_policy if shape_policy is not None \
@@ -67,15 +70,16 @@ class SessionPool:
         """Open a session for ``tenant`` over ``graph`` (a ``Graph``),
         ``pg`` (a ``PartitionedGraph``) or ``edge_log`` (the on-disk
         ingest) — exactly one of the three. Extra kwargs go to the
-        ``GraphSession`` constructor; the pool always passes its device,
-        config, shape policy and shared caches."""
+        ``GraphSession`` constructor; the pool always passes its mesh,
+        device, config, shape policy and shared caches."""
         from repro_torch.session import GraphSession
         if tenant in self._sessions:
             raise ValueError(f"tenant {tenant!r} already has an open "
                              "session (pool.close(tenant) first)")
         if sum(x is not None for x in (graph, pg, edge_log)) != 1:
             raise ValueError("pass exactly one of graph=, pg=, edge_log=")
-        common = dict(cfg=self.cfg, shape_policy=self.shape_policy,
+        common = dict(mesh=self.mesh, cfg=self.cfg,
+                      shape_policy=self.shape_policy,
                       runner_cache=self.runner_cache,
                       result_cache=self.result_cache, tenant=tenant,
                       rebalance=self.rebalance, device=self.device)

@@ -48,8 +48,18 @@ lane exactly what ``query`` would return; ``runner_cache=`` shares a
 ``RunnerCache`` across sessions (a ``SessionPool``), ``result_cache=``
 attaches a tiered ``ResultCache`` that answers repeated queries with no
 launch, ``tenant=`` names the session in both; ``close()`` releases the
-resident graph and the session's pins. Only the simulator backend exists;
-a ``mesh`` is refused.
+resident graph and the session's pins.
+
+``mesh=`` (a ``torch.distributed`` ``DeviceMesh`` with ``mesh_dim_names``)
+serves on the ``shard_map`` backend, SPMD: every rank of the job opens the
+same session on the same graph and issues the same calls in the same
+order. Each rank keeps the whole host graph (every rank applies each
+delta, compaction and rebalance to its own copy) and uploads only its
+block — its partition and, under ``cfg.edge_axes``, its chunk of the
+partition's edge columns; every rank gets the global results. The
+``'auto'`` assignment is resolved on the mesh's first rank and broadcast,
+and each query's wall time is the mesh's maximum, so the load monitor
+triggers a rebalance on every rank at the same flush.
 """
 from __future__ import annotations
 
@@ -63,11 +73,16 @@ import torch
 
 from repro_torch.core.api import VertexProgram, numpy_dtype
 from repro_torch.core.engine import (EngineConfig, _auto_layout_blocks,
-                                     _device_subgraph, _flops_per_sweep,
-                                     _layout_block_from, _warm_block,
-                                     make_sim_runner, normalize_edge_backend,
+                                     _device_subgraph,
+                                     _exchange_bytes_per_step,
+                                     _flops_per_sweep, _layout_block_from,
+                                     _shard_layout_block, _warm_block,
+                                     make_bsp_runner, make_sim_runner,
+                                     normalize_edge_backend,
+                                     resolve_mesh_backends,
                                      resolve_partition_backends, run_sim)
 from repro_torch.core.graph import Graph
+from repro_torch.core.mesh import MeshPlacement, placement
 from repro_torch.core.metrics import ExecutionStats
 from repro_torch.core.partition import (PARTITIONERS, STREAM_ROUTERS,
                                         is_stateful_router)
@@ -176,7 +191,8 @@ class _SessionBuffer(DeltaBuffer):
 class GraphSession:
     """Resident-graph query session over one ``PartitionedGraph`` on one
     device (``device=None``: the CUDA card; ``device="cpu"``: the plain
-    PyTorch path).
+    PyTorch path), or with ``mesh=`` this rank's block of it on the
+    ``shard_map`` backend (the module docstring says how).
 
     ``ctx`` (a ``StreamContext``) enables ``update``/``push``/``flush``/
     ``compact``, through a coalescing buffer bounded by
@@ -227,13 +243,10 @@ class GraphSession:
                  monitor: Optional[LoadMonitor] = None,
                  rebalance_target: float = 1.05,
                  device: DeviceLike = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the shard_map backend is not ported yet (ROADMAP Queue 1: "
-                "multi-GPU backend over torch.distributed)")
         self.device = resolve_device(device)
         self.pg = pg
         self.ctx = ctx
+        self.mesh = mesh
         self.cfg = self._normalize_cfg(cfg or EngineConfig())
         self.shape_policy = self._resolve_policy(shape_policy, pad_multiple)
         self.max_warm_entries = max_warm_entries
@@ -259,6 +272,7 @@ class GraphSession:
             max_parts=max_buffer_parts, shape_policy=self.shape_policy)
         self._device_graph = None
         self._device_version = -1
+        self._device_block = None      # (part, shard, n_shards) under a mesh
         self._host_version = 0         # bumped by every applied flush/compact
         self._warm: OrderedDict = OrderedDict()
         self._identity_blocks: dict = {}
@@ -336,12 +350,35 @@ class GraphSession:
         sess.ingest_stats = stats
         return sess
 
-    @staticmethod
-    def _normalize_cfg(cfg: EngineConfig) -> EngineConfig:
-        """Without a mesh the session serves on the simulator backend."""
-        if cfg.backend != "sim":
-            cfg = dataclasses.replace(cfg, backend="sim")
+    def _normalize_cfg(self, cfg: EngineConfig) -> EngineConfig:
+        """The mesh picks the backend: ``shard_map`` with one, the
+        simulator without, whatever the config asks for."""
+        backend = "sim" if self.mesh is None else "shard_map"
+        if cfg.backend != backend:
+            cfg = dataclasses.replace(cfg, backend=backend)
         return cfg
+
+    def _placement(self, cfg: EngineConfig) -> Optional[MeshPlacement]:
+        """This rank's block of the mesh under ``cfg``'s axes (None
+        without a mesh)."""
+        if self.mesh is None:
+            return None
+        return placement(self.mesh, cfg.subgraph_axes, cfg.edge_axes)
+
+    def _n_edge_shards(self, cfg: EngineConfig) -> int:
+        pl = self._placement(cfg)
+        return 1 if pl is None else pl.n_edge
+
+    def _check_mesh(self, cfg: EngineConfig) -> MeshPlacement:
+        pl = self._placement(cfg)
+        if self.pg.n_parts != pl.n_sub:
+            raise ValueError(
+                f"the graph has {self.pg.n_parts} partitions, the mesh's "
+                f"subgraph axes {cfg.subgraph_axes} {pl.n_sub}")
+        if self.pg.e_max % pl.n_edge:
+            raise ValueError(f"e_max={self.pg.e_max} must divide by the "
+                             f"{pl.n_edge} edge shards")
+        return pl
 
     @property
     def slot_capacity(self) -> int:
@@ -419,15 +456,23 @@ class GraphSession:
         if self._closed:
             raise RuntimeError("GraphSession is closed")
 
-    def device_graph(self):
-        """The resident stacked DeviceSubgraph, uploaded again only when
-        the host graph changed since the last upload."""
+    def device_graph(self, cfg: Optional[EngineConfig] = None):
+        """The resident stacked DeviceSubgraph (under a mesh, this rank's
+        block for ``cfg``'s axes), uploaded again only when the host graph
+        or the block changed since the last upload."""
         self._check_open()
+        block = None
+        if self.mesh is not None:
+            pl = self._check_mesh(self._normalize_cfg(cfg or self.cfg))
+            block = (pl.part, pl.shard, pl.n_edge)
         if self._device_graph is None \
-                or self._device_version != self._host_version:
+                or self._device_version != self._host_version \
+                or self._device_block != block:
             self._device_graph = None      # free the old copy first
-            self._device_graph = _device_subgraph(self.pg, self.device)
+            self._device_graph = _device_subgraph(self.pg, self.device,
+                                                  block=block)
             self._device_version = self._host_version
+            self._device_block = block
             self.stats.uploads += 1
         return self._device_graph
 
@@ -475,6 +520,8 @@ class GraphSession:
                               params_c, cfg)
             t0 = time.perf_counter()
             val, tier = self.result_cache.get(rkey)
+            if not self._mesh_all(val is not None, cfg):
+                val = None      # another rank missed (its own TTL clock)
             if val is not None:
                 self._bill_hit(tier)
                 return np.asarray(val["results"]), ExecutionStats(
@@ -485,13 +532,15 @@ class GraphSession:
             self.stats.result_cache_misses += 1
 
         warm_in = bool(program.monotone)
-        sgs = self.device_graph()
+        sgs = self.device_graph(cfg)
         lay = self._layout_arg(program, eb, cfg) if eb != "coo" else None
-        wblk = self._warm_arg(program, entry, use_warm) if warm_in else None
+        wblk = self._warm_arg(program, entry, use_warm, cfg) \
+            if warm_in else None
         runner, compile_time, evicted = self._get_runner(
             program, pkey, params_c, cfg, warm_in, eb)
         t0 = time.perf_counter()
-        res, steps, msgs, sweeps, syncs = runner(sgs, lay, params, wblk)
+        res, steps, msgs, sweeps, syncs, *coll = runner(sgs, lay, params,
+                                                       wblk)
         self.stats.device_launches += 1
         res = res.cpu().numpy()
         wall = time.perf_counter() - t0
@@ -501,6 +550,7 @@ class GraphSession:
         stats = self._execution_stats(program, cfg, steps, msgs, sweeps,
                                       wall, compile_time, eb)
         stats.host_syncs = syncs + 1
+        stats.collectives = sum(coll)
         stats.evicted_runners = evicted
         if program.monotone:
             self._remember(program, wkey, res)
@@ -566,15 +616,23 @@ class GraphSession:
         if use_rc:
             rkeys = [result_key(self.tenant, self._host_version, program, pc,
                                 cfg) for pc in params_cs]
+            hits = None
             if all(self.result_cache.peek(k) is not None for k in rkeys):
-                out = []
+                hits = []
                 for k in rkeys:
                     t0 = time.perf_counter()
                     val, tier = self.result_cache.get(k)
+                    hits.append((val, tier, time.perf_counter() - t0))
+                if any(val is None for val, _, _ in hits):
+                    hits = None             # a lane expired since the peek
+            if not self._mesh_all(hits is not None, cfg):
+                hits = None     # another rank missed (its own TTL clock)
+            if hits is not None:
+                out = []
+                for val, tier, wall in hits:
                     self._bill_hit(tier)
                     out.append((np.asarray(val["results"]), ExecutionStats(
-                        supersteps=int(val["supersteps"]),
-                        wall_time=time.perf_counter() - t0,
+                        supersteps=int(val["supersteps"]), wall_time=wall,
                         edge_backend=str(val.get("edge_backend", eb)),
                         result_cache_tier=tier, batch_size=B)))
                 self.stats.queries += B
@@ -588,16 +646,16 @@ class GraphSession:
         self.stats.batched_queries += B
         warm_in = bool(program.monotone)
         Bp = 1 << (B - 1).bit_length()           # power-of-2 lane bucket
-        sgs = self.device_graph()
+        sgs = self.device_graph(cfg)
         lay = self._layout_arg(program, eb, cfg) if eb != "coo" else None
         wstack = None
         if warm_in:
-            wstack = torch.stack([self._warm_arg(program, e, u)
+            wstack = torch.stack([self._warm_arg(program, e, u, cfg)
                                   for e, _, u in lanes])
         runner, compile_time, evicted = self._get_runner(
             program, pkey, params_cs[0], cfg, warm_in, eb, batch=Bp)
         t0 = time.perf_counter()
-        res_b, steps_b, msgs_b, sweeps_b, syncs = runner(
+        res_b, steps_b, msgs_b, sweeps_b, syncs, *coll = runner(
             sgs, lay, list(params_list), wstack)
         self.stats.device_launches += 1
         res_b = res_b.cpu().numpy()
@@ -611,6 +669,7 @@ class GraphSession:
                                        int(msgs_b[i]), sweeps_b[i], wall,
                                        compile_time, eb)
             st.host_syncs = syncs + 1
+            st.collectives = sum(coll)
             st.evicted_runners = evicted
             st.batch_size = B
             if use_warm:
@@ -623,6 +682,19 @@ class GraphSession:
                     results=res, supersteps=st.supersteps, edge_backend=eb))
             results.append((res, st))
         return results
+
+    def result_cached(self, program: VertexProgram, params=None,
+                      cfg: Optional[EngineConfig] = None) -> bool:
+        """Whether ``query`` would answer this request from the result
+        cache now: a cache is attached, no mutation is buffered and it
+        holds the key — on every rank of the mesh (a TTL reads each rank's
+        own clock). The batcher's fast path asks this before queueing."""
+        if self.result_cache is None or (self.buffer is not None
+                                         and len(self.buffer)):
+            return False
+        hit = self.result_cache.peek(
+            self.result_key_for(program, params, cfg)) is not None
+        return self._mesh_all(hit, self._normalize_cfg(cfg or self.cfg))
 
     def result_key_for(self, program: VertexProgram, params=None,
                        cfg: Optional[EngineConfig] = None) -> str:
@@ -674,13 +746,24 @@ class GraphSession:
                lay.shape_key("pallas_windows"))
         asg = self._auto_pin.get(key)
         if asg is None:
-            asg = resolve_partition_backends(program, cfg, self.pg, lay=lay,
-                                             device=self.device)
+            if self.mesh is None:
+                asg = resolve_partition_backends(program, cfg, self.pg,
+                                                 lay=lay, device=self.device)
+            else:
+                asg = resolve_mesh_backends(program, cfg, self.pg,
+                                            self.mesh, lay=lay,
+                                            device=self.device)
             self._auto_pin[key] = asg
         return asg
 
     def _layout_arg(self, program, eb, cfg):
         lay = self.pg.ensure_edge_layouts(shape_policy=self.shape_policy)
+        pl = self._placement(cfg)
+        if pl is not None:
+            backend = self._resolve_assignment(program, cfg)[pl.part] \
+                if eb == "auto" else eb
+            return _shard_layout_block(lay, self.pg, program, backend,
+                                       self.device, pl)
         if eb == "auto":
             return _auto_layout_blocks(lay, self.pg, program,
                                        self._resolve_assignment(program, cfg),
@@ -691,26 +774,31 @@ class GraphSession:
         lay = self.pg.edge_layouts
         if eb == "coo" or lay is None:
             return None
+        ns = self._n_edge_shards(cfg)
         if eb == "auto":
             # the pinned assignment joins the key: a re-resolution that
             # lands on other picks builds a runner of its own
             return ("auto", self._resolve_assignment(program, cfg),
-                    lay.shape_key("pallas_tiles"),
-                    lay.shape_key("pallas_windows"))
-        return lay.shape_key(eb)
+                    lay.shape_key("pallas_tiles", n_shards=ns, pg=self.pg),
+                    lay.shape_key("pallas_windows", n_shards=ns, pg=self.pg))
+        return lay.shape_key(eb, n_shards=ns, pg=self.pg)
 
-    def _warm_arg(self, program, entry, use_warm) -> torch.Tensor:
-        """[P, v_max, K] warm tensor: the cached result when warming, the
-        combiner identity (a no-op for ``warm_init``) when cold."""
+    def _warm_arg(self, program, entry, use_warm,
+                  cfg: EngineConfig) -> torch.Tensor:
+        """[P, v_max, K] warm tensor (under a mesh this rank's [1, v_max,
+        K] row of it): the cached result when warming, the combiner
+        identity (a no-op for ``warm_init``) when cold."""
         pg = self.pg
         K = program.payload
+        pl = self._placement(cfg)
+        rows = slice(None) if pl is None else slice(pl.part, pl.part + 1)
+        n = pg.n_parts if pl is None else 1
         if not use_warm:
-            ikey = (pg.n_parts, pg.v_max, K, numpy_dtype(program.dtype).str,
+            ikey = (n, pg.v_max, K, numpy_dtype(program.dtype).str,
                     float(program.identity))
             blk = self._identity_blocks.get(ikey)
             if blk is None:
-                blk = torch.full((pg.n_parts, pg.v_max, K),
-                                 program.identity.item(),
+                blk = torch.full((n, pg.v_max, K), program.identity.item(),
                                  dtype=program.torch_dtype,
                                  device=self.device)
                 self._identity_blocks[ikey] = blk
@@ -719,7 +807,8 @@ class GraphSession:
         blk = entry.device_block
         if blk.shape != (pg.n_parts, pg.v_max, K):
             blk = _warm_block(program, pg, entry.global_values)
-        return torch.from_numpy(np.ascontiguousarray(blk)).to(self.device)
+        return torch.from_numpy(np.ascontiguousarray(blk[rows])).to(
+            self.device)
 
     def _sync_warm_entry(self, entry: _WarmEntry) -> None:
         """Replay on this entry's device block every remap logged since it
@@ -768,15 +857,24 @@ class GraphSession:
         self.stats.runner_builds += 1
         t0 = time.perf_counter()
         asg = full_shape[1][1] if eb == "auto" else None
-        runner = make_sim_runner(program, cfg, self.slot_capacity,
-                                 warm_start=warm_in, batch=bool(batch),
-                                 partition_backends=asg)
+        if self.mesh is None:
+            runner = make_sim_runner(program, cfg, self.slot_capacity,
+                                     warm_start=warm_in, batch=bool(batch),
+                                     partition_backends=asg)
+        else:
+            self._check_mesh(cfg)
+            runner = make_bsp_runner(program, self.mesh, cfg,
+                                     self.slot_capacity, warm_start=warm_in,
+                                     batch=bool(batch),
+                                     partition_backends=asg)
         build_time = time.perf_counter() - t0
         self.stats.compile_time_total += build_time
+        # a rank of a mesh allocates the blocks of its one partition
+        n_local = self.pg.n_parts if self.mesh is None else 1
         entry = RunnerEntry(
             compiled=runner, shape_key=full_shape,
             program=type(program).__name__, compile_time=build_time,
-            nbytes=runner_nbytes(program, self.pg.n_parts, self.pg.v_max,
+            nbytes=runner_nbytes(program, n_local, self.pg.v_max,
                                  self.slot_capacity, max(batch, 1)))
         evicted = self._runner_cache.insert(key, entry, self.tenant)
         if evicted:
@@ -818,17 +916,26 @@ class GraphSession:
                          compile_time, eb) -> ExecutionStats:
         pg = self.pg
         K = program.payload
-        itemsize = numpy_dtype(program.dtype).itemsize
-        total_bytes = steps * (self.slot_capacity + 1) * K * itemsize \
-            * pg.n_parts
+        ns = self._n_edge_shards(cfg)
+        # billed on the bucketed exchange height the runner reduces; the
+        # simulator always reduces the dense buffer
+        total_bytes = steps * _exchange_bytes_per_step(
+            cfg if self.mesh is not None else EngineConfig(),
+            self.slot_capacity, K, program.dtype, pg.n_parts, ns)
         lay = pg.edge_layouts
         epp = pg.edges_per_part.astype(np.int64)
         asg = self._resolve_assignment(program, cfg) if eb == "auto" \
             else None
+        if self.mesh is not None:
+            # every rank has its own clock: the mesh's slowest rank is the
+            # query's time, the same on every rank, so the monitor fed
+            # from it triggers on every rank at once
+            wall = self._mesh_max(wall, cfg)
         # per-partition sweep time: the wall time apportioned by each
         # partition's flops share (partitions run lock-step supersteps, so
         # the flops skew is the critical-path skew the monitor reads)
-        flops_pp = sweeps * _flops_per_sweep(program, eb, pg, lay, asg)
+        flops_pp = sweeps * _flops_per_sweep(program, eb, pg, lay, asg,
+                                             n_edge_shards=ns)
         tot_flops = int(flops_pp.sum())
         share = (flops_pp / tot_flops if tot_flops
                  else np.full(pg.n_parts, 1.0 / max(pg.n_parts, 1)))
@@ -843,7 +950,10 @@ class GraphSession:
             partition_sweep_time=[float(x) for x in wall * share],
             partition_sweeps=[int(x) for x in sweeps])
         dens = None
-        if eb == "pallas_tiles" and lay is not None:
+        if eb == "pallas_tiles" and lay is not None and self.mesh is not None:
+            # a rank realizes only its own tiles: count from the geometry
+            st.tile_density, dens = lay.geometric_density()
+        elif eb == "pallas_tiles" and lay is not None:
             spec = program.sweep_spec
             st.tile_density = lay.density(pg, spec.semiring,
                                           spec.edge_values, program.dtype)
@@ -873,6 +983,26 @@ class GraphSession:
             self.monitor.observe_query(st)
             self.stats.load_imbalance = self.monitor.gauge
         return st
+
+    def _mesh_all(self, flag: bool, cfg: EngineConfig) -> bool:
+        """Whether ``flag`` holds on every rank of the mesh (``flag``
+        itself without one): a host decision read from a rank's own clock
+        agrees on every rank before the collectives that follow it."""
+        if self.mesh is None:
+            return flag
+        import torch.distributed as dist
+        t = torch.tensor([int(flag)], dtype=torch.int32, device=self.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MIN,
+                        group=self._placement(cfg).mesh_group)
+        return bool(t.item())
+
+    def _mesh_max(self, seconds: float, cfg: EngineConfig) -> float:
+        """The maximum of ``seconds`` over every rank of the mesh."""
+        import torch.distributed as dist
+        t = torch.tensor([seconds], dtype=torch.float64, device=self.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX,
+                        group=self._placement(cfg).mesh_group)
+        return float(t.item())
 
     def _remember(self, program, wkey, res):
         """Cache this converged result as the warm seed for the next
@@ -1032,6 +1162,14 @@ class GraphSession:
         lay = self.pg.edge_layouts
         have_lay = lay is not None and lay.matches(self.pg)
 
+        def key_now(backend, ns):
+            # the layout key now, at the entry's own shard count; None when
+            # the graph no longer splits into that many edge shards
+            try:
+                return lay.shape_key(backend, n_shards=ns, pg=self.pg)
+            except ValueError:
+                return None
+
         def stale(e: RunnerEntry) -> bool:
             base, lkey = e.shape_key
             if base != cur:
@@ -1042,16 +1180,18 @@ class GraphSession:
                 return True
             if lkey[0] == "auto":
                 _, asg, tk, wk = lkey
-                now = (lay.shape_key("pallas_tiles"),
-                       lay.shape_key("pallas_windows"))
-                if (tk, wk) != now:
+                ns = tk[1] if len(tk) == 5 else 1
+                if (tk, wk) != (key_now("pallas_tiles", ns),
+                                key_now("pallas_windows", ns)):
                     return True
                 # a re-resolved pin with other picks stales the runner
-                pin = self._auto_pin.get((cur,) + now)
+                pin = self._auto_pin.get(
+                    (cur, lay.shape_key("pallas_tiles"),
+                     lay.shape_key("pallas_windows")))
                 return pin is not None and pin != asg
             backend = "pallas_tiles" if lkey[0] == "tiles" \
                 else "pallas_windows"
-            return lkey != lay.shape_key(backend)
+            return lkey != key_now(backend, lkey[1] if len(lkey) == 5 else 1)
 
         # on a shared cache this releases the session's pins: a tenant
         # leaving a bucket never invalidates its neighbours' runners
@@ -1059,9 +1199,10 @@ class GraphSession:
             self.tenant, stale)
         self._sync_runner_bytes()
         self._prune_keepalive()
+        # keyed by (P, or 1 on a mesh rank, v_max, ...)
         self._identity_blocks = {
             k: v for k, v in self._identity_blocks.items()
-            if k[:2] == (self.pg.n_parts, self.pg.v_max)}
+            if k[1] == self.pg.v_max}
 
     # ------------------------------------------------------------------ #
     # introspection

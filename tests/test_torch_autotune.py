@@ -175,12 +175,13 @@ def test_cache_file_name_differs_from_the_reference():
 
 def test_auto_runner_needs_the_assignment():
     """An 'auto' runner is built for one per-partition assignment; without
-    it the engine refuses, as the reference's does."""
-    from repro_torch.core.engine import make_sim_runner
+    it the engine refuses, as the reference's does, on both backends."""
+    from repro_torch.core.engine import make_bsp_runner, make_sim_runner
     with pytest.raises(ValueError, match="partition_backends"):
         make_sim_runner(TA.SSSP(), TCfg(edge_backend=AUTO), 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_sim_runner(TA.SSSP(), TCfg(backend="shard_map"), 8)
+    with pytest.raises(ValueError, match="partition_backends"):
+        make_bsp_runner(TA.SSSP(), None,
+                        TCfg(backend="shard_map", edge_backend=AUTO), 8)
 
 
 def test_non_sweep_program_normalizes_to_coo():

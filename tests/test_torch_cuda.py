@@ -426,3 +426,69 @@ def test_query_batch_on_kernels_equals_singletons(cuda, eb):
     hits = sess.query_batch(SSSP(), plist, warm=False)
     assert counter.launches == before
     assert all(st.result_cache_tier == "l1" for _, st in hits)
+
+
+@pytest.mark.parametrize("semiring", ["min_plus", "plus_times"])
+def test_kernels_on_shard_lists_with_an_empty_shard(cuda, semiring):
+    """``shard_map`` edge-shard device lists on the card, on a skewed
+    placement whose small partitions have shards with no edge (coverage
+    fillers only): each kernel equals its plain version on every
+    (partition, shard) list, and the shards' products reduced (min, or
+    summed) equal the partition's unsharded product."""
+    from repro_torch.core import build_partitioned_graph
+    from repro_torch.core.engine import (_device_subgraph, _tile_inputs,
+                                         _tile_product, _window_inputs,
+                                         _window_product)
+    from repro_torch.core.api import SemiringSweep
+    from repro_torch.graphgen import powerlaw_graph
+    g = powerlaw_graph(3000, seed=4, weighted=True).as_undirected()
+    idx = np.arange(g.n_edges)
+    part = np.where(idx % 10 < 7, 0, idx % 3 + 1).astype(np.int32)
+    pg = build_partitioned_graph(g, part, 4)
+    lay = pg.ensure_edge_layouts()
+    S, spec = 4, SemiringSweep(semiring, "weight")
+    Se = pg.e_max // S
+    assert any(not pg.emask[p, s * Se:(s + 1) * Se].any()
+               for p in range(4) for s in range(S))
+    gen = torch.Generator().manual_seed(5)
+    for p in range(4):
+        v = torch.rand((1, pg.v_max, 3), generator=gen).mul_(9).to(cuda)
+        sg = _device_subgraph(pg, cuda, block=(p, 0, 1))
+        want_t = _tile_product(lay.device_tiles(
+            pg, semiring, "weight", np.float32, cuda, parts=[p]), v, spec,
+            pg.v_max)
+        want_w = _window_product(sg, lay.device_windows(cuda, parts=[p]), v,
+                                 spec, pg.v_max)
+        tiles = []
+        wins = []
+        for s in range(S):
+            sgs = _device_subgraph(pg, cuda, block=(p, s, S))
+            tbk = lay.device_tiles_sharded(pg, semiring, "weight",
+                                           np.float32, S, cuda, p, s)
+            wbk = lay.device_windows_sharded(pg, S, cuda, p, s)
+            tl, td, tsrc, vv, ndt, plan = _tile_inputs(tbk, v, spec,
+                                                       pg.v_max)
+            kw = dict(n_dst_tiles=ndt, semiring=semiring)
+            got = tb.bsp_spmv(tl, td, tsrc, vv, plan=plan, **kw)
+            plain = tb.bsp_spmv_plain(tl, td, tsrc, vv, **kw)
+            msgs, ldst, bwin, nw, wplan = _window_inputs(sgs, wbk, v, spec,
+                                                         pg.v_max)
+            kw = dict(n_windows=nw, combiner=spec.combiner)
+            gw = ts.segment_combine_windowed(msgs, ldst, bwin, plan=wplan,
+                                             **kw)
+            pw = ts.segment_combine_plain(msgs, ldst, bwin, **kw)
+            if semiring == "min_plus":
+                assert torch.equal(got, plain) and torch.equal(gw, pw)
+            else:
+                torch.testing.assert_close(got, plain, rtol=1e-5, atol=1e-5)
+                torch.testing.assert_close(gw, pw, rtol=1e-5, atol=1e-5)
+            tiles.append(_tile_product(tbk, v, spec, pg.v_max))
+            wins.append(_window_product(sgs, wbk, v, spec, pg.v_max))
+        if semiring == "min_plus":
+            assert torch.equal(torch.stack(tiles).amin(0), want_t)
+            assert torch.equal(torch.stack(wins).amin(0), want_w)
+        else:
+            torch.testing.assert_close(torch.stack(tiles).sum(0), want_t,
+                                       rtol=1e-5, atol=1e-5)
+            torch.testing.assert_close(torch.stack(wins).sum(0), want_w,
+                                       rtol=1e-5, atol=1e-5)

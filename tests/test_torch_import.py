@@ -14,12 +14,15 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 
 
-def test_import_leaves_jax_and_reference_out():
+def test_import_leaves_jax_and_reference_out(tmp_path):
+    """Importing the port loads no JAX and no module of the JAX package;
+    nor does a two-rank gloo ``shard_map`` query through
+    ``GraphSession(mesh=)``."""
     code = ("import sys, repro_torch, repro_torch.session, "
             "repro_torch.interop, repro_torch.kernels.ops, repro_torch.algos,"
             " repro_torch.stream, repro_torch.partition, "
             "repro_torch.serving, repro_torch.serving.pool, "
-            "repro_torch.serving.batcher, "
+            "repro_torch.serving.batcher, repro_torch.core.mesh, "
             "repro_torch.core.autotune, chip_smoke;"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
@@ -29,6 +32,29 @@ def test_import_leaves_jax_and_reference_out():
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr + out.stdout
+
+    from test_torch_shard import spawn_ranks, wait_all
+    rank_code = (
+        "import os, sys, numpy as np, torch.distributed as dist\n"
+        "from torch.distributed.device_mesh import init_device_mesh\n"
+        "dist.init_process_group('gloo', init_method=os.environ["
+        "'DRONE_INIT'], rank=int(os.environ['RANK']), world_size=2)\n"
+        "from repro_torch.algos import SSSP\n"
+        "from repro_torch.graphgen import ring_graph\n"
+        "from repro_torch.session import GraphSession\n"
+        "mesh = init_device_mesh('cpu', (2,), mesh_dim_names=('sub',))\n"
+        "s = GraphSession.from_graph(ring_graph(64), 2, mesh=mesh, "
+        "device='cpu')\n"
+        "res, st = s.query(SSSP(), {'source': 0})\n"
+        "assert st.supersteps > 1 and st.collectives > 0\n"
+        "assert s.pg.collect(res)[32] == 32, s.pg.collect(res)\n"
+        "dist.destroy_process_group()\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro')]\n"
+        "print(bad); assert not bad, bad\n")
+    for rc, text in wait_all(spawn_ranks(rank_code, 2, [],
+                                         tmp_path / "store"), 300):
+        assert rc == 0, text[-4000:]
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")),
@@ -70,31 +96,38 @@ def test_entry_points_refuse_missing_gpu(monkeypatch):
 
 
 def test_unported_paths_raise_not_implemented(tmp_path, monkeypatch):
+    """Every path of the JAX package is ported; ``run`` refuses only what
+    the reference refuses: ``shard_map`` without a mesh (ValueError) and a
+    checkpoint resume under ``shard_map`` (NotImplementedError, a trace-mode
+    feature of the simulator)."""
     from repro_torch.algos import SSSP
-    from repro_torch.core import EngineConfig, partition_and_build, run_sim
+    from repro_torch.core import EngineConfig, partition_and_build, run
     from repro_torch.graphgen import ring_graph
     from repro_torch.session import GraphSession
 
     monkeypatch.setenv("DRONE_AUTOTUNE_DIR", str(tmp_path))
     g = ring_graph(64)
     pg = partition_and_build(g, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_sim(SSSP(), pg, {"source": 0}, EngineConfig(backend="shard_map"),
-                device="cpu")
-    # ported since: the streaming lifecycle, 'auto', EBV, rebalance and
-    # serving (query_batch); only the multi-GPU backend is refused
-    run_sim(SSSP(), pg, {"source": 0}, EngineConfig(edge_backend="auto"),
-            device="cpu")
+    shard = EngineConfig(backend="shard_map")
+    with pytest.raises(ValueError, match="needs a mesh"):
+        run(SSSP(), pg, {"source": 0}, shard, device="cpu")
+    with pytest.raises(NotImplementedError, match="trace-mode"):
+        run(SSSP(), pg, {"source": 0}, shard, mesh=object(),
+            resume_from=str(tmp_path / "bsp_000002.npz"), device="cpu")
+    # the rest runs: 'auto', the streaming lifecycle, EBV, rebalance,
+    # serving; a session without a mesh serves a shard_map config on the
+    # simulator, as the reference's does
+    run(SSSP(), pg, {"source": 0}, EngineConfig(edge_backend="auto"),
+        device="cpu")
     sess = GraphSession.from_graph(g, 2, "ebv", device="cpu",
-                                   rebalance="manual")
+                                   rebalance="manual", cfg=shard)
+    assert sess.cfg.backend == "sim"
     sess.update(adds=([0], [1]))
     assert sess.flush().n_added == 1 and sess.compact().remap is not None
     sess.query(SSSP(), {"source": 0}, cfg=EngineConfig(edge_backend="auto"))
     sess.rebalance()
     out = sess.query_batch(SSSP(), [{"source": 0}, {"source": 1}])
     assert [st.batch_size for _, st in out] == [2, 2]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GraphSession(pg, mesh=object(), device="cpu")
 
 
 def test_serving_loads_no_jax():
