@@ -147,6 +147,32 @@ Phases (the run exits non-zero if any of them fails):
      per kernel (``launches_shard``), the peak device memory per rank and
      the phase's seconds.
 
+ 11. The LM serving path (``repro_torch.models``, no kernel of its own):
+     olmo-1b at full width and depth (16 layers, d_model 2048, 16 heads,
+     d_ff 8192, vocab 50,304; 1,176,764,416 fp32 parameters, bf16
+     activations) with the port's seeded weights, TF32 off. 11a:
+     ``examples/serve_lm.py``'s defaults through ``make_prefill_step`` /
+     ``make_serve_step`` (batch 4, prompt 24, 32 greedy tokens), timed after
+     a warm-up; the same inputs replayed through ``prefill`` /
+     ``decode_step`` (their first 4 steps once more under
+     ``torch.profiler``), every step's logits within LM_BF16_ATOL of
+     ``forward`` over the same prefix, and each greedy token equal to the
+     forward's argmax, or else its forward logit within twice its row's
+     decode-vs-forward error of the forward's largest (a near-tie at bf16
+     resolution). 11b: one long request, a 32,768-token prompt at batch 1
+     (prefill_32k's length; its batch of 32 would need ~137 GB of cache)
+     through the blockwise path, and 16 greedy steps, held against
+     ``forward`` over the same 32,783 tokens the same way; blockwise
+     attention against dense at that length (float32, within 2e-5), and one
+     layer's attention timed and profiled. 11c: the model cut to 2 layers
+     with float32 activations, the card's forward logits against the CPU's
+     on the same weights (within LM_FP32_ATOL) and 8 greedy tokens equal. It
+     prints prefill time, decode time per step and tokens/s, peak device
+     memory, each beside its bound from the shapes (``lm_work``: every
+     weight read once, the valid KV read once, causal attention pairs; 3.35
+     TB/s, 989 bf16 TFLOP/s), and the device's busy time and idle share
+     under the profiler.
+
 A small-graph check holds the three programs against independent numpy
 oracles on all three backends. The kernel JSON line gives each kernel's
 launches per phase (``launches`` = phases 3-4, ``launches_streaming`` =
@@ -3325,6 +3351,402 @@ def nccl_path(sm: Smoke) -> dict:
     return dict(launches=launches)
 
 
+# --------------------------------------------------------------------------- #
+# phase 11: the LM serving path
+# --------------------------------------------------------------------------- #
+LM_ARCH = "olmo_1b"
+LM_PARAMS = 1_176_764_416            # olmo-1b at full width, tied embeddings
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 24, 32   # examples/serve_lm.py's defaults
+LM_LONG_PROMPT, LM_LONG_GEN = 32768, 16   # prefill_32k's length, batch 1
+LM_CPU_LAYERS = 2                    # 11c: full width, depth cut to 2
+# bf16 logits (|logit| < ~6), cached decode against forward: an H100 at 700 W
+# shows at most 0.078 (11a) and 0.105 (11b), a few bf16 ulps of the logit
+LM_BF16_ATOL = 0.25
+LM_FP32_ATOL = 1e-4    # float32 logits, the card against the CPU: 7.3e-6
+BF16_OPS_PER_S = 989e12             # H100 SXM dense bf16 tensor-core rate
+
+
+def lm_config():
+    from repro_torch.configs import get_config
+    return get_config(LM_ARCH)
+
+
+def lm_work(cfg, param_bytes: int, batch: int, new: int, past: int,
+            logits_rows: int) -> tuple:
+    """(bytes, ops) the least a forward of ``new`` tokens per lane over a
+    KV cache already holding ``past`` must move and compute: every weight
+    read once, the cache's valid keys and values read once and the new ones
+    written, the logits written; the matmuls and the causal attention
+    (each query against the keys at or before it)."""
+    L, d, H, Hkv, Dh = (cfg.n_layers, cfg.d_model, cfg.n_heads,
+                        cfg.n_kv_heads, cfg.head_dim)
+    act = 2 if cfg.activation_dtype == "bfloat16" else 4
+    per_layer = d * (H + 2 * Hkv) * Dh + H * Dh * d + 3 * d * cfg.d_ff
+    pairs = new * past + new * (new + 1) // 2      # (query, key) per lane
+    ops = (2 * batch * new * per_layer * L + 4 * L * batch * H * Dh * pairs
+           + 2 * batch * logits_rows * d * cfg.vocab)
+    kv = 2 * L * batch * Hkv * Dh * act
+    nbytes = (param_bytes + kv * (past + new)
+              + batch * logits_rows * cfg.vocab * act)
+    return nbytes, ops
+
+
+def lm_bound_ms(nbytes: int, ops: int, ops_rate: float) -> tuple:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / ops_rate * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def lm_sync():
+    import torch
+    if str(DEVICE).startswith("cuda"):
+        torch.cuda.synchronize()
+
+
+def lm_replay(M, model, cfg, prompts, toks, max_len):
+    """Logits [B, n, V] of ``prefill`` on ``prompts`` and of each
+    ``decode_step`` fed ``toks[:, :n-1]`` (the serve loop's own inputs)."""
+    import torch
+    lg, caches = M.prefill(model, {"tokens": prompts}, cfg, max_len)
+    out = [lg]
+    for i in range(toks.shape[1] - 1):
+        lg, caches = M.decode_step(model, caches,
+                                   {"tokens": toks[:, i:i + 1]}, cfg)
+        out.append(lg)
+    return torch.cat(out, dim=1)
+
+
+def lm_check_greedy(sm: Smoke, label: str, toks, steps, full, atol: float):
+    """The cached steps' logits ``steps`` against ``full`` (the forward's
+    logits at the same positions) within ``atol``, and the greedy tokens
+    against the forward's argmax. A token may differ from that argmax only
+    where its forward logit lies within twice its row's decode-vs-forward
+    error of the largest: a tie at the logits' bf16 resolution, which the
+    decode may break either way."""
+    import torch
+    s, f = steps.float(), full.float()
+    row_err = (s - f).abs().amax(-1)
+    err = float(row_err.max())
+    sm.check(bool(torch.isfinite(s).all() and torch.isfinite(f).all()),
+             f"{label}: logits finite")
+    sm.check(err <= atol, f"{label}: every cached step's logits within "
+             f"{atol} of forward over the same prefix (max abs err {err:.6g}"
+             f", |logits| <= {float(f.abs().max()):.4g})")
+    sm.check(torch.equal(s.argmax(-1), toks.long()),
+             f"{label}: the serve loop's tokens are the argmax of its own "
+             f"steps' logits")
+    top = f.topk(2, dim=-1).values
+    picked = f.gather(-1, toks.long()[..., None])[..., 0]
+    same = f.argmax(-1) == toks.long()
+    near = (top[..., 0] - top[..., 1]) <= 2 * row_err
+    n_diff = int((~same).sum())
+    sm.check(bool((same | (top[..., 0] - picked <= 2 * row_err)).all()),
+             f"{label}: greedy tokens equal the forward's argmax at "
+             f"{int(same.sum())} of {same.numel()} positions; the "
+             f"{n_diff} others are near-ties (their forward logit within "
+             f"twice the row's error of the largest; {int(near.sum())} "
+             f"positions have a forward top-2 gap that small)")
+    return dict(max_abs_err=err, tokens=same.numel(), argmax_equal=int(
+        same.sum()), near_ties=int(near.sum()))
+
+
+LM_PROFILE_STEPS = 4                # 11a profiles prefill + 3 decode steps
+
+
+def lm_profile(fn) -> dict:
+    """``fn`` once under ``torch.profiler``: the device's busy time (the
+    union of its kernel and copy spans), its idle share of the host's wall
+    time around the call (the profiler slows the host, so the share is an
+    upper bound) and the ops whose kernels took most of the busy time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        lm_sync()
+        t0 = time.perf_counter()
+        fn()
+        lm_sync()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    if not spans:
+        return dict(wall_ms=wall_us / 1e3, device_busy_ms=None,
+                    idle_share=None, kernels=0, top=[])
+    busy, end = 0.0, -float("inf")
+    for s, e in spans:
+        busy += max(0.0, e - max(s, end))
+        end = max(end, e)
+    ops = sorted((e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CPU
+                  and e.self_device_time_total > 0),
+                 key=lambda e: -e.self_device_time_total)[:6]
+    return dict(wall_ms=wall_us / 1e3, device_busy_ms=busy / 1e3,
+                idle_share=max(0.0, 1 - busy / wall_us), kernels=len(spans),
+                top=[dict(op=e.key, ms=e.self_device_time_total / 1e3,
+                          count=e.count) for e in ops])
+
+
+def lm_note_profile(sm: Smoke, label: str, prof: dict) -> None:
+    if prof["device_busy_ms"] is None:
+        sm.note(f"{label}: the profiler recorded no device time (idle share"
+                f" not measured)")
+        return
+    sm.note(f"{label}: {prof['kernels']} device spans, busy "
+            f"{prof['device_busy_ms']:.3f} ms of {prof['wall_ms']:.3f} ms "
+            f"wall (idle share <= {prof['idle_share']:.4f}); device time by "
+            f"op: " + "; ".join(f"{t['op']} {t['ms']:.3f} ms x{t['count']}"
+                                for t in prof["top"]))
+
+
+def lm_serve_part(sm: Smoke, M, S, model, cfg, param_bytes, ident) -> dict:
+    """11a: serve_lm's defaults through the step builders, timed; then the
+    same inputs replayed through ``prefill`` / ``decode_step`` for their
+    logits, held against ``forward`` over the prompt and the tokens."""
+    import torch
+    B, P, G = LM_BATCH, LM_PROMPT, LM_GEN
+    max_len = P + G
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab, (B, P), generator=gen,
+                            device=DEVICE)
+    prefill = S.make_prefill_step(cfg, max_len)
+    step = S.make_serve_step(cfg)
+
+    def serve():
+        lm_sync()
+        t0 = time.perf_counter()
+        nxt, caches = prefill(model, {"tokens": prompts})
+        lm_sync()
+        t1 = time.perf_counter()
+        out = [nxt]
+        for _ in range(G - 1):
+            nxt, caches = step(model, caches, {"tokens": nxt[:, None]})
+            out.append(nxt)
+        lm_sync()
+        return torch.stack(out, dim=1), t1 - t0, time.perf_counter() - t1
+
+    serve()                                    # warm-up: cuBLAS plans
+    torch.cuda.reset_peak_memory_stats()
+    toks, prefill_s, decode_s = serve()
+    peak = torch.cuda.max_memory_allocated()
+    sm.check(toks.shape == (B, G) and bool(((toks >= 0)
+                                             & (toks < cfg.vocab)).all()),
+             f"11a: {B}x{G} greedy tokens in range")
+    steps = lm_replay(M, model, cfg, prompts, toks, max_len)
+    n = LM_PROFILE_STEPS
+    prof = lm_profile(lambda: lm_replay(M, model, cfg, prompts, toks[:, :n],
+                                        max_len))
+    lm_note_profile(sm, f"11a profile (prefill and {n - 1} decode steps of "
+                    f"the serve loop)", prof)
+    with torch.no_grad():
+        full, _ = M.forward(model, {"tokens": torch.cat(
+            [prompts, toks[:, :-1].long()], dim=1)}, cfg)
+    sm.check(full.dtype == steps.dtype == torch.bfloat16,
+             f"11a: logits in {full.dtype} (bf16 activations)")
+    chk = lm_check_greedy(sm, "11a", toks, steps, full[:, P - 1:],
+                          LM_BF16_ATOL)
+    pb, po = lm_work(cfg, param_bytes, B, P, 0, 1)
+    p_bound, p_by = lm_bound_ms(pb, po, BF16_OPS_PER_S)
+    d_bound = 0.0
+    for i in range(G - 1):
+        db, do = lm_work(cfg, param_bytes, B, 1, P + i, 1)
+        d_bound += lm_bound_ms(db, do, BF16_OPS_PER_S)[0]
+    d_ms = decode_s * 1e3 / (G - 1)
+    rec = dict(batch=B, prompt=P, gen=G, prefill_ms=prefill_s * 1e3,
+               prefill_bound_ms=p_bound, prefill_bound_by=p_by,
+               decode_step_ms=d_ms, decode_step_bound_ms=d_bound / (G - 1),
+               decode_tokens_per_s=B * (G - 1) / decode_s,
+               decode_bound_tokens_per_s=B * (G - 1) / (d_bound / 1e3),
+               peak_bytes=peak, profile=prof, **chk)
+    sm.note(f"11a ({ident}): prefill {B}x{P} {rec['prefill_ms']:.3f} ms "
+            f"(bound {p_bound:.4f} ms, {p_by}); decode {d_ms:.4f} ms/step "
+            f"(bound {rec['decode_step_bound_ms']:.4f} ms), "
+            f"{rec['decode_tokens_per_s']:.1f} tok/s (bound "
+            f"{rec['decode_bound_tokens_per_s']:.1f}); peak {peak} bytes "
+            f"({peak / 2**30:.2f} GiB)")
+    return rec
+
+
+def lm_blockwise_check(sm: Smoke, cfg) -> dict:
+    """11b, first: ``_sdpa_blockwise`` against ``_sdpa_dense`` on the card
+    at the long prompt's geometry (the prompt's last 512 queries over a
+    cache of prompt + gen positions, valid up to the prompt), float32 with
+    TF32 off, within the reference tests' 2e-5."""
+    import torch
+    from repro_torch.models.layers import _sdpa_blockwise, _sdpa_dense
+    S_ = LM_LONG_PROMPT + LM_LONG_GEN
+    Tq = 512
+    g = torch.Generator(device=DEVICE).manual_seed(3)
+    q = torch.randn((1, Tq, cfg.n_heads, cfg.head_dim), generator=g,
+                    device=DEVICE)
+    k, v = (torch.randn((1, S_, cfg.n_kv_heads, cfg.head_dim), generator=g,
+                        device=DEVICE) for _ in range(2))
+    kw = dict(causal=True, q_offset=LM_LONG_PROMPT - Tq,
+              kv_len_valid=LM_LONG_PROMPT)
+    err = float((_sdpa_blockwise(q, k, v, **kw)
+                 - _sdpa_dense(q, k, v, **kw)).abs().max())
+    sm.check(err <= 2e-5, f"11b: blockwise attention equals dense at "
+             f"S = {S_} (last {Tq} queries, float32; max abs err {err:.3g})")
+    return dict(blockwise_vs_dense_err=err)
+
+
+def lm_attention_profile(sm: Smoke, cfg) -> dict:
+    """One layer's prefill attention at the long prompt's shape (bf16 q
+    [1, 32768, H, Dh] over a 32,784-position cache valid up to the prompt,
+    the blockwise path): its wall time, then once under the profiler."""
+    import torch
+    from repro_torch.models.layers import _sdpa
+    S_ = LM_LONG_PROMPT + LM_LONG_GEN
+    g = torch.Generator(device=DEVICE).manual_seed(5)
+    q = torch.randn((1, LM_LONG_PROMPT, cfg.n_heads, cfg.head_dim),
+                    generator=g, device=DEVICE).to(torch.bfloat16)
+    k, v = (torch.randn((1, S_, cfg.n_kv_heads, cfg.head_dim), generator=g,
+                        device=DEVICE).to(torch.bfloat16) for _ in range(2))
+
+    def attend():
+        return _sdpa(q, k, v, causal=True, q_offset=0,
+                     kv_len_valid=LM_LONG_PROMPT)
+
+    attend()
+    lm_sync()
+    t0 = time.perf_counter()
+    attend()
+    lm_sync()
+    ms = (time.perf_counter() - t0) * 1e3
+    prof = lm_profile(attend)
+    lm_note_profile(sm, "11b profile (one layer's attention over the "
+                    "32,768-token prompt)", prof)
+    sm.note(f"11b: one layer's attention {ms:.1f} ms unprofiled; x "
+            f"{cfg.n_layers} layers = {ms * cfg.n_layers:.1f} ms")
+    return dict(attention_layer_ms=ms, attention_profile=prof)
+
+
+def lm_long_part(sm: Smoke, M, model, cfg, param_bytes, ident) -> dict:
+    """11b: one long request, a 32,768-token prompt at batch 1 and 16
+    greedy steps through ``prefill`` / ``decode_step`` (timed), held
+    against ``forward`` over the same 32,783 tokens."""
+    import torch
+    P, G = LM_LONG_PROMPT, LM_LONG_GEN
+    rec = lm_blockwise_check(sm, cfg)
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    prompt = torch.randint(0, cfg.vocab, (1, P), generator=gen,
+                           device=DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    lm_sync()
+    t0 = time.perf_counter()
+    lg, caches = M.prefill(model, {"tokens": prompt}, cfg, P + G)
+    nxt = lg[:, -1].argmax(-1)
+    lm_sync()
+    t1 = time.perf_counter()
+    out, logits = [nxt], [lg]
+    for _ in range(G - 1):
+        lg, caches = M.decode_step(model, caches, {"tokens": nxt[:, None]},
+                                   cfg)
+        nxt = lg[:, -1].argmax(-1)
+        out.append(nxt)
+        logits.append(lg)
+    lm_sync()
+    t2 = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated()
+    sm.check(caches[0]["idx"] == P + G - 1,
+             f"11b: the cache holds {P + G - 1} positions")
+    toks = torch.stack(out, dim=1)
+    steps = torch.cat(logits, dim=1)
+    del caches
+    with torch.no_grad():
+        full, _ = M.forward(model, {"tokens": torch.cat(
+            [prompt, toks[:, :-1]], dim=1)}, cfg)
+        full = full[:, P - 1:].clone()
+    lm_sync()
+    t3 = time.perf_counter()
+    rec.update(lm_attention_profile(sm, cfg))
+    rec.update(lm_check_greedy(sm, "11b", toks, steps, full, LM_BF16_ATOL))
+    pb, po = lm_work(cfg, param_bytes, 1, P, 0, 1)
+    p_bound, p_by = lm_bound_ms(pb, po, BF16_OPS_PER_S)
+    d_bound = sum(lm_bound_ms(*lm_work(cfg, param_bytes, 1, 1, P + i, 1),
+                              BF16_OPS_PER_S)[0] for i in range(G - 1))
+    rec.update(prompt=P, gen=G, prefill_ms=(t1 - t0) * 1e3,
+               prefill_bound_ms=p_bound, prefill_bound_by=p_by,
+               decode_step_ms=(t2 - t1) * 1e3 / (G - 1),
+               decode_step_bound_ms=d_bound / (G - 1),
+               decode_tokens_per_s=(G - 1) / (t2 - t1),
+               forward_ms=(t3 - t2) * 1e3, peak_bytes=peak)
+    sm.note(f"11b ({ident}): prefill 1x{P} {rec['prefill_ms']:.1f} ms "
+            f"(bound {p_bound:.3f} ms, {p_by}); decode "
+            f"{rec['decode_step_ms']:.4f} ms/step at {P}+ positions (bound "
+            f"{rec['decode_step_bound_ms']:.4f} ms), "
+            f"{rec['decode_tokens_per_s']:.1f} tok/s; forward over "
+            f"{P + G - 1} tokens {rec['forward_ms']:.1f} ms; "
+            f"peak {peak} "
+            f"bytes ({peak / 2**30:.2f} GiB)")
+    return rec
+
+
+def lm_cpu_part(sm: Smoke, M, S, cfg) -> dict:
+    """11c: the full-width model cut to 2 layers with float32 activations,
+    the card against the same weights on the CPU: forward logits within
+    LM_FP32_ATOL, and a greedy serve loop's tokens equal."""
+    import torch
+    cfg2 = dataclasses.replace(cfg, n_layers=LM_CPU_LAYERS,
+                               activation_dtype="float32")
+    card = M.init_model(cfg2, seed=4, device=DEVICE)
+    cpu = M.Model(cfg2, device="cpu")
+    cpu.load_state_dict(card.state_dict())
+    gen = torch.Generator().manual_seed(4)
+    toks = torch.randint(0, cfg.vocab, (2, 32), generator=gen)
+    with torch.no_grad():
+        lc, _ = M.forward(card, {"tokens": toks.to(DEVICE)}, cfg2)
+        lh, _ = M.forward(cpu, {"tokens": toks}, cfg2)
+    err = float((lc.cpu() - lh).abs().max())
+    sm.check(err <= LM_FP32_ATOL, f"11c: {LM_CPU_LAYERS}-layer full-width "
+             f"float32 forward, card vs CPU, max abs err {err:.3g} <= "
+             f"{LM_FP32_ATOL} (|logits| <= {float(lh.abs().max()):.4g})")
+    outs = []
+    for model, dev in ((card, DEVICE), (cpu, "cpu")):
+        nxt, caches = S.make_prefill_step(cfg2, 24)(
+            model, {"tokens": toks[:, :16].to(dev)})
+        out = [nxt.cpu()]
+        for _ in range(7):
+            nxt, caches = S.make_serve_step(cfg2)(model, caches,
+                                                  {"tokens": nxt[:, None]})
+            out.append(nxt.cpu())
+        outs.append(torch.stack(out, dim=1))
+    sm.check(torch.equal(outs[0], outs[1]),
+             "11c: 8 greedy tokens of 2 prompts, card equal to CPU")
+    return dict(layers=LM_CPU_LAYERS, forward_max_abs_err=err)
+
+
+def lm_path(sm: Smoke, ident: str) -> dict:
+    """Phase 11: olmo-1b at full width and depth with the port's seeded
+    weights (fp32 parameters, bf16 activations)."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.training import steps as S
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    cfg = lm_config()
+    model = M.init_model(cfg, seed=0, device=DEVICE)
+    lm_sync()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+    sm.check(cfg.name != "olmo-1b" or n_params == LM_PARAMS,
+             f"11: {cfg.name}, {cfg.n_layers} layers, {n_params} parameters "
+             f"({param_bytes} bytes, {cfg.param_dtype}), drawn in "
+             f"{init_s:.2f}s")
+    serve = lm_serve_part(sm, M, S, model, cfg, param_bytes, ident)
+    long = lm_long_part(sm, M, model, cfg, param_bytes, ident)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    cpu = lm_cpu_part(sm, M, S, cfg)
+    sm.note(f"phase 11: {time.perf_counter() - t0:.1f}s")
+    return dict(arch=cfg.name, layers=cfg.n_layers, params=n_params,
+                param_bytes=param_bytes, init_s=init_s, serve=serve,
+                long=long, cpu=cpu, seconds=time.perf_counter() - t0)
+
+
 def main() -> int:
     try:
         import torch
@@ -3432,6 +3854,11 @@ def main() -> int:
              f"phase 10's sharded runs launched both kernels "
              f"{shard_launches}")
     sm.note(f"phase 10b-c: {time.perf_counter() - t:.1f}s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm = lm_path(sm, ident)
+    peak["lm serve (11a)"] = lm["serve"]["peak_bytes"]
+    peak["lm 32k request (11b)"] = lm["long"]["peak_bytes"]
     kernels = []
     for r in recs:
         t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
@@ -3470,6 +3897,7 @@ def main() -> int:
                                    ranks=ranks["reports"],
                                    ranks_s=ranks["seconds"],
                                    launches=shard_launches),
+                        lm=lm,
                         peak_memory_bytes=peak,
                         algo_row_launches=algos["row_launches"],
                         kernel_shapes={r["name"]: r["shape"] for r in recs},

@@ -10,6 +10,11 @@ sweep's semiring product on ``edge_backend`` ``"coo"`` (PyTorch scatter),
 The backend names are kept from the reference so configurations carry
 across unchanged.
 
+The LM stack's serving path is ported too: ``repro_torch.configs`` (the
+reference's architecture registry), ``repro_torch.models`` (dense and GQA
+attention blocks, ``prefill`` and ``decode_step`` with a KV cache) and
+``repro_torch.training.steps`` (the prefill and greedy serve steps).
+
 Every entry point takes ``device=None``, which means the first CUDA card;
 on a machine without one it raises unless the caller passes
 ``device="cpu"`` (where the kernels' plain PyTorch versions run).

@@ -2,10 +2,11 @@
 
 The port imports nothing of the JAX package, so these functions take plain
 numpy data: a dict of a reference ``PartitionedGraph``'s fields (for example
-``dataclasses.asdict``-style ``{f.name: getattr(pg, f.name)}``) or a
-reference warm block. Tests use them to run the port's engine on exactly
-the partitioned graph the reference ran on, independently of partitioner
-parity.
+``dataclasses.asdict``-style ``{f.name: getattr(pg, f.name)}``), a
+reference warm block, or a reference LM's parameter pytree. Tests use them
+to run the port's engine on exactly the partitioned graph the reference
+ran on, independently of partitioner parity, and the port's LM on the
+reference's weights (``jax.random`` draws cannot be reproduced in torch).
 """
 from __future__ import annotations
 
@@ -13,11 +14,16 @@ import dataclasses
 from typing import Mapping
 
 import numpy as np
+import torch
 
 from repro_torch.core.api import VertexProgram, numpy_dtype
 from repro_torch.core.subgraph import PartitionedGraph
+from repro_torch.device import DeviceLike
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.model import Model
 
-__all__ = ["partitioned_graph_from_arrays", "warm_block_from_numpy"]
+__all__ = ["model_params_from_numpy", "partitioned_graph_from_arrays",
+           "warm_block_from_numpy"]
 
 _NUMPY_FIELDS = ("gvid", "vmask", "esrc", "edst", "ew", "emask", "slot",
                  "is_frontier", "out_deg", "in_deg", "is_master",
@@ -53,3 +59,42 @@ def warm_block_from_numpy(program: VertexProgram, pg: PartitionedGraph,
     if blk.shape != want:
         raise ValueError(f"warm block has shape {blk.shape}, expected {want}")
     return np.ascontiguousarray(blk.astype(numpy_dtype(program.dtype)))
+
+
+def _flat(tree: Mapping, prefix: str):
+    for name, leaf in tree.items():
+        if isinstance(leaf, Mapping):
+            yield from _flat(leaf, f"{prefix}{name}.")
+        else:
+            yield f"{prefix}{name}", leaf
+
+
+def _tensor(a) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":     # ml_dtypes: numpy has no bfloat16
+        a = a.astype(np.float32)
+    return torch.from_numpy(np.array(a))
+
+
+def model_params_from_numpy(tree: Mapping, cfg: ModelConfig, *,
+                            device: DeviceLike = None) -> Model:
+    """A port ``Model`` holding the weights of the reference's
+    ``init_model(key, cfg)`` pytree, given as numpy arrays: blocks stacked
+    on a leading repeat axis per scan group, ``tree["blocks"][group][pos]``
+    (repeat ``r`` of position ``i`` of group ``g`` is the port's layer
+    ``offset(g) + r * len(pattern) + i``). Every leaf must land on a
+    parameter of the same shape and every parameter must get one."""
+    model = Model(cfg, device=device)
+    state = dict(_flat({k: v for k, v in tree.items() if k != "blocks"},
+                       ""))
+    layer = 0
+    for gi, (pattern, n_rep) in enumerate(cfg.scan_groups()):
+        for r in range(n_rep):
+            for i in range(len(pattern)):
+                for name, leaf in _flat(tree["blocks"][gi][i],
+                                        f"blocks.{layer}."):
+                    state[name] = np.asarray(leaf)[r]
+                layer += 1
+    model.load_state_dict({k: _tensor(v) for k, v in state.items()},
+                          strict=True)
+    return model

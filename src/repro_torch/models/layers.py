@@ -1,0 +1,307 @@
+"""Neural layers of the LM stack, dense part: the port of the JAX package's
+``models/layers.py``.
+
+Each layer is a pure function over tensors under the reference's name
+(``norm_apply``, ``rope``, ``mlp_apply``, ``_sdpa_dense``,
+``_sdpa_blockwise``, ``_sdpa``, ``attention_apply``) and an ``nn.Module``
+(``Norm``, ``MLP``, ``Attention``) that holds the parameters in the
+reference's shapes and calls it, with its float parameters cast to the
+compute dtype it is given (the reference's ``_cast_floats``).
+
+The numerics are the reference's own: norms in float32 cast back; attention
+scores in float32 with a ``-1e30`` mask, the probabilities cast to ``v``'s
+dtype; past ``_SDPA_BLOCK_THRESHOLD`` the online-softmax ``(m, l, acc)``
+loop over KV blocks of 1024, ``acc`` in ``v``'s dtype.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def not_ported(what: str, item: str) -> NotImplementedError:
+    """The error of a part of the LM stack that a later slice ports."""
+    return NotImplementedError(
+        f"{what} is not ported yet: ROADMAP Queue 1 item {item}")
+
+
+# --------------------------------------------------------------------------- #
+# initializers
+# --------------------------------------------------------------------------- #
+def _dense_init(generator: torch.Generator, shape, in_axis_size: int,
+                dtype: torch.dtype) -> torch.Tensor:
+    """Normal(0, 1 / in_axis_size) drawn in float32 from ``generator`` on
+    its device, then cast to ``dtype``."""
+    scale = 1.0 / math.sqrt(max(in_axis_size, 1))
+    w = torch.randn(shape, generator=generator, dtype=torch.float32,
+                    device=generator.device)
+    return (w * scale).to(dtype)
+
+
+def _param(generator: Optional[torch.Generator], shape, in_axis_size: int,
+           dtype: torch.dtype, device) -> nn.Parameter:
+    """A dense weight: drawn by ``_dense_init``, or left uninitialized when
+    there is no generator (weights about to be loaded)."""
+    if generator is None:
+        return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
+    return nn.Parameter(_dense_init(generator, shape, in_axis_size, dtype))
+
+
+def _cast_params(module: nn.Module, dtype: Optional[torch.dtype]) -> dict:
+    """``module``'s own parameters by name, the float ones cast to
+    ``dtype`` (``None`` leaves them as stored)."""
+    return {n: p if dtype is None or not p.is_floating_point()
+            else p.to(dtype)
+            for n, p in module.named_parameters(recurse=False)}
+
+
+# --------------------------------------------------------------------------- #
+# norms
+# --------------------------------------------------------------------------- #
+def norm_apply(params: dict, x: torch.Tensor, kind: str,
+               eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    if kind == "rmsnorm":
+        y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+        return (y * params["scale"].float()).to(x.dtype)
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf - mu).square().mean(-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    if kind == "layernorm":
+        y = y * params["scale"].float() + params["bias"].float()
+    return y.to(x.dtype)
+
+
+class Norm(nn.Module):
+    """``rmsnorm`` (scale), ``layernorm`` (scale, bias) or ``nonparam_ln``
+    (OLMo: no learned affine)."""
+
+    def __init__(self, d: int, kind: str, *, dtype: torch.dtype, device=None):
+        super().__init__()
+        if kind not in ("rmsnorm", "layernorm", "nonparam_ln"):
+            raise ValueError(kind)
+        self.kind = kind
+        if kind != "nonparam_ln":
+            self.scale = nn.Parameter(torch.ones(d, dtype=dtype,
+                                                 device=device))
+        if kind == "layernorm":
+            self.bias = nn.Parameter(torch.zeros(d, dtype=dtype,
+                                                 device=device))
+
+    def forward(self, x: torch.Tensor,
+                dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        return norm_apply(_cast_params(self, dtype), x, self.kind)
+
+
+# --------------------------------------------------------------------------- #
+# rotary embeddings
+# --------------------------------------------------------------------------- #
+def rope(x: torch.Tensor, positions: torch.Tensor, *, theta: float = 10000.0,
+         pct: float = 1.0) -> torch.Tensor:
+    """x [..., S, H, D]; positions [..., S] integer."""
+    D = x.shape[-1]
+    rot = int(D * pct) // 2 * 2
+    if rot == 0:
+        return x
+    xr, xp = x[..., :rot], x[..., rot:]
+    half = rot // 2
+    freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                   device=x.device) / half)
+    # positions [..., S] -> [..., S, 1(H), half]
+    ang = positions[..., :, None, None].to(torch.float32) * freq
+    x1, x2 = xr[..., :half], xr[..., half:]
+    c, s = torch.cos(ang), torch.sin(ang)
+    y = torch.cat([x1 * c - x2 * s, x1 * s + x2 * c], -1)
+    return torch.cat([y.to(x.dtype), xp], -1)
+
+
+# --------------------------------------------------------------------------- #
+# dense MLP (swiglu / gelu)
+# --------------------------------------------------------------------------- #
+def mlp_apply(params: dict, x: torch.Tensor, act: str) -> torch.Tensor:
+    if act == "swiglu":
+        h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
+        return h @ params["w_down"]
+    # jax.nn.gelu's default is the tanh approximation
+    h = F.gelu(x @ params["w_in"], approximate="tanh")
+    return h @ params["w_out"]
+
+
+class MLP(nn.Module):
+    def __init__(self, d: int, d_ff: int, act: str, *, dtype: torch.dtype,
+                 device=None, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.act = act
+        if act == "swiglu":
+            self.w_gate = _param(generator, (d, d_ff), d, dtype, device)
+            self.w_up = _param(generator, (d, d_ff), d, dtype, device)
+            self.w_down = _param(generator, (d_ff, d), d_ff, dtype, device)
+        else:
+            self.w_in = _param(generator, (d, d_ff), d, dtype, device)
+            self.w_out = _param(generator, (d_ff, d), d_ff, dtype, device)
+
+    def forward(self, x: torch.Tensor,
+                dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        return mlp_apply(_cast_params(self, dtype), x, self.act)
+
+
+# --------------------------------------------------------------------------- #
+# GQA attention (with optional decode cache)
+# --------------------------------------------------------------------------- #
+_SDPA_BLOCK_THRESHOLD = 4096 * 4096   # T*S above this -> blockwise path
+_SDPA_KV_BLOCK = 1024
+_MASKED = -1e30
+
+
+def _sdpa_dense(q, k, v, *, causal: bool, q_offset: int,
+                kv_len_valid: Optional[int] = None, soft_cap: float = 0.0):
+    """q [B,T,H,D], k/v [B,S,Hkv,D] -> [B,T,H,D]; GQA via head grouping."""
+    B, T, H, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    qg = q.reshape(B, T, Hkv, G, D)
+    scores = torch.einsum("bthgd,bshd->bhgts", qg, k) / math.sqrt(D)
+    scores = scores.float()
+    if soft_cap > 0:
+        scores = soft_cap * torch.tanh(scores / soft_cap)
+    tpos = torch.arange(T, device=q.device)[:, None] + q_offset
+    spos = torch.arange(S, device=q.device)[None, :]
+    mask = torch.ones((T, S), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= spos <= tpos
+    if kv_len_valid is not None:
+        mask &= spos < kv_len_valid
+    scores = torch.where(mask, scores, _MASKED)
+    p = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bhgts,bshd->bthgd", p, v)
+    return out.reshape(B, T, H, v.shape[-1])
+
+
+def _sdpa_blockwise(q, k, v, *, causal: bool, q_offset: int,
+                    kv_len_valid: Optional[int] = None, soft_cap: float = 0.0,
+                    kv_block: int = _SDPA_KV_BLOCK):
+    """Online-softmax blockwise attention (the flash-attention dataflow in
+    plain PyTorch): a loop over KV blocks with an (m, l, acc) carry, so
+    O(T * kv_block) scores are live instead of O(T * S). The long-context
+    prefill path. The in-place steps round as the reference's out-of-place
+    ones do."""
+    B, T, H, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    Dv = v.shape[-1]
+    nb = -(-S // kv_block)
+    pad = nb * kv_block - S
+    k = F.pad(k, (0, 0, 0, 0, 0, pad))
+    v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    qg = q.reshape(B, T, Hkv, G, D)
+    tpos = torch.arange(T, device=q.device) + q_offset
+    valid_len = S if kv_len_valid is None else kv_len_valid
+
+    m = torch.full((B, Hkv, G, T), -math.inf, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, Hkv, G, T), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, Hkv, G, T, Dv), dtype=v.dtype, device=q.device)
+    for j in range(nb):
+        kj = k[:, j * kv_block:(j + 1) * kv_block]
+        vj = v[:, j * kv_block:(j + 1) * kv_block]
+        spos = j * kv_block + torch.arange(kv_block, device=q.device)
+        s = torch.einsum("bthgd,bshd->bhgts", qg, kj).float()
+        s.div_(math.sqrt(D))
+        if soft_cap > 0:
+            s = soft_cap * torch.tanh(s / soft_cap)
+        mask = spos[None, :] < valid_len
+        if causal:
+            mask = mask & (spos[None, :] <= tpos[:, None])
+        s.masked_fill_(~mask, _MASKED)
+        m2 = torch.maximum(m, s.amax(-1))
+        corr = torch.exp(m - m2)
+        p = s.sub_(m2[..., None]).exp_()
+        l = l * corr + p.sum(-1)
+        pv = torch.einsum("bhgts,bshd->bhgtd", p.to(vj.dtype), vj)
+        acc = acc * corr[..., None].to(acc.dtype) + pv
+        m = m2
+    out = acc / torch.clamp_min(l, 1e-30)[..., None].to(acc.dtype)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, T, H, Dv)
+
+
+def _sdpa(q, k, v, *, causal: bool, q_offset: int,
+          kv_len_valid: Optional[int] = None, soft_cap: float = 0.0):
+    T, S = q.shape[1], k.shape[1]
+    if T * S > _SDPA_BLOCK_THRESHOLD and T > 1:
+        return _sdpa_blockwise(q, k, v, causal=causal, q_offset=q_offset,
+                               kv_len_valid=kv_len_valid, soft_cap=soft_cap)
+    return _sdpa_dense(q, k, v, causal=causal, q_offset=q_offset,
+                       kv_len_valid=kv_len_valid, soft_cap=soft_cap)
+
+
+def attention_apply(params: dict, x: torch.Tensor, cfg, *,
+                    positions: torch.Tensor, causal: bool = True,
+                    cache: Optional[dict] = None):
+    """cache: None (full sequence) or dict(k, v [B,Smax,Hkv,D], idx int).
+    Returns (y, new_cache).
+
+    The cache's k/v are written in place at ``idx`` (the caller hands the
+    cache over, as the reference's serve loop donates it) and ``idx`` is a
+    host int. A write that would run past ``Smax`` raises ``ValueError``,
+    where the reference's ``dynamic_update_slice`` clamps the start and
+    overwrites earlier positions."""
+    T = x.shape[1]
+    q = (x @ params["wq"].flatten(1)).unflatten(-1, params["wq"].shape[1:])
+    k = (x @ params["wk"].flatten(1)).unflatten(-1, params["wk"].shape[1:])
+    v = (x @ params["wv"].flatten(1)).unflatten(-1, params["wv"].shape[1:])
+    q = rope(q, positions, theta=cfg.rope_theta, pct=cfg.rotary_pct)
+    k = rope(k, positions, theta=cfg.rope_theta, pct=cfg.rotary_pct)
+    if cache is None:
+        out = _sdpa(q, k, v, causal=causal, q_offset=0,
+                    soft_cap=cfg.attn_logit_soft_cap)
+        new_cache = {"k": k, "v": v, "idx": T}
+    else:
+        idx = cache["idx"]
+        ck, cv = cache["k"], cache["v"]
+        if idx + T > ck.shape[1]:
+            raise ValueError(f"the KV cache holds {ck.shape[1]} positions; "
+                             f"writing {T} at {idx} runs past it")
+        ck[:, idx:idx + T] = k
+        cv[:, idx:idx + T] = v
+        out = _sdpa(q, ck, cv, causal=causal, q_offset=idx,
+                    kv_len_valid=idx + T, soft_cap=cfg.attn_logit_soft_cap)
+        new_cache = {"k": ck, "v": cv, "idx": idx + T}
+    y = out.flatten(2) @ params["wo"].flatten(0, 1)
+    return y, new_cache
+
+
+class Attention(nn.Module):
+    """GQA self-attention: wq [d,H,Dh], wk/wv [d,Hkv,Dh], wo [H,Dh,d]."""
+
+    def __init__(self, cfg, *, dtype: torch.dtype, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.cfg = cfg
+        d, H, Hkv, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        self.wq = _param(generator, (d, H, Dh), d, dtype, device)
+        self.wk = _param(generator, (d, Hkv, Dh), d, dtype, device)
+        self.wv = _param(generator, (d, Hkv, Dh), d, dtype, device)
+        self.wo = _param(generator, (H, Dh, d), H * Dh, dtype, device)
+
+    def forward(self, x: torch.Tensor, *, positions: torch.Tensor,
+                causal: bool = True, cache: Optional[dict] = None,
+                dtype: Optional[torch.dtype] = None):
+        return attention_apply(_cast_params(self, dtype), x, self.cfg,
+                               positions=positions, causal=causal,
+                               cache=cache)
+
+
+# --------------------------------------------------------------------------- #
+# MLA and cross-attention: later slices
+# --------------------------------------------------------------------------- #
+def mla_apply(*args, **kwargs):
+    raise not_ported("MLA (multi-head latent attention)", "5c (MLA + MTP)")
+
+
+def cross_attention_apply(*args, **kwargs):
+    raise not_ported("cross-attention",
+                     "5f (encoder-decoder and frontend stubs)")

@@ -1,0 +1,212 @@
+"""Model assembly: config -> init / forward / prefill / decode. The port of
+the JAX package's ``models/model.py`` for dense and GQA attention blocks.
+
+``Model`` is an ``nn.Module``: the token embedding ``embed`` [V, d], the
+final norm, an ``lm_head`` [d, V] unless the embeddings are tied, and the
+blocks as an ``nn.ModuleList`` in the reference's layer order (its scan
+groups, repeat by repeat, position by position). The module-level
+functions keep the reference's names and arguments, with the model in
+place of the parameter pytree.
+
+A decode cache is a list with one dict per layer, ``{"k", "v": [B, max_len,
+Hkv, Dh] in the activation dtype, "idx": int}``; ``prefill`` and
+``decode_step`` write it in place and return it with ``idx`` advanced.
+There is one card, so the reference's sharding hints have no counterpart,
+and ``fsdp_gather_weights`` / ``tp_bf16_payload`` change no number.
+MoE, MLA, the SSM mixers, the encoder, the frontend stubs and MTP are
+later slices: a config that needs one is refused by ``Model``.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.config import BlockSpec, ModelConfig
+from repro_torch.models.layers import (MLP, Attention, Norm, _param,
+                                       not_ported)
+
+_MIXER_ITEMS = {"mla": "5c (MLA + MTP)",
+                "mamba": "5d (Mamba and the hybrid pattern)",
+                "mlstm": "5e (mLSTM / sLSTM)", "slstm": "5e (mLSTM / sLSTM)"}
+_ENC_DEC_ITEM = "5f (encoder-decoder and frontend stubs)"
+
+
+def _dtype(name: str) -> torch.dtype:
+    return getattr(torch, name)
+
+
+def _check_spec(spec: BlockSpec) -> None:
+    if spec.mixer != "attn":
+        raise not_ported(f"mixer {spec.mixer!r}",
+                         _MIXER_ITEMS.get(spec.mixer, spec.mixer))
+    if spec.cross:
+        raise not_ported("cross-attention", _ENC_DEC_ITEM)
+    if spec.mlp == "moe":
+        raise not_ported("the MoE MLP", "5b (MoE)")
+    if spec.mlp != "dense":
+        raise not_ported(f"mlp {spec.mlp!r}", _MIXER_ITEMS["mlstm"])
+
+
+def _check_ported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` naming the ROADMAP item of the first
+    part of ``cfg`` that the port does not run yet."""
+    if cfg.n_enc_layers:
+        raise not_ported("the encoder", _ENC_DEC_ITEM)
+    if cfg.frontend:
+        raise not_ported(f"the {cfg.frontend} frontend", _ENC_DEC_ITEM)
+    if cfg.mtp_depth:
+        raise not_ported("multi-token prediction", "5c (MLA + MTP)")
+    for spec in cfg.layer_pattern():
+        _check_spec(spec)
+
+
+# --------------------------------------------------------------------------- #
+# one block
+# --------------------------------------------------------------------------- #
+class Block(nn.Module):
+    """One pre-norm layer: ``x + mixer(norm1(x))``, then ``x +
+    mlp(norm2(x))`` (the reference's ``init_block`` / ``block_apply``).
+    Its float parameters are used in the activation dtype."""
+
+    def __init__(self, spec: BlockSpec, cfg: ModelConfig, *,
+                 dtype: torch.dtype, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        _check_spec(spec)
+        self.cfg = cfg
+        self.norm1 = Norm(cfg.d_model, cfg.norm, dtype=dtype, device=device)
+        self.mixer = Attention(cfg, dtype=dtype, device=device,
+                               generator=generator)
+        self.norm2 = Norm(cfg.d_model, cfg.norm, dtype=dtype, device=device)
+        self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.act, dtype=dtype,
+                       device=device, generator=generator)
+
+    def forward(self, x: torch.Tensor, *, positions: torch.Tensor,
+                causal: bool = True, cache: Optional[dict] = None):
+        """Returns (x, new_cache)."""
+        dtype = _dtype(self.cfg.activation_dtype)
+        h = self.norm1(x, dtype)
+        out, new_cache = self.mixer(h, positions=positions, causal=causal,
+                                    cache=cache, dtype=dtype)
+        x = x + out.to(x.dtype)
+        h = self.norm2(x, dtype)
+        x = x + self.mlp(h, dtype).to(x.dtype)
+        return x, new_cache
+
+
+# --------------------------------------------------------------------------- #
+# full model
+# --------------------------------------------------------------------------- #
+class Model(nn.Module):
+    """The parameters of a dense LM. With a ``generator`` the weights are
+    drawn from it (on its device); without one they are left
+    uninitialized, for ``interop.model_params_from_numpy`` to load."""
+
+    def __init__(self, cfg: ModelConfig, *, device: DeviceLike = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        _check_ported(cfg)
+        dev = resolve_device(device)
+        dtype = _dtype(cfg.param_dtype)
+        self.cfg = cfg
+        self.embed = _param(generator, (cfg.vocab, cfg.d_model), cfg.d_model,
+                            dtype, dev)
+        self.final_norm = Norm(cfg.d_model, cfg.norm, dtype=dtype,
+                               device=dev)
+        if cfg.tie_embeddings:
+            self.register_parameter("lm_head", None)
+        else:
+            self.lm_head = _param(generator, (cfg.d_model, cfg.vocab),
+                                  cfg.d_model, dtype, dev)
+        self.blocks = nn.ModuleList(
+            Block(spec, cfg, dtype=dtype, device=dev, generator=generator)
+            for spec in cfg.layer_pattern())
+
+    def forward(self, batch: dict):
+        return forward(self, batch, self.cfg)
+
+
+def init_model(cfg: ModelConfig, *, seed: int = 0,
+               device: DeviceLike = None) -> Model:
+    """A model with its weights drawn from a ``torch.Generator`` seeded
+    with ``seed`` on ``device`` (the CUDA card unless ``device="cpu"``).
+    The draws are the port's own: ``jax.random`` streams are not
+    reproduced, so parity with the reference runs on carried weights."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return Model(cfg, device=dev, generator=gen)
+
+
+def _embed_inputs(model: Model, batch: dict, cfg: ModelConfig):
+    return model.embed[batch["tokens"].long()].to(
+        _dtype(cfg.activation_dtype))
+
+
+def _lm_logits(model: Model, h: torch.Tensor, cfg: ModelConfig):
+    head = model.embed.T if cfg.tie_embeddings else model.lm_head
+    return h @ head.to(h.dtype)
+
+
+def _apply_blocks(model: Model, x, *, positions, caches=None):
+    new_caches = []
+    for i, blk in enumerate(model.blocks):
+        x, nc = blk(x, positions=positions, causal=True,
+                    cache=None if caches is None else caches[i])
+        new_caches.append(nc)
+    return x, new_caches
+
+
+def forward(model: Model, batch: dict, cfg: ModelConfig):
+    """Full-sequence forward -> (logits [B,S,V], aux dict)."""
+    x = _embed_inputs(model, batch, cfg)
+    pos = torch.arange(x.shape[1], device=x.device)
+    x, _ = _apply_blocks(model, x, positions=pos)
+    h = model.final_norm(x)
+    return _lm_logits(model, h, cfg), {
+        "moe_dropped": torch.zeros((), dtype=torch.float32,
+                                   device=x.device)}
+
+
+# --------------------------------------------------------------------------- #
+# decode
+# --------------------------------------------------------------------------- #
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+               device: DeviceLike = None) -> list:
+    """A zeroed decode cache of capacity ``max_len``, one dict per layer
+    (the reference returns its shapes; the port allocates it)."""
+    dev = resolve_device(device)
+    dtype = _dtype(cfg.activation_dtype)
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return [{"k": torch.zeros(shape, dtype=dtype, device=dev),
+             "v": torch.zeros(shape, dtype=dtype, device=dev), "idx": 0}
+            for _ in range(cfg.n_layers)]
+
+
+@torch.no_grad()
+def decode_step(model: Model, caches: list, batch: dict, cfg: ModelConfig):
+    """One-token decode: batch['tokens'] [B,1]. Returns (logits [B,1,V],
+    new_caches); ``caches`` is consumed."""
+    x = _embed_inputs(model, batch, cfg)
+    # positions from the first layer's idx (uniform across the batch)
+    idx = caches[0]["idx"]
+    pos = torch.arange(idx, idx + 1, device=x.device)
+    x, new_caches = _apply_blocks(model, x, positions=pos, caches=caches)
+    h = model.final_norm(x)
+    return _lm_logits(model, h, cfg), new_caches
+
+
+@torch.no_grad()
+def prefill(model: Model, batch: dict, cfg: ModelConfig, max_len: int):
+    """Run the full prompt through zeroed caches of capacity ``max_len``
+    (attention over the whole cache, ``kv_len_valid`` = prompt length).
+    Returns (last-position logits [B,1,V], caches)."""
+    B = batch["tokens"].shape[0]
+    caches = init_cache(cfg, B, max_len, device=model.embed.device)
+    x = _embed_inputs(model, batch, cfg)
+    pos = torch.arange(x.shape[1], device=x.device)
+    x, new_caches = _apply_blocks(model, x, positions=pos, caches=caches)
+    h = model.final_norm(x[:, -1:])
+    return _lm_logits(model, h, cfg), new_caches

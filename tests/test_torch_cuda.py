@@ -492,3 +492,37 @@ def test_kernels_on_shard_lists_with_an_empty_shard(cuda, semiring):
                                        rtol=1e-5, atol=1e-5)
             torch.testing.assert_close(torch.stack(wins).sum(0), want_w,
                                        rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["olmo_1b", "phi4_mini_3p8b",
+                                  "stablelm_3b"])
+def test_lm_serving_on_card_matches_cpu(cuda, arch):
+    """The LM serving path at a smoke config, float32 with TF32 off: the
+    card's forward and cached decode logits against the same weights on
+    the CPU within 1e-4, and equal greedy tokens."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as M
+    from repro_torch.training import steps as S
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config(arch)
+    card = M.init_model(cfg, seed=3, device=cuda)
+    cpu = M.Model(cfg, device="cpu")
+    cpu.load_state_dict(card.state_dict())
+    toks = torch.randint(0, cfg.vocab, (2, 12),
+                         generator=torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        lc, _ = M.forward(card, {"tokens": toks.to(cuda)}, cfg)
+        lh, _ = M.forward(cpu, {"tokens": toks}, cfg)
+    torch.testing.assert_close(lc.cpu(), lh, rtol=0, atol=1e-4)
+    out = []
+    for model, dev in ((card, cuda), (cpu, "cpu")):
+        nxt, caches = S.make_prefill_step(cfg, 20)(
+            model, {"tokens": toks[:, :8].to(dev)})
+        got = [nxt.cpu()]
+        for _ in range(7):
+            nxt, caches = S.make_serve_step(cfg)(model, caches,
+                                                 {"tokens": nxt[:, None]})
+            got.append(nxt.cpu())
+        out.append(torch.stack(got, dim=1))
+    assert torch.equal(out[0], out[1])

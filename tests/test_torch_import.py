@@ -200,3 +200,59 @@ def test_algos_export_the_reference_suite():
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr + out.stdout
+
+
+def test_lm_stack_loads_no_jax():
+    """``repro_torch.models``, ``repro_torch.configs`` (every arch module)
+    and ``repro_torch.training`` load no ``jax`` and no module of the JAX
+    package, nor does a prefill and a decode step on the CPU."""
+    code = ("import sys, torch\n"
+            "import repro_torch.models, repro_torch.models.model as M\n"
+            "import repro_torch.configs as C, repro_torch.training\n"
+            "from repro_torch.training import steps as S\n"
+            "for a in C.ARCHS: C.get_config(a); C.get_smoke_config(a)\n"
+            "cfg = C.get_smoke_config('phi4_mini_3p8b')\n"
+            "m = M.init_model(cfg, device='cpu')\n"
+            "t = torch.zeros((2, 5), dtype=torch.int32)\n"
+            "nxt, c = S.make_prefill_step(cfg, 8)(m, {'tokens': t})\n"
+            "nxt, c = S.make_serve_step(cfg)(m, c, {'tokens': nxt[:, None]})\n"
+            "assert c[0]['idx'] == 6\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]\n"
+            "print(bad); assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr + out.stdout
+
+
+@pytest.mark.parametrize("arch,item", [
+    ("deepseek_v3_671b", "5c"), ("phi35_moe_42b", "5b"),
+    ("jamba_v01_52b", "5d"), ("xlstm_350m", "5e"), ("internvl2_26b", "5f"),
+    ("seamless_m4t_large_v2", "5f")])
+def test_unported_lm_archs_raise_not_implemented(arch, item):
+    """MoE, MLA, hybrid, ssm, vlm and audio configs are later slices: the
+    model refuses them, naming the ROADMAP item, before it allocates
+    anything (the full configs too)."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.models.model import init_model
+    for cfg in (get_smoke_config(arch), get_config(arch)):
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
+            init_model(cfg, device="cpu")
+
+
+def test_lm_entry_points_refuse_missing_gpu(monkeypatch):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.interop import model_params_from_numpy
+    from repro_torch.models.model import Model, init_cache, init_model
+
+    cfg = get_smoke_config("olmo_1b")
+    tree = {n: p.detach().numpy() for n, p in
+            init_model(cfg, device="cpu").named_parameters()}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: init_model(cfg), lambda: Model(cfg),
+                 lambda: init_cache(cfg, 1, 8),
+                 lambda: model_params_from_numpy(tree, cfg)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert init_cache(cfg, 1, 8, device="cpu")[0]["k"].device.type == "cpu"
