@@ -173,6 +173,40 @@ Phases (the run exits non-zero if any of them fails):
      TB/s, 989 bf16 TFLOP/s), and the device's busy time and idle share
      under the profiler.
 
+ 12. The MoE family on the LM serving path (``repro_torch.models.moe``,
+     MLA, MTP; no kernel of its own), seeded bf16 weights, TF32 off, each
+     model freed before the next. 12a: phi3.5-MoE-42B at full width
+     (d_model 4096, 32 heads, GQA kv 8, 16 experts top-2, d_ffe 6400,
+     vocab 32,064, capacity 1.25), depth cut from 32 to 28 layers
+     (36,671,529,408 parameters, 68.31 GiB). 12b: DeepSeek-V3 at full width
+     (d_model 7168, 128 heads, MLA q_lora 1536 / kv_lora 512 / rope 64, 3
+     dense layers then MoE of 256 experts top-8 plus 1 shared expert,
+     d_ffe 2048, aux-free bias, vocab 129,280) cut from 61 to 5 layers plus
+     its MTP module (27,587,293,696 parameters, 51.39 GiB). Each serves
+     ``examples/serve_lm.py``'s defaults through the step builders (timed
+     after a warm-up), then replays the same inputs through ``prefill`` /
+     ``decode_step`` with forward hooks on the ``MoE`` modules (``MoeTap``:
+     each call's dropped share, expert load and router picks): the replay
+     reproduces the served tokens, no decode step drops a pair, every
+     logit is finite, and the prefill's last logits equal ``forward`` on
+     the same prompt (same token count, so the same drops) within
+     LM_BF16_ATOL, the router picks of the two compared (a differing pick
+     must be a near-tie, and its batch row leaves the logit check). It
+     prints each layer's prefill drop share and expert load, the MLA
+     cache's bytes beside per-head keys and values of the same heads, and
+     checks ``mtp_logits`` on the forward's ``mtp_hidden`` ([B, S, V],
+     finite); 4 decode steps run under ``torch.profiler``. 12c: each model
+     cut to 2 layers in float32 (DeepSeek: 1 dense layer, 16 of its 256
+     routed experts), the card against the CPU on the same weights:
+     forward logits within LM_FP32_ATOL, ``moe_dropped`` equal, the router
+     picks equal (or differing at near-ties, counted), 8 greedy tokens
+     equal. It prints prefill time, decode time per step and tokens/s,
+     peak device memory, each beside its bound (``lm_work``: only the
+     routed experts a step sends a kept pair to, the shared expert, the
+     router and the attention and dense weights read once, the MLA latent
+     cache read once; the top-k kept pairs' and the shared expert's
+     operations), and the device's idle share.
+
 A small-graph check holds the three programs against independent numpy
 oracles on all three backends. The kernel JSON line gives each kernel's
 launches per phase (``launches`` = phases 3-4, ``launches_streaming`` =
@@ -3371,23 +3405,70 @@ def lm_config():
     return get_config(LM_ARCH)
 
 
-def lm_work(cfg, param_bytes: int, batch: int, new: int, past: int,
-            logits_rows: int) -> tuple:
+def lm_work(cfg, model, batch: int, new: int, past: int, used=(),
+            kept_pairs=()) -> tuple:
     """(bytes, ops) the least a forward of ``new`` tokens per lane over a
-    KV cache already holding ``past`` must move and compute: every weight
-    read once, the cache's valid keys and values read once and the new ones
-    written, the logits written; the matmuls and the causal attention
-    (each query against the keys at or before it)."""
-    L, d, H, Hkv, Dh = (cfg.n_layers, cfg.d_model, cfg.n_heads,
-                        cfg.n_kv_heads, cfg.head_dim)
+    cache holding ``past`` must move and compute: the weights it uses read
+    once (each routed expert only where a kept pair goes to it, given as
+    ``used`` per MoE layer; the shared expert, the router, attention and
+    dense MLPs whole; the embedding rows gathered unless tied; no MTP
+    weight), the valid cache read once and the new positions written (MLA:
+    its latent ``ckv`` + ``kr``), the last logits written; operations of
+    the matmuls (the top-k kept pairs, ``kept_pairs`` per MoE layer, and
+    the shared expert) and of attention over the causal pairs, each query
+    against the keys at or before it (MLA in the cheaper of its two
+    forms: keys and values expanded from the latent for every position,
+    or the up-projections absorbed into the query and output)."""
+    from repro_torch.models.layers import MLA
+    from repro_torch.models.moe import MoE
+    d, H, V = cfg.d_model, cfg.n_heads, cfg.vocab
     act = 2 if cfg.activation_dtype == "bfloat16" else 4
-    per_layer = d * (H + 2 * Hkv) * Dh + H * Dh * d + 3 * d * cfg.d_ff
-    pairs = new * past + new * (new + 1) // 2      # (query, key) per lane
-    ops = (2 * batch * new * per_layer * L + 4 * L * batch * H * Dh * pairs
-           + 2 * batch * logits_rows * d * cfg.vocab)
-    kv = 2 * L * batch * Hkv * Dh * act
-    nbytes = (param_bytes + kv * (past + new)
-              + batch * logits_rows * cfg.vocab * act)
+    T = batch * new
+    pairs = batch * (new * past + new * (new + 1) // 2)
+    positions = batch * (past + new)
+    nbytes = batch * V * act                               # last logits
+    ops = 2 * batch * d * V
+    emb = model.embed
+    nbytes += (emb.numel() if cfg.tie_embeddings
+               else T * d) * emb.element_size()
+    if not cfg.tie_embeddings:
+        nbytes += model.lm_head.numel() * model.lm_head.element_size()
+    nbytes += sum(p.numel() * p.element_size()
+                  for p in model.final_norm.parameters())
+    moe_i = 0
+    for blk in model.blocks:
+        for name, p in blk.named_parameters():
+            if not (isinstance(blk.mlp, MoE) and name in (
+                    "mlp.w_gate", "mlp.w_up", "mlp.w_down")):
+                nbytes += p.numel() * p.element_size()
+        if isinstance(blk.mixer, MLA):
+            m = cfg.mla
+            qk, r = m.nope_head_dim + m.rope_head_dim, m.kv_lora_rank
+            ops += 2 * T * (d * m.q_lora_rank + m.q_lora_rank * H * qk
+                            + d * (r + m.rope_head_dim)
+                            + H * m.v_head_dim * d)
+            expand = (2 * positions * r * H * (m.nope_head_dim
+                                                + m.v_head_dim)
+                      + pairs * 2 * H * (qk + m.v_head_dim))
+            absorb = (2 * T * H * r * (m.nope_head_dim + m.v_head_dim)
+                      + pairs * 2 * H * (r + m.rope_head_dim + r))
+            ops += min(expand, absorb)
+            nbytes += positions * (r + m.rope_head_dim) * act
+        else:
+            Hkv, Dh = cfg.n_kv_heads, cfg.head_dim
+            ops += 2 * T * (d * (H + 2 * Hkv) * Dh + H * Dh * d)
+            ops += 4 * H * Dh * pairs
+            nbytes += positions * 2 * Hkv * Dh * act
+        if isinstance(blk.mlp, MoE):
+            mc = cfg.moe
+            d_ffe = mc.d_ff_expert or cfg.d_ff
+            per_expert = 3 * d * d_ffe
+            nbytes += used[moe_i] * per_expert * blk.mlp.w_gate.element_size()
+            ops += (2 * T * d * mc.n_experts + 2 * kept_pairs[moe_i]
+                    * per_expert + 2 * T * mc.n_shared * per_expert)
+            moe_i += 1
+        else:
+            ops += 2 * T * 3 * d * cfg.d_ff
     return nbytes, ops
 
 
@@ -3414,6 +3495,26 @@ def lm_replay(M, model, cfg, prompts, toks, max_len):
                                    {"tokens": toks[:, i:i + 1]}, cfg)
         out.append(lg)
     return torch.cat(out, dim=1)
+
+
+def lm_serve_timed(S, model, cfg, prompts, gen: int):
+    """serve_lm's loop through the step builders: (tokens [B, gen],
+    prefill seconds, decode seconds, the cache after the last step)."""
+    import torch
+    prefill = S.make_prefill_step(cfg, prompts.shape[1] + gen)
+    step = S.make_serve_step(cfg)
+    lm_sync()
+    t0 = time.perf_counter()
+    nxt, caches = prefill(model, {"tokens": prompts})
+    lm_sync()
+    t1 = time.perf_counter()
+    out = [nxt]
+    for _ in range(gen - 1):
+        nxt, caches = step(model, caches, {"tokens": nxt[:, None]})
+        out.append(nxt)
+    lm_sync()
+    return (torch.stack(out, dim=1), t1 - t0, time.perf_counter() - t1,
+            caches)
 
 
 def lm_check_greedy(sm: Smoke, label: str, toks, steps, full, atol: float):
@@ -3498,7 +3599,7 @@ def lm_note_profile(sm: Smoke, label: str, prof: dict) -> None:
                                 for t in prof["top"]))
 
 
-def lm_serve_part(sm: Smoke, M, S, model, cfg, param_bytes, ident) -> dict:
+def lm_serve_part(sm: Smoke, M, S, model, cfg, ident) -> dict:
     """11a: serve_lm's defaults through the step builders, timed; then the
     same inputs replayed through ``prefill`` / ``decode_step`` for their
     logits, held against ``forward`` over the prompt and the tokens."""
@@ -3508,25 +3609,9 @@ def lm_serve_part(sm: Smoke, M, S, model, cfg, param_bytes, ident) -> dict:
     gen = torch.Generator(device=DEVICE).manual_seed(1)
     prompts = torch.randint(0, cfg.vocab, (B, P), generator=gen,
                             device=DEVICE)
-    prefill = S.make_prefill_step(cfg, max_len)
-    step = S.make_serve_step(cfg)
-
-    def serve():
-        lm_sync()
-        t0 = time.perf_counter()
-        nxt, caches = prefill(model, {"tokens": prompts})
-        lm_sync()
-        t1 = time.perf_counter()
-        out = [nxt]
-        for _ in range(G - 1):
-            nxt, caches = step(model, caches, {"tokens": nxt[:, None]})
-            out.append(nxt)
-        lm_sync()
-        return torch.stack(out, dim=1), t1 - t0, time.perf_counter() - t1
-
-    serve()                                    # warm-up: cuBLAS plans
+    lm_serve_timed(S, model, cfg, prompts, G)     # warm-up: cuBLAS plans
     torch.cuda.reset_peak_memory_stats()
-    toks, prefill_s, decode_s = serve()
+    toks, prefill_s, decode_s, _ = lm_serve_timed(S, model, cfg, prompts, G)
     peak = torch.cuda.max_memory_allocated()
     sm.check(toks.shape == (B, G) and bool(((toks >= 0)
                                              & (toks < cfg.vocab)).all()),
@@ -3544,11 +3629,11 @@ def lm_serve_part(sm: Smoke, M, S, model, cfg, param_bytes, ident) -> dict:
              f"11a: logits in {full.dtype} (bf16 activations)")
     chk = lm_check_greedy(sm, "11a", toks, steps, full[:, P - 1:],
                           LM_BF16_ATOL)
-    pb, po = lm_work(cfg, param_bytes, B, P, 0, 1)
+    pb, po = lm_work(cfg, model, B, P, 0)
     p_bound, p_by = lm_bound_ms(pb, po, BF16_OPS_PER_S)
     d_bound = 0.0
     for i in range(G - 1):
-        db, do = lm_work(cfg, param_bytes, B, 1, P + i, 1)
+        db, do = lm_work(cfg, model, B, 1, P + i)
         d_bound += lm_bound_ms(db, do, BF16_OPS_PER_S)[0]
     d_ms = decode_s * 1e3 / (G - 1)
     rec = dict(batch=B, prompt=P, gen=G, prefill_ms=prefill_s * 1e3,
@@ -3620,7 +3705,7 @@ def lm_attention_profile(sm: Smoke, cfg) -> dict:
     return dict(attention_layer_ms=ms, attention_profile=prof)
 
 
-def lm_long_part(sm: Smoke, M, model, cfg, param_bytes, ident) -> dict:
+def lm_long_part(sm: Smoke, M, model, cfg, ident) -> dict:
     """11b: one long request, a 32,768-token prompt at batch 1 and 16
     greedy steps through ``prefill`` / ``decode_step`` (timed), held
     against ``forward`` over the same 32,783 tokens."""
@@ -3660,9 +3745,9 @@ def lm_long_part(sm: Smoke, M, model, cfg, param_bytes, ident) -> dict:
     t3 = time.perf_counter()
     rec.update(lm_attention_profile(sm, cfg))
     rec.update(lm_check_greedy(sm, "11b", toks, steps, full, LM_BF16_ATOL))
-    pb, po = lm_work(cfg, param_bytes, 1, P, 0, 1)
+    pb, po = lm_work(cfg, model, 1, P, 0)
     p_bound, p_by = lm_bound_ms(pb, po, BF16_OPS_PER_S)
-    d_bound = sum(lm_bound_ms(*lm_work(cfg, param_bytes, 1, 1, P + i, 1),
+    d_bound = sum(lm_bound_ms(*lm_work(cfg, model, 1, 1, P + i),
                               BF16_OPS_PER_S)[0] for i in range(G - 1))
     rec.update(prompt=P, gen=G, prefill_ms=(t1 - t0) * 1e3,
                prefill_bound_ms=p_bound, prefill_bound_by=p_by,
@@ -3735,8 +3820,8 @@ def lm_path(sm: Smoke, ident: str) -> dict:
              f"11: {cfg.name}, {cfg.n_layers} layers, {n_params} parameters "
              f"({param_bytes} bytes, {cfg.param_dtype}), drawn in "
              f"{init_s:.2f}s")
-    serve = lm_serve_part(sm, M, S, model, cfg, param_bytes, ident)
-    long = lm_long_part(sm, M, model, cfg, param_bytes, ident)
+    serve = lm_serve_part(sm, M, S, model, cfg, ident)
+    long = lm_long_part(sm, M, model, cfg, ident)
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -3745,6 +3830,341 @@ def lm_path(sm: Smoke, ident: str) -> dict:
     return dict(arch=cfg.name, layers=cfg.n_layers, params=n_params,
                 param_bytes=param_bytes, init_s=init_s, serve=serve,
                 long=long, cpu=cpu, seconds=time.perf_counter() - t0)
+
+
+# --------------------------------------------------------------------------- #
+# phase 12: the MoE family on the LM serving path
+# --------------------------------------------------------------------------- #
+# (label, arch, the depth cut); full width, seeded bf16 weights
+MOE_CELLS = (("12a", "phi35_moe_42b", 28), ("12b", "deepseek_v3_671b", 5))
+MOE_CPU_LAYERS = 2                   # 12c: full width, depth cut to 2
+MOE_CPU_EXPERTS = 16                 # 12c DeepSeek: routed experts 256 -> 16
+MOE_PROFILE_STEPS = 4                # decode steps under torch.profiler
+
+
+class MoeTap:
+    """Forward hooks on a model's MoE modules. While ``on``, each call
+    records the layer's stats (``dropped``, ``load``) and its router's
+    picks, selection scores and top-k margin (the k-th score less the
+    (k+1)-th), recomputed from the layer's input by ``moe._route``."""
+
+    def __init__(self, model):
+        from repro_torch.models.moe import MoE
+        self.on, self.calls = False, []
+        self.handles = [blk.mlp.register_forward_hook(self._hook(i))
+                        for i, blk in enumerate(model.blocks)
+                        if isinstance(blk.mlp, MoE)]
+        self.n_layers = len(self.handles)
+
+    def _hook(self, layer):
+        def hook(mod, args, out):
+            if not self.on:
+                return
+            from repro_torch.models.layers import _cast_params
+            from repro_torch.models.moe import _route
+            x, dtype = args[0], args[1] if len(args) > 1 else None
+            k = mod.cfg.moe.top_k
+            sel, idx, _ = _route(_cast_params(mod, dtype),
+                                    x.reshape(-1, x.shape[-1]), mod.cfg.moe)
+            top = sel.topk(k + 1, dim=-1).values
+            self.calls.append(dict(
+                layer=layer, pairs=idx.numel(), dropped=out[1]["dropped"],
+                load=out[1]["load"], idx=idx, sel=sel,
+                margin=top[:, k - 1] - top[:, k]))
+        return hook
+
+    def take(self) -> list:
+        calls, self.calls = self.calls, []
+        return calls
+
+    def close(self) -> None:
+        for h in self.handles:
+            h.remove()
+
+
+def moe_dropped_pairs(call) -> int:
+    return round(float(call["dropped"]) * call["pairs"])
+
+
+def moe_flips(a: list, b: list, rows: int) -> dict:
+    """Compare two runs' router calls layer by layer (same tokens): the
+    tokens whose picks differ, whether each is a near-tie (the margin of
+    either run within twice the largest difference of that token's
+    selection scores between the runs), the batch rows they lie in, and
+    whether every layer dropped the same number of pairs."""
+    import torch
+    flips, ties, bad_rows = 0, 0, set()
+    for ca, cb in zip(a, b):
+        diff = (ca["idx"] != cb["idx"]).any(-1)
+        if not bool(diff.any()):
+            continue
+        eps = (ca["sel"] - cb["sel"]).abs().amax(-1)
+        near = torch.minimum(ca["margin"], cb["margin"]) <= 2 * eps
+        flips += int(diff.sum())
+        ties += int((diff & near).sum())
+        per_row = ca["idx"].shape[0] // rows
+        bad_rows.update(int(t) // per_row
+                        for t in torch.nonzero(diff).flatten())
+    same_drops = all(moe_dropped_pairs(ca) == moe_dropped_pairs(cb)
+                     for ca, cb in zip(a, b))
+    return dict(flips=flips, near_ties=ties, rows=sorted(bad_rows),
+                same_drops=same_drops)
+
+
+def moe_bound(cfg, model, calls: list, batch: int, new: int,
+              past: int) -> tuple:
+    """``lm_bound_ms`` of ``lm_work`` with this call's routing (``calls``:
+    one tap record per MoE layer)."""
+    used = [int((c["load"] > 0).sum()) for c in calls]
+    kept = [c["pairs"] - moe_dropped_pairs(c) for c in calls]
+    return lm_bound_ms(*lm_work(cfg, model, batch, new, past, used, kept),
+                       BF16_OPS_PER_S)
+
+
+def moe_serve_part(sm: Smoke, M, S, label: str, arch: str, layers: int,
+                   ident: str) -> dict:
+    """12a / 12b: ``arch`` at full width cut to ``layers`` layers, seeded
+    bf16 weights: serve_lm's defaults through the step builders (timed
+    after a warm-up), a replay through ``prefill`` / ``decode_step`` with
+    the MoE layers tapped, the prefill's last logits against ``forward``
+    over the same prompt, 4 decode steps under the profiler."""
+    import torch
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    t0 = time.perf_counter()
+    model = M.init_model(cfg, seed=0, device=DEVICE)
+    lm_sync()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+    sm.check(all(blk.mlp.router.dtype == torch.float32
+                 for blk in model.blocks if hasattr(blk.mlp, "router")),
+             f"{label}: {cfg.name} cut to {layers} layers, {n_params} "
+             f"parameters ({param_bytes} bytes, {param_bytes / 2**30:.2f} "
+             f"GiB, {cfg.param_dtype}; routers float32), drawn in "
+             f"{init_s:.2f}s; {torch.cuda.memory_allocated() / 2**30:.2f} "
+             f"GiB allocated")
+    tap = MoeTap(model)
+    B, P, G = LM_BATCH, LM_PROMPT, LM_GEN
+    max_len = P + G
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab, (B, P), generator=gen,
+                            device=DEVICE)
+    lm_serve_timed(S, model, cfg, prompts, G)     # warm-up: cuBLAS plans
+    torch.cuda.reset_peak_memory_stats()
+    toks, prefill_s, decode_s, caches = lm_serve_timed(S, model, cfg,
+                                                       prompts, G)
+    peak = torch.cuda.max_memory_allocated()
+    cache_bytes = sum(t.numel() * t.element_size() for c in caches
+                      for t in c.values() if isinstance(t, torch.Tensor))
+    del caches
+    sm.check(toks.shape == (B, G) and bool(((toks >= 0)
+                                             & (toks < cfg.vocab)).all()),
+             f"{label}: {B}x{G} greedy tokens in range")
+
+    tap.on = True
+    steps = lm_replay(M, model, cfg, prompts, toks, max_len)
+    calls = tap.take()
+    L = tap.n_layers
+    pre, dec = calls[:L], [calls[L + i * L:L + (i + 1) * L]
+                           for i in range(G - 1)]
+    with torch.no_grad():
+        full, aux = M.forward(model, {"tokens": prompts}, cfg)
+    fwd = tap.take()
+    tap.on = False
+    sm.check(bool(torch.isfinite(steps.float()).all()
+                  and torch.isfinite(full.float()).all()),
+             f"{label}: logits finite")
+    sm.check(torch.equal(steps.float().argmax(-1), toks.long()),
+             f"{label}: the replay through prefill / decode_step reproduces "
+             f"the served tokens (argmax of its logits)")
+    dec_drops = [moe_dropped_pairs(c) for s_ in dec for c in s_]
+    sm.check(len(dec) == G - 1 and all(len(s_) == L for s_ in dec)
+             and max(dec_drops) == 0,
+             f"{label}: no decode step drops a pair ({G - 1} steps x {L} MoE "
+             f"layers, {dec[0][0]['pairs']} pairs a layer)")
+    pre_drop = [moe_dropped_pairs(c) / c["pairs"] for c in pre]
+    sm.note(f"{label}: prefill drop share by MoE layer "
+            + ", ".join(f"{x:.4f}" for x in pre_drop)
+            + f"; forward moe_dropped {float(aux['moe_dropped']):.6g}")
+    for c in pre:
+        ld = c["load"].float()
+        sm.note(f"{label}: prefill layer {c['layer']} expert load: "
+                + (", ".join(f"{x:.4f}" for x in ld.tolist())
+                   if ld.numel() <= 16 else
+                   f"{int((ld > 0).sum())} of {ld.numel()} experts hit, "
+                   f"max {float(ld.max()):.4f}, min nonzero "
+                   f"{float(ld[ld > 0].min()):.4f} (uniform "
+                   f"{1 / ld.numel():.4f})"))
+    fl = moe_flips(pre, fwd, B)
+    err_rows = (steps[:, 0].float() - full[:, -1].float()).abs().amax(-1)
+    exempt = set(fl["rows"]) if fl["same_drops"] else set(range(B))
+    held = [b for b in range(B) if b not in exempt]
+    err = float(err_rows[held].max()) if held else float("nan")
+    sm.check(fl["flips"] == fl["near_ties"] and bool(held)
+             and err <= LM_BF16_ATOL,
+             f"{label}: prefill's last logits against forward on the same "
+             f"prompt, max abs err {err:.6g} <= {LM_BF16_ATOL} over rows "
+             f"{held} (|logits| <= {float(full.float().abs().max()):.4g}); "
+             f"router picks differ at {fl['flips']} token-layers, "
+             f"{fl['near_ties']} of them near-ties (rows {fl['rows']}, "
+             f"same drops per layer: {fl['same_drops']})")
+    rec = dict(arch=cfg.name, layers=layers, params=n_params,
+               param_bytes=param_bytes, init_s=init_s, batch=B, prompt=P,
+               gen=G, prefill_drop_share=pre_drop,
+               prefill_vs_forward_err=err, router_flips=fl)
+    if cfg.mtp_depth:
+        seq = torch.cat([prompts, toks[:, :1].long()], dim=1)
+        with torch.no_grad():
+            _, aux2 = M.forward(model, {"tokens": seq[:, :-1]}, cfg)
+            mtp = M.mtp_logits(model, aux2["mtp_hidden"],
+                               model.embed[seq[:, 1:]], cfg)
+        sm.check(mtp.shape == (B, P, cfg.vocab)
+                 and bool(torch.isfinite(mtp.float()).all()),
+                 f"{label}: mtp_logits on forward's mtp_hidden, shape "
+                 f"{tuple(mtp.shape)}, finite")
+        m = cfg.mla
+        gqa = (B * max_len * cfg.n_layers * cfg.n_heads
+               * (m.nope_head_dim + m.rope_head_dim + m.v_head_dim) * 2)
+        sm.note(f"{label}: MLA cache {cache_bytes} bytes for {B}x{max_len} "
+                f"positions x {cfg.n_layers} layers (kv_lora {m.kv_lora_rank}"
+                f" + rope {m.rope_head_dim} a position); keys and values of "
+                f"the same {cfg.n_heads} heads would take {gqa} bytes "
+                f"({gqa / cache_bytes:.1f}x)")
+        rec.update(mla_cache_bytes=cache_bytes, gqa_cache_bytes=gqa)
+        del mtp, aux2
+    del full, aux, steps
+
+    # 4 decode steps after a prefill, profiled
+    step = S.make_serve_step(cfg)
+    nxt, caches = S.make_prefill_step(cfg, max_len)(model,
+                                                    {"tokens": prompts})
+
+    def decode_some():
+        nonlocal nxt, caches
+        for _ in range(MOE_PROFILE_STEPS):
+            nxt, caches = step(model, caches, {"tokens": nxt[:, None]})
+
+    prof = lm_profile(decode_some)
+    lm_note_profile(sm, f"{label} profile ({MOE_PROFILE_STEPS} decode steps)",
+                    prof)
+    del caches
+    p_bound, p_by = moe_bound(cfg, model, pre, B, P, 0)
+    d_bounds = [moe_bound(cfg, model, s_, B, 1, P + i)[0]
+                for i, s_ in enumerate(dec)]
+    d_bound = sum(d_bounds) / len(d_bounds)
+    d_ms = decode_s * 1e3 / (G - 1)
+    rec.update(prefill_ms=prefill_s * 1e3, prefill_bound_ms=p_bound,
+               prefill_bound_by=p_by, decode_step_ms=d_ms,
+               decode_step_bound_ms=d_bound,
+               decode_tokens_per_s=B * (G - 1) / decode_s,
+               decode_bound_tokens_per_s=B / (d_bound / 1e3),
+               peak_bytes=peak, cache_bytes=cache_bytes, profile=prof,
+               experts_used_decode=[[int((c["load"] > 0).sum())
+                                     for c in s_] for s_ in dec[:4]])
+    sm.note(f"{label} ({ident}): prefill {B}x{P} {rec['prefill_ms']:.3f} ms "
+            f"(bound {p_bound:.4f} ms, {p_by}); decode {d_ms:.4f} ms/step "
+            f"(bound {d_bound:.4f} ms), {rec['decode_tokens_per_s']:.1f} "
+            f"tok/s (bound {rec['decode_bound_tokens_per_s']:.1f}); peak "
+            f"{peak} bytes ({peak / 2**30:.2f} GiB; weights {param_bytes}, "
+            f"cache {cache_bytes})")
+    tap.close()
+    return rec
+
+
+def moe_cpu_config(arch: str):
+    """12c's cut: 2 layers, float32 parameters and activations; DeepSeek
+    keeps 1 dense layer and 16 of its 256 routed experts."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    cut = dict(n_layers=MOE_CPU_LAYERS, param_dtype="float32",
+               activation_dtype="float32")
+    if cfg.first_k_dense:
+        cut.update(first_k_dense=1, moe=dataclasses.replace(
+            cfg.moe, n_experts=MOE_CPU_EXPERTS))
+    return dataclasses.replace(cfg, **cut)
+
+
+def moe_cpu_part(sm: Smoke, M, S, arch: str) -> dict:
+    """12c: the card against the CPU in float32 on the same weights:
+    forward logits within LM_FP32_ATOL, ``moe_dropped`` equal, the router
+    picks equal (or differing at near-ties, counted), and 8 greedy tokens
+    of a prefill and a decode loop equal."""
+    import torch
+    cfg = moe_cpu_config(arch)
+    card = M.init_model(cfg, seed=4, device=DEVICE)
+    cpu = M.Model(cfg, device="cpu")
+    cpu.load_state_dict(card.state_dict())
+    taps = [MoeTap(card), MoeTap(cpu)]
+    gen = torch.Generator().manual_seed(4)
+    toks = torch.randint(0, cfg.vocab, (2, 32), generator=gen)
+    out = []
+    for model, dev, tap in ((card, DEVICE, taps[0]), (cpu, "cpu", taps[1])):
+        tap.on = True
+        with torch.no_grad():
+            lg, aux = M.forward(model, {"tokens": toks.to(dev)}, cfg)
+        tap.on = False
+        out.append((lg.cpu(), float(aux["moe_dropped"]),
+                    [{k: v.cpu() if isinstance(v, torch.Tensor) else v
+                      for k, v in c.items()} for c in tap.take()]))
+    err = float((out[0][0] - out[1][0]).abs().max())
+    fl = moe_flips(out[0][2], out[1][2], 2)
+    label = f"12c {cfg.name}"
+    sm.check(err <= LM_FP32_ATOL, f"{label}: {MOE_CPU_LAYERS}-layer "
+             f"full-width float32 forward ({cfg.moe.n_experts} experts), "
+             f"card vs CPU, max abs err {err:.3g} <= {LM_FP32_ATOL} "
+             f"(|logits| <= {float(out[1][0].abs().max()):.4g})")
+    sm.check(fl["flips"] == fl["near_ties"]
+             and (out[0][1] == out[1][1] or fl["flips"] > 0),
+             f"{label}: moe_dropped {out[0][1]:.6g} on the card, "
+             f"{out[1][1]:.6g} on the CPU; router picks differ at "
+             f"{fl['flips']} token-layers, {fl['near_ties']} of them "
+             f"near-ties")
+    outs = []
+    for model, dev in ((card, DEVICE), (cpu, "cpu")):
+        nxt, caches = S.make_prefill_step(cfg, 24)(
+            model, {"tokens": toks[:, :16].to(dev)})
+        got = [nxt.cpu()]
+        for _ in range(7):
+            nxt, caches = S.make_serve_step(cfg)(model, caches,
+                                                 {"tokens": nxt[:, None]})
+            got.append(nxt.cpu())
+        outs.append(torch.stack(got, dim=1))
+    sm.check(torch.equal(outs[0], outs[1]),
+             f"{label}: 8 greedy tokens of 2 prompts, card equal to CPU")
+    for tap in taps:
+        tap.close()
+    return dict(arch=cfg.name, layers=MOE_CPU_LAYERS,
+                experts=cfg.moe.n_experts, forward_max_abs_err=err,
+                moe_dropped=[out[0][1], out[1][1]], router_flips=fl)
+
+
+def moe_path(sm: Smoke, ident: str) -> dict:
+    """Phase 12: phi3.5-MoE (28 layers) and DeepSeek-V3 (5 layers and its
+    MTP module) at full width with seeded bf16 weights, each freed before
+    the next; then the 2-layer float32 cuts, card against CPU."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.training import steps as S
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    rec = {}
+    for label, arch, layers in MOE_CELLS:
+        t = time.perf_counter()
+        rec[label] = moe_serve_part(sm, M, S, label, arch, layers, ident)
+        gc.collect()
+        torch.cuda.empty_cache()
+        sm.note(f"{label}: {time.perf_counter() - t:.1f}s")
+    t = time.perf_counter()
+    rec["12c"] = [moe_cpu_part(sm, M, S, arch) for _, arch, _ in MOE_CELLS]
+    gc.collect()
+    torch.cuda.empty_cache()
+    sm.note(f"12c: {time.perf_counter() - t:.1f}s; phase 12: "
+            f"{time.perf_counter() - t0:.1f}s")
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
 
 
 def main() -> int:
@@ -3859,6 +4279,11 @@ def main() -> int:
     lm = lm_path(sm, ident)
     peak["lm serve (11a)"] = lm["serve"]["peak_bytes"]
     peak["lm 32k request (11b)"] = lm["long"]["peak_bytes"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe = moe_path(sm, ident)
+    for label, _, _ in MOE_CELLS:
+        peak[f"moe serve ({label})"] = moe[label]["peak_bytes"]
     kernels = []
     for r in recs:
         t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
@@ -3897,7 +4322,7 @@ def main() -> int:
                                    ranks=ranks["reports"],
                                    ranks_s=ranks["seconds"],
                                    launches=shard_launches),
-                        lm=lm,
+                        lm=lm, moe=moe,
                         peak_memory_bytes=peak,
                         algo_row_launches=algos["row_launches"],
                         kernel_shapes={r["name"]: r["shape"] for r in recs},

@@ -1,11 +1,11 @@
-"""Neural layers of the LM stack, dense part: the port of the JAX package's
+"""Neural layers of the LM stack: the port of the JAX package's
 ``models/layers.py``.
 
 Each layer is a pure function over tensors under the reference's name
 (``norm_apply``, ``rope``, ``mlp_apply``, ``_sdpa_dense``,
-``_sdpa_blockwise``, ``_sdpa``, ``attention_apply``) and an ``nn.Module``
-(``Norm``, ``MLP``, ``Attention``) that holds the parameters in the
-reference's shapes and calls it, with its float parameters cast to the
+``_sdpa_blockwise``, ``_sdpa``, ``attention_apply``, ``mla_apply``) and an
+``nn.Module`` (``Norm``, ``MLP``, ``Attention``, ``MLA``) that holds the
+parameters in the reference's shapes and calls it, with its float parameters cast to the
 compute dtype it is given (the reference's ``_cast_floats``).
 
 The numerics are the reference's own: norms in float32 cast back; attention
@@ -32,14 +32,31 @@ def not_ported(what: str, item: str) -> NotImplementedError:
 # --------------------------------------------------------------------------- #
 # initializers
 # --------------------------------------------------------------------------- #
+_INIT_CHUNK = 1 << 27     # float32 elements drawn at a time (512 MB)
+
+
 def _dense_init(generator: torch.Generator, shape, in_axis_size: int,
                 dtype: torch.dtype) -> torch.Tensor:
     """Normal(0, 1 / in_axis_size) drawn in float32 from ``generator`` on
-    its device, then cast to ``dtype``."""
+    its device, then cast to ``dtype``. A tensor of more than
+    ``_INIT_CHUNK`` elements is drawn in slices along its first axis, one
+    after the other from the same generator, so the float32 draw of an
+    expert stack never sits beside the whole stack."""
     scale = 1.0 / math.sqrt(max(in_axis_size, 1))
-    w = torch.randn(shape, generator=generator, dtype=torch.float32,
-                    device=generator.device)
-    return (w * scale).to(dtype)
+    shape = tuple(shape)
+
+    def draw(shp):
+        w = torch.randn(shp, generator=generator, dtype=torch.float32,
+                        device=generator.device)
+        return w.mul_(scale).to(dtype)
+
+    if math.prod(shape) <= _INIT_CHUNK or len(shape) < 2:
+        return draw(shape)
+    rows = max(1, _INIT_CHUNK // math.prod(shape[1:]))
+    out = torch.empty(shape, dtype=dtype, device=generator.device)
+    for r in range(0, shape[0], rows):
+        out[r:r + rows] = draw((min(rows, shape[0] - r),) + shape[1:])
+    return out
 
 
 def _param(generator: Optional[torch.Generator], shape, in_axis_size: int,
@@ -238,6 +255,16 @@ def _sdpa(q, k, v, *, causal: bool, q_offset: int,
                        kv_len_valid=kv_len_valid, soft_cap=soft_cap)
 
 
+def _write_cache(buf: torch.Tensor, new: torch.Tensor, idx: int) -> None:
+    """``buf[:, idx:idx + T] = new`` in place; raise where the reference's
+    ``dynamic_update_slice`` would clamp the start."""
+    T = new.shape[1]
+    if idx + T > buf.shape[1]:
+        raise ValueError(f"the KV cache holds {buf.shape[1]} positions; "
+                         f"writing {T} at {idx} runs past it")
+    buf[:, idx:idx + T] = new
+
+
 def attention_apply(params: dict, x: torch.Tensor, cfg, *,
                     positions: torch.Tensor, causal: bool = True,
                     cache: Optional[dict] = None):
@@ -262,11 +289,8 @@ def attention_apply(params: dict, x: torch.Tensor, cfg, *,
     else:
         idx = cache["idx"]
         ck, cv = cache["k"], cache["v"]
-        if idx + T > ck.shape[1]:
-            raise ValueError(f"the KV cache holds {ck.shape[1]} positions; "
-                             f"writing {T} at {idx} runs past it")
-        ck[:, idx:idx + T] = k
-        cv[:, idx:idx + T] = v
+        _write_cache(ck, k, idx)
+        _write_cache(cv, v, idx)
         out = _sdpa(q, ck, cv, causal=causal, q_offset=idx,
                     kv_len_valid=idx + T, soft_cap=cfg.attn_logit_soft_cap)
         new_cache = {"k": ck, "v": cv, "idx": idx + T}
@@ -296,12 +320,106 @@ class Attention(nn.Module):
 
 
 # --------------------------------------------------------------------------- #
-# MLA and cross-attention: later slices
+# MLA: multi-head latent attention (DeepSeek-V2/V3)
 # --------------------------------------------------------------------------- #
-def mla_apply(*args, **kwargs):
-    raise not_ported("MLA (multi-head latent attention)", "5c (MLA + MTP)")
+def mla_apply(params: dict, x: torch.Tensor, cfg, *,
+              positions: torch.Tensor, causal: bool = True,
+              cache: Optional[dict] = None):
+    """The latent cache holds ``ckv`` [B, Smax, kv_lora] (the normed KV
+    latent) and ``kr`` [B, Smax, rope] (the one rope key head, shared by
+    every query head), written in place at ``idx``; each call expands the
+    keys and values of the whole cache from it. q and k have head dim
+    nope + rope, v has v_head_dim. Returns (y, new_cache)."""
+    m = cfg.mla
+    H = cfg.n_heads
+    T = x.shape[1]
+    cq = norm_apply(params["q_norm"], x @ params["wdq"], "rmsnorm")
+    q = (cq @ params["wuq"].flatten(1)).unflatten(-1, (H, -1))
+    qn, qr = q[..., :m.nope_head_dim], q[..., m.nope_head_dim:]
+    qr = rope(qr, positions, theta=cfg.rope_theta)
+
+    dkv = x @ params["wdkv"]
+    ckv = norm_apply(params["kv_norm"], dkv[..., :m.kv_lora_rank],
+                     "rmsnorm")
+    kr = rope(dkv[..., m.kv_lora_rank:][:, :, None, :], positions,
+              theta=cfg.rope_theta)[:, :, 0, :]     # the shared rope key
+
+    if cache is not None:
+        idx = cache["idx"]
+        _write_cache(cache["ckv"], ckv, idx)
+        _write_cache(cache["kr"], kr, idx)
+        ckv, kr = cache["ckv"], cache["kr"]
+        new_cache = {"ckv": ckv, "kr": kr, "idx": idx + T}
+        q_offset, kv_valid = idx, idx + T
+    else:
+        new_cache = {"ckv": ckv, "kr": kr, "idx": T}
+        q_offset, kv_valid = 0, None
+
+    kn = (ckv @ params["wuk"].flatten(1)).unflatten(-1, (H, -1))
+    v = (ckv @ params["wuv"].flatten(1)).unflatten(-1, (H, -1))
+    # the rope key head joins every head's keys, so one SDPA computes
+    # qn.kn + qr.kr (dense or blockwise)
+    q_eff = torch.cat([qn, qr], -1)
+    k_eff = torch.cat([kn, kr[:, :, None, :].expand(-1, -1, H, -1)], -1)
+    out = _sdpa(q_eff, k_eff, v, causal=causal or cache is not None,
+                q_offset=q_offset, kv_len_valid=kv_valid)
+    y = out.flatten(2) @ params["wo"].flatten(0, 1)
+    return y, new_cache
 
 
+def mla_cache_shape(cfg, batch: int, max_len: int, dtype: torch.dtype, *,
+                    device=None) -> dict:
+    """A zeroed MLA decode cache (the reference returns its shapes; the
+    port allocates it)."""
+    m = cfg.mla
+    return {"ckv": torch.zeros((batch, max_len, m.kv_lora_rank),
+                               dtype=dtype, device=device),
+            "kr": torch.zeros((batch, max_len, m.rope_head_dim),
+                              dtype=dtype, device=device),
+            "idx": 0}
+
+
+class MLA(nn.Module):
+    """wdq [d, q_lora], q_norm, wuq [q_lora, H, nope + rope], wdkv [d,
+    kv_lora + rope], kv_norm, wuk [kv_lora, H, nope], wuv [kv_lora, H, v],
+    wo [H, v, d]."""
+
+    def __init__(self, cfg, *, dtype: torch.dtype, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        m = cfg.mla
+        d, H = cfg.d_model, cfg.n_heads
+        self.cfg = cfg
+        self.wdq = _param(generator, (d, m.q_lora_rank), d, dtype, device)
+        self.q_norm = Norm(m.q_lora_rank, "rmsnorm", dtype=dtype,
+                           device=device)
+        self.wuq = _param(generator, (m.q_lora_rank, H,
+                                      m.nope_head_dim + m.rope_head_dim),
+                          m.q_lora_rank, dtype, device)
+        self.wdkv = _param(generator, (d, m.kv_lora_rank + m.rope_head_dim),
+                           d, dtype, device)
+        self.kv_norm = Norm(m.kv_lora_rank, "rmsnorm", dtype=dtype,
+                            device=device)
+        self.wuk = _param(generator, (m.kv_lora_rank, H, m.nope_head_dim),
+                          m.kv_lora_rank, dtype, device)
+        self.wuv = _param(generator, (m.kv_lora_rank, H, m.v_head_dim),
+                          m.kv_lora_rank, dtype, device)
+        self.wo = _param(generator, (H, m.v_head_dim, d), H * m.v_head_dim,
+                         dtype, device)
+
+    def forward(self, x: torch.Tensor, *, positions: torch.Tensor,
+                causal: bool = True, cache: Optional[dict] = None,
+                dtype: Optional[torch.dtype] = None):
+        params = _cast_params(self, dtype)
+        params["q_norm"] = _cast_params(self.q_norm, dtype)
+        params["kv_norm"] = _cast_params(self.kv_norm, dtype)
+        return mla_apply(params, x, self.cfg, positions=positions,
+                         causal=causal, cache=cache)
+
+
+# --------------------------------------------------------------------------- #
+# cross-attention: a later slice
+# --------------------------------------------------------------------------- #
 def cross_attention_apply(*args, **kwargs):
     raise not_ported("cross-attention",
                      "5f (encoder-decoder and frontend stubs)")

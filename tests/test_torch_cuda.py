@@ -495,11 +495,13 @@ def test_kernels_on_shard_lists_with_an_empty_shard(cuda, semiring):
 
 
 @pytest.mark.parametrize("arch", ["olmo_1b", "phi4_mini_3p8b",
-                                  "stablelm_3b"])
+                                  "stablelm_3b", "phi35_moe_42b",
+                                  "deepseek_v3_671b"])
 def test_lm_serving_on_card_matches_cpu(cuda, arch):
     """The LM serving path at a smoke config, float32 with TF32 off: the
-    card's forward and cached decode logits against the same weights on
-    the CPU within 1e-4, and equal greedy tokens."""
+    card's forward logits against the same weights on the CPU within 1e-4
+    (and the MoE layers' dropped share equal), and equal greedy tokens of
+    a prefill and a decode loop."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import model as M
     from repro_torch.training import steps as S
@@ -512,9 +514,10 @@ def test_lm_serving_on_card_matches_cpu(cuda, arch):
     toks = torch.randint(0, cfg.vocab, (2, 12),
                          generator=torch.Generator().manual_seed(3))
     with torch.no_grad():
-        lc, _ = M.forward(card, {"tokens": toks.to(cuda)}, cfg)
-        lh, _ = M.forward(cpu, {"tokens": toks}, cfg)
+        lc, ac = M.forward(card, {"tokens": toks.to(cuda)}, cfg)
+        lh, ah = M.forward(cpu, {"tokens": toks}, cfg)
     torch.testing.assert_close(lc.cpu(), lh, rtol=0, atol=1e-4)
+    assert float(ac["moe_dropped"]) == float(ah["moe_dropped"])
     out = []
     for model, dev in ((card, cuda), (cpu, "cpu")):
         nxt, caches = S.make_prefill_step(cfg, 20)(

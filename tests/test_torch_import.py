@@ -23,7 +23,9 @@ def test_import_leaves_jax_and_reference_out(tmp_path):
             " repro_torch.stream, repro_torch.partition, "
             "repro_torch.serving, repro_torch.serving.pool, "
             "repro_torch.serving.batcher, repro_torch.core.mesh, "
-            "repro_torch.core.autotune, chip_smoke;"
+            "repro_torch.core.autotune, repro_torch.models.layers, "
+            "repro_torch.models.moe, repro_torch.models.model, "
+            "repro_torch.configs, repro_torch.training.steps, chip_smoke;"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]; print(bad); assert not bad, bad")
@@ -208,15 +210,19 @@ def test_lm_stack_loads_no_jax():
     package, nor does a prefill and a decode step on the CPU."""
     code = ("import sys, torch\n"
             "import repro_torch.models, repro_torch.models.model as M\n"
+            "import repro_torch.models.moe, repro_torch.models.layers\n"
             "import repro_torch.configs as C, repro_torch.training\n"
             "from repro_torch.training import steps as S\n"
             "for a in C.ARCHS: C.get_config(a); C.get_smoke_config(a)\n"
-            "cfg = C.get_smoke_config('phi4_mini_3p8b')\n"
-            "m = M.init_model(cfg, device='cpu')\n"
-            "t = torch.zeros((2, 5), dtype=torch.int32)\n"
-            "nxt, c = S.make_prefill_step(cfg, 8)(m, {'tokens': t})\n"
-            "nxt, c = S.make_serve_step(cfg)(m, c, {'tokens': nxt[:, None]})\n"
-            "assert c[0]['idx'] == 6\n"
+            "for a in ('phi4_mini_3p8b', 'phi35_moe_42b', "
+            "'deepseek_v3_671b'):\n"
+            "    cfg = C.get_smoke_config(a)\n"
+            "    m = M.init_model(cfg, device='cpu')\n"
+            "    t = torch.zeros((2, 5), dtype=torch.int32)\n"
+            "    nxt, c = S.make_prefill_step(cfg, 8)(m, {'tokens': t})\n"
+            "    nxt, c = S.make_serve_step(cfg)(m, c, "
+            "{'tokens': nxt[:, None]})\n"
+            "    assert c[0]['idx'] == 6\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "print(bad); assert not bad, bad\n")
@@ -227,18 +233,45 @@ def test_lm_stack_loads_no_jax():
 
 
 @pytest.mark.parametrize("arch,item", [
-    ("deepseek_v3_671b", "5c"), ("phi35_moe_42b", "5b"),
+    ("deepseek_v3_671b", None), ("phi35_moe_42b", None),
     ("jamba_v01_52b", "5d"), ("xlstm_350m", "5e"), ("internvl2_26b", "5f"),
     ("seamless_m4t_large_v2", "5f")])
 def test_unported_lm_archs_raise_not_implemented(arch, item):
-    """MoE, MLA, hybrid, ssm, vlm and audio configs are later slices: the
-    model refuses them, naming the ROADMAP item, before it allocates
-    anything (the full configs too)."""
+    """Hybrid, ssm, vlm and audio configs are later slices: the model
+    refuses them, naming the ROADMAP item, before it allocates anything
+    (the full configs too). MoE (item 5b) and MLA + MTP (item 5c) are
+    ported: those full configs build on the meta device with the
+    reference's parameter count per dtype (``jax.eval_shape`` of its
+    ``init_model``), and their smoke configs serve."""
     from repro_torch.configs import get_config, get_smoke_config
-    from repro_torch.models.model import init_model
-    for cfg in (get_smoke_config(arch), get_config(arch)):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            init_model(cfg, device="cpu")
+    from repro_torch.models.model import Model, init_model
+    from repro_torch.training import steps as S
+    if item is not None:
+        for cfg in (get_smoke_config(arch), get_config(arch)):
+            with pytest.raises(NotImplementedError, match=f"item {item}"):
+                init_model(cfg, device="cpu")
+        return
+    import collections
+    import math
+
+    import jax
+    import repro.configs as RC
+    import repro.models.model as RM
+    ref = jax.eval_shape(lambda: RM.init_model(jax.random.PRNGKey(0),
+                                               RC.get_config(arch)))
+    want, got = collections.Counter(), collections.Counter()
+    for leaf in jax.tree.leaves(ref):
+        want[str(leaf.dtype)] += math.prod(leaf.shape)
+    for p in Model(get_config(arch), device="meta").parameters():
+        got[str(p.dtype).removeprefix("torch.")] += p.numel()
+    assert got == want and want["bfloat16"] > 4e10
+    cfg = get_smoke_config(arch)
+    model = init_model(cfg, device="cpu")
+    t = torch.zeros((2, 5), dtype=torch.int32)
+    nxt, caches = S.make_prefill_step(cfg, 8)(model, {"tokens": t})
+    nxt, caches = S.make_serve_step(cfg)(model, caches,
+                                         {"tokens": nxt[:, None]})
+    assert nxt.shape == (2,) and caches[0]["idx"] == 6
 
 
 def test_lm_entry_points_refuse_missing_gpu(monkeypatch):

@@ -199,8 +199,6 @@ def test_sdpa_switches_to_blockwise_past_threshold():
 
 
 def test_not_ported_layers_name_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 5c"):
-        TL.mla_apply()
     with pytest.raises(NotImplementedError, match="item 5f"):
         TL.cross_attention_apply()
 

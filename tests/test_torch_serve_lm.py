@@ -1,7 +1,7 @@
 """The LM serving path of the port against the JAX package's: a 2-prompt
 prefill + greedy decode loop on carried weights (float32, logits within
-1e-4 at every step, identical greedy tokens), and the port's
-``examples/torch_serve_lm.py`` on the CPU."""
+1e-4 at every step, identical greedy tokens) for the dense and the MoE
+archs, and the port's ``examples/torch_serve_lm.py`` on the CPU."""
 import importlib.util
 from pathlib import Path
 
@@ -21,6 +21,7 @@ from repro_torch.training import steps as TS
 
 ROOT = Path(__file__).resolve().parents[1]
 DENSE = ["olmo_1b", "phi4_mini_3p8b", "stablelm_3b", "llama3_405b"]
+MOE = ["phi35_moe_42b", "deepseek_v3_671b"]
 LOGIT_ATOL = 1e-4
 
 
@@ -34,7 +35,7 @@ def _serve(prefill, step, model, prompts, gen, wrap):
     return np.stack(toks, axis=1)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_serve_loop_matches_reference(arch):
     rcfg, tcfg = RC.get_smoke_config(arch), TC.get_smoke_config(arch)
     params = RM.init_model(jax.random.PRNGKey(7), rcfg)
@@ -95,8 +96,16 @@ def test_example_serves_on_cpu(capsys):
                      "--gen", "5"])
     # the first lane's prompt is drawn first, so its tokens agree
     np.testing.assert_array_equal(again[0], toks[0, :5])
-    with pytest.raises(NotImplementedError, match="item 5b"):
-        ex.main(["--arch", "phi35_moe_42b", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="item 5d"):
+        ex.main(["--arch", "jamba_v01_52b", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_example_serves_moe_archs_on_cpu(arch, capsys):
+    toks = _example().main(["--arch", arch, "--device", "cpu", "--gen",
+                            "6"])
+    assert toks.shape == (4, 6) and toks.dtype == torch.int32
+    assert f"{arch}: generated 4x6 tokens" in capsys.readouterr().out
 
 
 def test_example_refuses_without_card(monkeypatch):
