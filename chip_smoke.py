@@ -207,6 +207,51 @@ Phases (the run exits non-zero if any of them fails):
      cache read once; the top-k kept pairs' and the shared expert's
      operations), and the device's idle share.
 
+ 13. Mamba and the Jamba hybrid on the LM serving path
+     (``repro_torch.models.ssm``; no kernel of its own), seeded bf16
+     weights, TF32 off, after phase 12's models are freed. jamba-v0.1-52b
+     at full width (d_model 4096, 32 heads, GQA kv 8, d_ff 14336, Mamba
+     d_state 16 / d_conv 4 / expand 2, so di 8192 and dt_rank 256, 16
+     experts top-2 on the odd layers, vocab 65,536), depth cut from 32 to 24
+     layers, three whole 8-layer Jamba blocks (38,811,955,392 parameters,
+     72.30 GiB; 32 take 96.07). 13a: serve_lm's defaults through the step
+     builders (timed after a warm-up) and phase 12's tapped replay (no
+     decode step drops a pair; the prefill's last logits equal
+     ``forward`` on the same prompt), 4 decode steps profiled. Then the
+     held check (``jamba_held``), with every MoE layer's capacity factor
+     raised to 8 (a slot per token in every expert, so no path drops a
+     pair whatever its token count): a greedy loop through ``prefill`` /
+     ``decode_step`` (every Mamba cache's ``h`` and ``conv`` in bf16)
+     against ``forward`` over the same prefix. The two paths multiply
+     matrices of other shapes and round apart, and routers at a near-tie
+     then pick other experts: every row's first such flip must be a
+     near-tie. ``forward`` runs again with its routing pinned to the
+     loop's picks, and every step's logits must lie within
+     max(LM_BF16_ATOL, 2 x the rounding floor) of it, the floor being how
+     far that forward moves when its input moves by one ulp (a bf16
+     random-weight Jamba turns that ulp into 1.3-1.5 logits); each greedy
+     token is the forward's argmax or a near-tie. 13b: one 4,096-token
+     request at batch 1 (8 scan chunks of 512) and 16 greedy steps, timed
+     and tapped, the prefill against ``forward`` on the same prompt, one
+     Mamba layer's prefill timed and profiled; then the model cut to its
+     first 16 layers (a dropless MoE at 4,111 tokens needs ~7 GiB of
+     expert intermediates beside 72.30 GiB of weights) and the request
+     held the same way; with the model freed, the chunked scan against
+     the single-shot one at one Mamba layer's shapes (di 8192, n 16) over
+     2,048 tokens in float32 (within 1e-5). 13c: the model cut to its first
+     5 layers (4 Mamba, the attention layer, 2 MoE) with 4 of its 16
+     routed experts, float32 (2,937,892,872 parameters), the card against
+     the CPU on the same weights: forward logits within LM_FP32_ATOL,
+     ``moe_dropped`` equal, router picks equal or near-ties, 8 greedy
+     tokens equal, the Mamba caches after the prefill within
+     LM_FP32_ATOL; and the card's own cached path held against its
+     forward as in 13a, within 5e-4 (the reference's decode-vs-forward
+     bound). It prints prefill time, decode time per step and tokens/s,
+     peak device memory, each beside its bound (``lm_work``: a Mamba
+     layer's weights read once and its ``conv`` and ``h`` read and written
+     per step; its projections and the scan's ~6 b s di n operations), and
+     the device's idle share.
+
 A small-graph check holds the three programs against independent numpy
 oracles on all three backends. The kernel JSON line gives each kernel's
 launches per phase (``launches`` = phases 3-4, ``launches_streaming`` =
@@ -220,6 +265,7 @@ line before the last is the card's name and power limit from
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -3418,9 +3464,14 @@ def lm_work(cfg, model, batch: int, new: int, past: int, used=(),
     the shared expert) and of attention over the causal pairs, each query
     against the keys at or before it (MLA in the cheaper of its two
     forms: keys and values expanded from the latent for every position,
-    or the up-projections absorbed into the query and output)."""
+    or the up-projections absorbed into the query and output). A Mamba
+    layer reads its ``conv`` and ``h`` state and writes it (a prefill only
+    writes it), in the activation dtype; its operations are the
+    projections, the depthwise conv and the scan's ~6 per (token, channel,
+    state) element."""
     from repro_torch.models.layers import MLA
     from repro_torch.models.moe import MoE
+    from repro_torch.models.ssm import Mamba
     d, H, V = cfg.d_model, cfg.n_heads, cfg.vocab
     act = 2 if cfg.activation_dtype == "bfloat16" else 4
     T = batch * new
@@ -3441,7 +3492,15 @@ def lm_work(cfg, model, batch: int, new: int, past: int, used=(),
             if not (isinstance(blk.mlp, MoE) and name in (
                     "mlp.w_gate", "mlp.w_up", "mlp.w_down")):
                 nbytes += p.numel() * p.element_size()
-        if isinstance(blk.mixer, MLA):
+        if isinstance(blk.mixer, Mamba):
+            mc = cfg.mamba
+            di, n, K = int(mc.expand * d), mc.d_state, mc.d_conv
+            r = max(d // 16, 1)
+            ops += 2 * T * (d * 2 * di + di * (r + 2 * n) + r * di + di * d
+                            + K * di) + 6 * T * di * n
+            nbytes += (2 if past else 1) * batch * ((K - 1) * di
+                                                    + di * n) * act
+        elif isinstance(blk.mixer, MLA):
             m = cfg.mla
             qk, r = m.nope_head_dim + m.rope_head_dim, m.kv_lora_rank
             ops += 2 * T * (d * m.q_lora_rank + m.q_lora_rank * H * qk
@@ -3888,14 +3947,16 @@ def moe_dropped_pairs(call) -> int:
 
 def moe_flips(a: list, b: list, rows: int) -> dict:
     """Compare two runs' router calls layer by layer (same tokens): the
-    tokens whose picks differ, whether each is a near-tie (the margin of
+    tokens whose picked sets of experts differ (an order swap within the
+    top k changes no output), whether each is a near-tie (the margin of
     either run within twice the largest difference of that token's
     selection scores between the runs), the batch rows they lie in, and
     whether every layer dropped the same number of pairs."""
     import torch
     flips, ties, bad_rows = 0, 0, set()
     for ca, cb in zip(a, b):
-        diff = (ca["idx"] != cb["idx"]).any(-1)
+        diff = (ca["idx"].sort(-1).values
+                != cb["idx"].sort(-1).values).any(-1)
         if not bool(diff.any()):
             continue
         eps = (ca["sel"] - cb["sel"]).abs().amax(-1)
@@ -3921,16 +3982,10 @@ def moe_bound(cfg, model, calls: list, batch: int, new: int,
                        BF16_OPS_PER_S)
 
 
-def moe_serve_part(sm: Smoke, M, S, label: str, arch: str, layers: int,
-                   ident: str) -> dict:
-    """12a / 12b: ``arch`` at full width cut to ``layers`` layers, seeded
-    bf16 weights: serve_lm's defaults through the step builders (timed
-    after a warm-up), a replay through ``prefill`` / ``decode_step`` with
-    the MoE layers tapped, the prefill's last logits against ``forward``
-    over the same prompt, 4 decode steps under the profiler."""
+def moe_build(sm: Smoke, M, label: str, cfg):
+    """``cfg``'s model on the card with seeded weights: (model, seconds
+    to draw them). Its size is printed and its routers must be float32."""
     import torch
-    from repro_torch.configs import get_config
-    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
     t0 = time.perf_counter()
     model = M.init_model(cfg, seed=0, device=DEVICE)
     lm_sync()
@@ -3940,11 +3995,27 @@ def moe_serve_part(sm: Smoke, M, S, label: str, arch: str, layers: int,
                       for p in model.parameters())
     sm.check(all(blk.mlp.router.dtype == torch.float32
                  for blk in model.blocks if hasattr(blk.mlp, "router")),
-             f"{label}: {cfg.name} cut to {layers} layers, {n_params} "
+             f"{label}: {cfg.name} cut to {cfg.n_layers} layers, {n_params} "
              f"parameters ({param_bytes} bytes, {param_bytes / 2**30:.2f} "
              f"GiB, {cfg.param_dtype}; routers float32), drawn in "
              f"{init_s:.2f}s; {torch.cuda.memory_allocated() / 2**30:.2f} "
              f"GiB allocated")
+    return model, init_s
+
+
+def moe_serve_part(sm: Smoke, M, S, label: str, cfg, model, init_s: float,
+                   ident: str) -> dict:
+    """12a / 12b / 13a: ``model`` (``cfg`` at full width with its depth
+    cut, seeded bf16 weights): serve_lm's defaults through the step
+    builders (timed after a warm-up), a replay through ``prefill`` /
+    ``decode_step`` with the MoE layers tapped, the prefill's last logits
+    against ``forward`` over the same prompt, 4 decode steps under the
+    profiler."""
+    import torch
+    layers = cfg.n_layers
+    n_params = sum(p.numel() for p in model.parameters())
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
     tap = MoeTap(model)
     B, P, G = LM_BATCH, LM_PROMPT, LM_GEN
     max_len = P + G
@@ -4086,13 +4157,14 @@ def moe_cpu_config(arch: str):
     return dataclasses.replace(cfg, **cut)
 
 
-def moe_cpu_part(sm: Smoke, M, S, arch: str) -> dict:
-    """12c: the card against the CPU in float32 on the same weights:
-    forward logits within LM_FP32_ATOL, ``moe_dropped`` equal, the router
-    picks equal (or differing at near-ties, counted), and 8 greedy tokens
-    of a prefill and a decode loop equal."""
+def moe_cpu_part(sm: Smoke, M, S, label: str, cfg):
+    """12c / 13c: ``cfg`` (float32) on the card against the CPU on the same
+    weights: forward logits within LM_FP32_ATOL, ``moe_dropped`` equal,
+    the router picks equal (or differing at near-ties, counted), 8 greedy
+    tokens of a prefill and a decode loop equal, and every Mamba cache
+    after the prefill within LM_FP32_ATOL. Returns (record, the card's
+    model, the tokens)."""
     import torch
-    cfg = moe_cpu_config(arch)
     card = M.init_model(cfg, seed=4, device=DEVICE)
     cpu = M.Model(cfg, device="cpu")
     cpu.load_state_dict(card.state_dict())
@@ -4110,8 +4182,7 @@ def moe_cpu_part(sm: Smoke, M, S, arch: str) -> dict:
                       for k, v in c.items()} for c in tap.take()]))
     err = float((out[0][0] - out[1][0]).abs().max())
     fl = moe_flips(out[0][2], out[1][2], 2)
-    label = f"12c {cfg.name}"
-    sm.check(err <= LM_FP32_ATOL, f"{label}: {MOE_CPU_LAYERS}-layer "
+    sm.check(err <= LM_FP32_ATOL, f"{label}: {cfg.n_layers}-layer "
              f"full-width float32 forward ({cfg.moe.n_experts} experts), "
              f"card vs CPU, max abs err {err:.3g} <= {LM_FP32_ATOL} "
              f"(|logits| <= {float(out[1][0].abs().max()):.4g})")
@@ -4121,10 +4192,12 @@ def moe_cpu_part(sm: Smoke, M, S, arch: str) -> dict:
              f"{out[1][1]:.6g} on the CPU; router picks differ at "
              f"{fl['flips']} token-layers, {fl['near_ties']} of them "
              f"near-ties")
-    outs = []
+    outs, states = [], []
     for model, dev in ((card, DEVICE), (cpu, "cpu")):
         nxt, caches = S.make_prefill_step(cfg, 24)(
             model, {"tokens": toks[:, :16].to(dev)})
+        states.append([{k: c[k].cpu() for k in ("conv", "h")}
+                       for c in mamba_caches(cfg, caches)])
         got = [nxt.cpu()]
         for _ in range(7):
             nxt, caches = S.make_serve_step(cfg)(model, caches,
@@ -4133,11 +4206,20 @@ def moe_cpu_part(sm: Smoke, M, S, arch: str) -> dict:
         outs.append(torch.stack(got, dim=1))
     sm.check(torch.equal(outs[0], outs[1]),
              f"{label}: 8 greedy tokens of 2 prompts, card equal to CPU")
+    rec = dict(arch=cfg.name, layers=cfg.n_layers,
+               experts=cfg.moe.n_experts, forward_max_abs_err=err,
+               moe_dropped=[out[0][1], out[1][1]], router_flips=fl)
+    if states[0]:
+        cache_err = max(float((a[k] - b[k]).abs().max())
+                        for a, b in zip(*states) for k in a)
+        sm.check(cache_err <= LM_FP32_ATOL,
+                 f"{label}: the {len(states[0])} Mamba caches after the "
+                 f"prefill, card vs CPU, max abs err {cache_err:.3g} <= "
+                 f"{LM_FP32_ATOL}")
+        rec.update(mamba_cache_err=cache_err)
     for tap in taps:
         tap.close()
-    return dict(arch=cfg.name, layers=MOE_CPU_LAYERS,
-                experts=cfg.moe.n_experts, forward_max_abs_err=err,
-                moe_dropped=[out[0][1], out[1][1]], router_flips=fl)
+    return rec, card, toks
 
 
 def moe_path(sm: Smoke, ident: str) -> dict:
@@ -4145,6 +4227,7 @@ def moe_path(sm: Smoke, ident: str) -> dict:
     MTP module) at full width with seeded bf16 weights, each freed before
     the next; then the 2-layer float32 cuts, card against CPU."""
     import torch
+    from repro_torch.configs import get_config
     from repro_torch.models import model as M
     from repro_torch.training import steps as S
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4153,15 +4236,495 @@ def moe_path(sm: Smoke, ident: str) -> dict:
     rec = {}
     for label, arch, layers in MOE_CELLS:
         t = time.perf_counter()
-        rec[label] = moe_serve_part(sm, M, S, label, arch, layers, ident)
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+        model, init_s = moe_build(sm, M, label, cfg)
+        rec[label] = moe_serve_part(sm, M, S, label, cfg, model, init_s,
+                                    ident)
+        del model
         gc.collect()
         torch.cuda.empty_cache()
         sm.note(f"{label}: {time.perf_counter() - t:.1f}s")
     t = time.perf_counter()
-    rec["12c"] = [moe_cpu_part(sm, M, S, arch) for _, arch, _ in MOE_CELLS]
+    rec["12c"] = []
+    for _, arch, _ in MOE_CELLS:
+        cfg = moe_cpu_config(arch)
+        rec["12c"].append(moe_cpu_part(sm, M, S, f"12c {cfg.name}", cfg)[0])
     gc.collect()
     torch.cuda.empty_cache()
     sm.note(f"12c: {time.perf_counter() - t:.1f}s; phase 12: "
+            f"{time.perf_counter() - t0:.1f}s")
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
+
+
+# --------------------------------------------------------------------------- #
+# phase 13: Mamba and the Jamba hybrid on the LM serving path
+# --------------------------------------------------------------------------- #
+JAMBA_ARCH = "jamba_v01_52b"
+JAMBA_LAYERS = 24                    # three whole 8-layer Jamba blocks of 32
+JAMBA_PARAMS = 38_811_955_392        # the reference's eval_shape at 24 layers
+JAMBA_LONG_PROMPT, JAMBA_LONG_GEN = 4096, 16   # 8 scan chunks of 512
+JAMBA_LONG_HELD_LAYERS = 16          # 13b's dropless replay: two blocks
+JAMBA_DROPLESS = 8.0                 # capacity factor >= n_experts / top_k
+JAMBA_SCAN_LEN = 2048                # 13b: chunked vs single-shot scan
+JAMBA_SCAN_ATOL = 1e-5
+JAMBA_CPU_LAYERS = 5                 # 13c: 4 Mamba, the attention layer
+JAMBA_CPU_EXPERTS = 4                # 13c: routed experts 16 -> 4, top-2
+JAMBA_CPU_PARAMS = 2_937_892_872
+JAMBA_FP32_SELF_ATOL = 5e-4          # decode vs forward, float32: the
+                                     # reference's bound (test_archs.py)
+JAMBA_FLOOR_FACTOR = 2               # cached vs forward: rounding floors
+
+
+def jamba_config(layers: int, **kw):
+    """jamba-v0.1-52b cut to its first ``layers`` layers of the pattern."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.jamba_v01_52b import _pattern
+    return dataclasses.replace(get_config(JAMBA_ARCH), n_layers=layers,
+                               pattern=_pattern(layers), **kw)
+
+
+@contextlib.contextmanager
+def moe_capacity(model, cfg, factor: float):
+    """``cfg`` with every MoE layer's capacity factor ``factor``, given to
+    ``model``'s MoE modules while inside. At ``factor >= n_experts /
+    top_k`` each expert has a slot for every token, so no call drops a
+    pair whatever its token count T: the cached path and ``forward`` keep
+    the same pairs wherever their routers pick alike."""
+    from repro_torch.models.moe import MoE
+    dcfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=factor))
+    mods = [m for m in model.modules() if isinstance(m, MoE)]
+    for m in mods:
+        m.cfg = dcfg
+    try:
+        yield dcfg
+    finally:
+        for m in mods:
+            m.cfg = cfg
+
+
+def moe_routes(calls: list, L: int, B: int) -> list:
+    """One run's router records per MoE layer as ``(idx, sel, margin)``
+    of shapes [B, positions, ...]: ``calls`` is a tap's record of one
+    forward (L calls over B x S tokens) or of a prefill then its decode
+    steps (L calls over B x P tokens, then L calls over B tokens a step),
+    each in layer order."""
+    import torch
+    out = []
+    for layer in range(L):
+        mine = calls[layer::L]
+        idx, sel, margin = (torch.cat([c[k].reshape(B, -1, *c[k].shape[1:])
+                                       for c in mine], dim=1)
+                            for k in ("idx", "sel", "margin"))
+        out.append((idx.sort(-1).values, sel, margin))
+    return out
+
+
+def moe_first_flips(rep: list, fwd: list, L: int, B: int) -> list:
+    """Where the cached path's routing first leaves the forward's: per
+    batch row, (the first position at which any MoE layer picks another
+    set of experts, whether every such pick there is a near-tie), or None
+    (the same set in another order is the same output). A
+    near-tie: the smaller top-k margin of the two runs within twice the
+    largest difference of that token's selection scores between them,
+    i.e. the two runs' rounding decides it. A flip routes the token
+    through other experts, so it moves the logits at its position and,
+    through attention and the Mamba state, at every later one."""
+    import torch
+    a, b = moe_routes(rep, L, B), moe_routes(fwd, L, B)
+    firsts = []
+    for row in range(B):
+        q, near = None, True
+        for (ia, sa, ma), (ib, sb, mb) in zip(a, b):
+            diff = (ia[row] != ib[row]).any(-1)
+            if bool(diff.any()):
+                pos = int(torch.nonzero(diff)[0])
+                if q is None or pos < q:
+                    q, near = pos, True
+                if pos == q:
+                    eps = float((sa[row, pos] - sb[row, pos]).abs().max())
+                    near &= min(float(ma[row, pos]),
+                                float(mb[row, pos])) <= 2 * eps
+        firsts.append(None if q is None else (q, near))
+    return firsts
+
+
+@contextlib.contextmanager
+def moe_pinned(picks: list):
+    """While inside, each call of ``repro_torch.models.moe._route`` routes
+    its tokens to the experts ``picks`` gives, one entry per call in call
+    order (a forward calls each MoE layer once, in layer order); the gates
+    are those experts' router probabilities, renormalized, as ``_route``
+    computes them. A forward then routes as the run that ``picks`` was
+    recorded from, and what is left to compare is the rest of the model."""
+    import torch
+    from repro_torch.models import moe
+    route, calls = moe._route, iter(picks)
+
+    def pinned(params, xt, m):
+        sel, _, _ = route(params, xt, m)
+        probs = torch.softmax(xt.float() @ params["router"].float(), dim=-1)
+        idx = next(calls).reshape(*xt.shape[:-1], m.top_k).to(xt.device)
+        gate = probs.gather(-1, idx)
+        return sel, idx, gate / torch.clamp_min(gate.sum(-1, keepdim=True),
+                                                1e-9)
+
+    moe._route = pinned
+    try:
+        yield
+    finally:
+        moe._route = route
+
+
+def mamba_caches(cfg, caches) -> list:
+    return [c for spec, c in zip(cfg.layer_pattern(), caches)
+            if spec.mixer == "mamba"]
+
+
+def jamba_check_caches(sm: Smoke, label: str, cfg, caches, pos: int,
+                       batch: int) -> None:
+    """Every Mamba layer's decode state in the activation dtype (the
+    scan returns its state in ``u``'s dtype), of the reference's shapes,
+    at position ``pos``."""
+    import torch
+    mc = cfg.mamba
+    di = int(mc.expand * cfg.d_model)
+    act = getattr(torch, cfg.activation_dtype)
+    ms = mamba_caches(cfg, caches)
+    sm.check(len(ms) > 0 and all(
+        c["h"].dtype == c["conv"].dtype == act
+        and tuple(c["h"].shape) == (batch, di, mc.d_state)
+        and tuple(c["conv"].shape) == (batch, mc.d_conv - 1, di)
+        and c["idx"] == pos and bool(torch.isfinite(c["h"].float()).all())
+        for c in ms) and all(c["idx"] == pos for c in caches),
+        f"{label}: {len(ms)} Mamba caches hold h [{batch}, {di}, "
+        f"{mc.d_state}] and conv [{batch}, {mc.d_conv - 1}, {di}] in "
+        f"{act}, finite, every layer at position {pos}")
+
+
+def jamba_held(sm: Smoke, label: str, M, model, cfg, prompts, G: int,
+               atol: float) -> dict:
+    """With every MoE layer dropless: a greedy loop of ``G`` tokens through
+    ``prefill`` / ``decode_step`` (its Mamba caches checked) against
+    ``forward`` over the same prefix. The two paths multiply matrices of
+    other shapes, so they round apart, and a router whose top-k margin is
+    below that rounding picks other experts in each: every row's first
+    such flip must be a near-tie. Then ``forward`` runs again with its
+    routing pinned to the loop's picks (``moe_pinned``), and every step's
+    logits must lie within the tolerance of it, each greedy token its
+    argmax or a near-tie. The tolerance is ``atol``, or, where larger,
+    JAMBA_FLOOR_FACTOR times the model's rounding floor: how far the same
+    pinned forward's logits move when its input is moved by one ulp of the
+    activation dtype (``x * (1 + eps)`` into the first block). In bf16 a
+    random-weight Jamba amplifies that one ulp to 1.3-1.5 logits on an
+    H100 (13a, 13b), far above the 0.25 that holds for olmo-1b; the cached
+    path rounds apart from the forward at every layer, not once at the
+    input, so it may sit somewhat above one floor."""
+    import torch
+    B, P = prompts.shape
+    tap = MoeTap(model)
+    L = tap.n_layers
+    tap.on = True
+    with moe_capacity(model, cfg, JAMBA_DROPLESS) as dcfg:
+        lg, caches = M.prefill(model, {"tokens": prompts}, dcfg, P + G)
+        out, logits = [lg[:, -1].argmax(-1)], [lg]
+        for _ in range(G - 1):
+            lg, caches = M.decode_step(model, caches,
+                                       {"tokens": out[-1][:, None]}, dcfg)
+            out.append(lg[:, -1].argmax(-1))
+            logits.append(lg)
+        rep = tap.take()
+        jamba_check_caches(sm, label, dcfg, caches, P + G - 1, B)
+        del caches
+        toks, steps = torch.stack(out, dim=1), torch.cat(logits, dim=1)
+        seq = {"tokens": torch.cat([prompts, toks[:, :-1]], dim=1)}
+        with torch.no_grad():
+            free, aux = M.forward(model, seq, dcfg)
+            free = free[:, P - 1:].clone()
+        fwd = tap.take()
+        tap.on = False
+        tap.close()
+        picks = [r[0] for r in moe_routes(rep, L, B)]
+        with moe_pinned(picks), torch.no_grad():
+            full, _ = M.forward(model, seq, dcfg)
+            full = full[:, P - 1:].clone()
+        def kick(mod, args):
+            return (args[0] * (1 + torch.finfo(args[0].dtype).eps),) \
+                + args[1:]
+
+        hook = model.blocks[0].register_forward_pre_hook(kick)
+        with moe_pinned(picks), torch.no_grad():
+            moved, _ = M.forward(model, seq, dcfg)
+        hook.remove()
+        floor = float((moved[:, P - 1:].float() - full.float()).abs().max())
+        del moved
+    pairs = B * (P + G - 1) * cfg.moe.top_k
+    sm.check(round(float(aux["moe_dropped"]) * pairs) == 0,
+             f"{label}: capacity factor {JAMBA_DROPLESS}: forward over "
+             f"{B}x{P + G - 1} tokens drops no pair (moe_dropped "
+             f"{float(aux['moe_dropped']):.3g})")
+    sm.check(full.dtype == steps.dtype == getattr(torch,
+                                                  cfg.activation_dtype),
+             f"{label}: logits in {full.dtype}")
+    firsts = moe_first_flips(rep, fwd, L, B)
+    flips = [f for f in firsts if f is not None]
+    free_err = float((steps.float() - free.float()).abs().max())
+    sm.check(all(near for _, near in flips),
+             f"{label}: the cached path's routing leaves the free "
+             f"forward's in {len(flips)} of {B} rows, first at positions "
+             f"{[f[0] for f in flips]}, each a near-tie (free forward vs "
+             f"cached steps: max abs err {free_err:.4g})")
+    tol = max(atol, JAMBA_FLOOR_FACTOR * floor)
+    sm.note(f"{label}: rounding floor (the pinned forward with its input "
+            f"moved by one ulp) {floor:.4g}; tolerance max({atol}, "
+            f"{JAMBA_FLOOR_FACTOR} x floor) = {tol:.4g}")
+    rec = lm_check_greedy(sm, f"{label}, routing pinned", toks, steps, full,
+                          tol)
+    rec.update(first_flips=[None if f is None else f[0] for f in firsts],
+               free_forward_err=free_err, floor=floor, tolerance=tol)
+    return rec
+
+
+def jamba_mamba_profile(sm: Smoke, model, cfg) -> dict:
+    """One Mamba layer's prefill at the long prompt's shape (layer 0's
+    mixer on a bf16 [1, 4096, 4096] input and a fresh cache: the chunked
+    scan), timed unprofiled, then once under the profiler; beside its
+    bound from ``lm_work``'s Mamba terms."""
+    import torch
+    from repro_torch.models.ssm import Mamba, mamba_cache_shape
+    mixer = model.blocks[0].mixer
+    assert isinstance(mixer, Mamba)
+    act = getattr(torch, cfg.activation_dtype)
+    g = torch.Generator(device=DEVICE).manual_seed(6)
+    x = torch.randn((1, JAMBA_LONG_PROMPT, cfg.d_model), generator=g,
+                    device=DEVICE).to(act)
+
+    def mix():
+        with torch.no_grad():
+            return mixer(x, cache=mamba_cache_shape(cfg, 1, act,
+                                                    device=DEVICE),
+                         dtype=act)
+
+    mix()
+    lm_sync()
+    t0 = time.perf_counter()
+    mix()
+    lm_sync()
+    ms = (time.perf_counter() - t0) * 1e3
+    prof = lm_profile(mix)
+    lm_note_profile(sm, "13b profile (one Mamba layer's prefill of the "
+                    f"{JAMBA_LONG_PROMPT}-token prompt)", prof)
+    mc = cfg.mamba
+    di, n, K = int(mc.expand * cfg.d_model), mc.d_state, mc.d_conv
+    r = max(cfg.d_model // 16, 1)
+    T, d = JAMBA_LONG_PROMPT, cfg.d_model
+    ops = 2 * T * (d * 2 * di + di * (r + 2 * n) + r * di + di * d
+                   + K * di) + 6 * T * di * n
+    nbytes = (sum(p.numel() * p.element_size() for p in mixer.parameters())
+              + 2 * T * d * x.element_size()
+              + ((K - 1) * di + di * n) * x.element_size())
+    bound, by = lm_bound_ms(nbytes, ops, BF16_OPS_PER_S)
+    n_mamba = sum(s.mixer == "mamba" for s in cfg.layer_pattern())
+    sm.note(f"13b: one Mamba layer's prefill {ms:.3f} ms unprofiled (bound "
+            f"{bound:.4f} ms, {by}); x {n_mamba} Mamba layers = "
+            f"{ms * n_mamba:.1f} ms")
+    return dict(mamba_layer_ms=ms, mamba_layer_bound_ms=bound,
+                mamba_layer_bound_by=by, mamba_profile=prof)
+
+
+def jamba_long_part(sm: Smoke, M, model, cfg, ident) -> dict:
+    """13b: one 4,096-token request at batch 1 and 16 greedy steps through
+    ``prefill`` / ``decode_step`` (timed, the MoE layers tapped), the
+    prefill against ``forward`` on the same prompt, one Mamba layer's
+    prefill profiled; then the model cut to its first 16 layers and the
+    request replayed dropless, held against ``forward`` over the same
+    4,111 tokens. Leaves ``model`` at 16 layers."""
+    import torch
+    P, G = JAMBA_LONG_PROMPT, JAMBA_LONG_GEN
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    prompt = torch.randint(0, cfg.vocab, (1, P), generator=gen,
+                           device=DEVICE)
+    tap = MoeTap(model)
+    L = tap.n_layers
+    tap.on = True
+    torch.cuda.reset_peak_memory_stats()
+    lm_sync()
+    t0 = time.perf_counter()
+    lg, caches = M.prefill(model, {"tokens": prompt}, cfg, P + G)
+    nxt = lg[:, -1].argmax(-1)
+    lm_sync()
+    t1 = time.perf_counter()
+    first = lg
+    for _ in range(G - 1):
+        lg, caches = M.decode_step(model, caches, {"tokens": nxt[:, None]},
+                                   cfg)
+        nxt = lg[:, -1].argmax(-1)
+    lm_sync()
+    t2 = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated()
+    calls = tap.take()
+    pre, dec = calls[:L], [calls[L + i * L:L + (i + 1) * L]
+                           for i in range(G - 1)]
+    jamba_check_caches(sm, "13b", cfg, caches, P + G - 1, 1)
+    del caches
+    dec_drops = [moe_dropped_pairs(c) for s_ in dec for c in s_]
+    sm.check(len(dec) == G - 1 and max(dec_drops) == 0,
+             f"13b: no decode step drops a pair ({G - 1} steps x {L} MoE "
+             f"layers)")
+    pre_drop = [moe_dropped_pairs(c) / c["pairs"] for c in pre]
+    sm.note("13b: prefill drop share by MoE layer "
+            + ", ".join(f"{x:.4f}" for x in pre_drop))
+    with torch.no_grad():
+        full, _ = M.forward(model, {"tokens": prompt}, cfg)
+        full = full[:, -1:].clone()
+    fwd = tap.take()
+    tap.on = False
+    tap.close()
+    fl = moe_flips(pre, fwd, 1)
+    err = float((first.float() - full.float()).abs().max())
+    sm.check(fl["flips"] == fl["near_ties"] and (fl["flips"] > 0
+                                                 or err <= LM_BF16_ATOL),
+             f"13b: prefill's last logits against forward on the same "
+             f"{P}-token prompt, max abs err {err:.6g} (held to "
+             f"{LM_BF16_ATOL} only without a router flip); router picks "
+             f"differ at {fl['flips']} token-layers, {fl['near_ties']} of "
+             f"them near-ties (the prefill attends over {P + G} cache "
+             f"positions blockwise, the forward over {P} densely)")
+    del full
+    p_bound, p_by = moe_bound(cfg, model, pre, 1, P, 0)
+    d_bound = sum(moe_bound(cfg, model, s_, 1, 1, P + i)[0]
+                  for i, s_ in enumerate(dec)) / len(dec)
+    rec = dict(prompt=P, gen=G, prefill_ms=(t1 - t0) * 1e3,
+               prefill_bound_ms=p_bound, prefill_bound_by=p_by,
+               decode_step_ms=(t2 - t1) * 1e3 / (G - 1),
+               decode_step_bound_ms=d_bound,
+               decode_tokens_per_s=(G - 1) / (t2 - t1), peak_bytes=peak,
+               prefill_drop_share=pre_drop, prefill_vs_forward_err=err,
+               router_flips=fl)
+    rec.update(jamba_mamba_profile(sm, model, cfg))
+    sm.note(f"13b ({ident}): prefill 1x{P} {rec['prefill_ms']:.1f} ms "
+            f"(bound {p_bound:.3f} ms, {p_by}); decode "
+            f"{rec['decode_step_ms']:.4f} ms/step at {P}+ positions (bound "
+            f"{d_bound:.4f} ms), {rec['decode_tokens_per_s']:.1f} tok/s; "
+            f"peak {peak} bytes ({peak / 2**30:.2f} GiB)")
+
+    # held: the first two blocks, dropless
+    H = JAMBA_LONG_HELD_LAYERS
+    del model.blocks[H:]
+    hcfg = dataclasses.replace(cfg, n_layers=H,
+                               pattern=cfg.layer_pattern()[:H])
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["held"] = dict(layers=H, **jamba_held(
+        sm, f"13b ({H} layers, dropless)", M, model, hcfg, prompt, G,
+        LM_BF16_ATOL))
+    return rec
+
+
+def jamba_scan_check(sm: Smoke, cfg) -> dict:
+    """13b, with the model freed: ``_mamba_scan`` chunked (512) against
+    single-shot at one Mamba layer's shapes (di 8192, n 16) over 2,048
+    tokens, float32 (TF32 off), within JAMBA_SCAN_ATOL; the inputs take
+    the distributions of the reference's own chunked-scan test."""
+    import torch
+    from repro_torch.models.ssm import _MAMBA_CHUNK, _mamba_scan
+    mc = cfg.mamba
+    di, n, s = int(mc.expand * cfg.d_model), mc.d_state, JAMBA_SCAN_LEN
+    g = torch.Generator(device=DEVICE).manual_seed(7)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=DEVICE)
+
+    u = randn(1, s, di) * 0.1
+    dt = torch.nn.functional.softplus(randn(1, s, di)) * 0.1
+    B, C = randn(1, s, n) * 0.3, randn(1, s, n) * 0.3
+    A = -torch.exp(randn(di, n) * 0.2)
+    D = torch.ones(di, device=DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    y1, h1 = _mamba_scan(u, dt, B, C, A, D, chunk=s)
+    y2, h2 = _mamba_scan(u, dt, B, C, A, D, chunk=_MAMBA_CHUNK)
+    lm_sync()
+    peak = torch.cuda.max_memory_allocated()
+    err = max(float((y1 - y2).abs().max()), float((h1 - h2).abs().max()))
+    sm.check(err <= JAMBA_SCAN_ATOL,
+             f"13b: chunked scan ({_MAMBA_CHUNK}) against single-shot over "
+             f"{s} tokens at di {di}, n {n}, float32: max abs err "
+             f"{err:.3g} <= {JAMBA_SCAN_ATOL} (|y| <= "
+             f"{float(y1.abs().max()):.4g}); peak {peak / 2**30:.2f} GiB")
+    return dict(scan_len=s, scan_chunked_vs_single_err=err,
+                scan_peak_bytes=peak)
+
+
+def jamba_cpu_part(sm: Smoke, M, S) -> dict:
+    """13c: the first 5 layers at full width with 4 routed experts,
+    float32, the card against the CPU on the same weights (phase 12c's
+    checks and the Mamba caches), then the card's own cached path held
+    against its forward."""
+    base = jamba_config(JAMBA_CPU_LAYERS)
+    cfg = jamba_config(JAMBA_CPU_LAYERS, param_dtype="float32",
+                       activation_dtype="float32",
+                       moe=dataclasses.replace(base.moe,
+                                               n_experts=JAMBA_CPU_EXPERTS))
+    rec, card, toks = moe_cpu_part(sm, M, S, "13c", cfg)
+    n_params = sum(p.numel() for p in card.parameters())
+    sm.check((cfg.name != "jamba-v0.1-52b" or n_params == JAMBA_CPU_PARAMS)
+             and "mamba_cache_err" in rec,
+             f"13c: {cfg.name} cut to {cfg.n_layers} layers "
+             f"({[s_.mixer + '/' + s_.mlp for s_ in cfg.layer_pattern()]}), "
+             f"{cfg.moe.n_experts} experts, {n_params} float32 parameters")
+    rec.update(params=n_params, held=jamba_held(
+        sm, "13c (card, dropless)", M, card, cfg, toks[:, :16].to(DEVICE),
+        8, JAMBA_FP32_SELF_ATOL))
+    return rec
+
+
+def jamba_path(sm: Smoke, ident: str) -> dict:
+    """Phase 13: jamba-v0.1-52b at full width cut to 24 layers with
+    seeded bf16 weights (13a, 13b), freed; the scan at full width; then
+    the 5-layer float32 cut, card against CPU (13c)."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.models.ssm import Mamba
+    from repro_torch.training import steps as S
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    cfg = jamba_config(JAMBA_LAYERS)
+    model, init_s = moe_build(sm, M, "13a", cfg)
+    n_params = sum(p.numel() for p in model.parameters())
+    mixers = [blk.mixer for blk in model.blocks
+              if isinstance(blk.mixer, Mamba)]
+    sm.check((cfg.name != "jamba-v0.1-52b" or n_params == JAMBA_PARAMS)
+             and len(mixers) == sum(s_.mixer == "mamba"
+                                    for s_ in cfg.layer_pattern())
+             and all(m.A_log.dtype == m.D.dtype == torch.float32
+                     and m.in_proj.dtype == torch.bfloat16 for m in mixers),
+             f"13a: {len(mixers)} Mamba layers of {cfg.n_layers}, A_log and "
+             f"D float32 beside bf16 weights, {n_params} parameters")
+    rec = {"13a": moe_serve_part(sm, M, S, "13a", cfg, model, init_s,
+                                 ident)}
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT),
+                            generator=gen, device=DEVICE)
+    rec["13a"].update(dropless=jamba_held(sm, "13a (dropless)", M, model,
+                                          cfg, prompts, LM_GEN,
+                                          LM_BF16_ATOL))
+    sm.note(f"13a: {time.perf_counter() - t0:.1f}s")
+    t = time.perf_counter()
+    rec["13b"] = jamba_long_part(sm, M, model, cfg, ident)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["13b"].update(jamba_scan_check(sm, cfg))
+    gc.collect()
+    torch.cuda.empty_cache()
+    sm.note(f"13b: {time.perf_counter() - t:.1f}s")
+    t = time.perf_counter()
+    rec["13c"] = jamba_cpu_part(sm, M, S)
+    gc.collect()
+    torch.cuda.empty_cache()
+    sm.note(f"13c: {time.perf_counter() - t:.1f}s; phase 13: "
             f"{time.perf_counter() - t0:.1f}s")
     rec["seconds"] = time.perf_counter() - t0
     return rec
@@ -4284,6 +4847,11 @@ def main() -> int:
     moe = moe_path(sm, ident)
     for label, _, _ in MOE_CELLS:
         peak[f"moe serve ({label})"] = moe[label]["peak_bytes"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    jamba = jamba_path(sm, ident)
+    peak["jamba serve (13a)"] = jamba["13a"]["peak_bytes"]
+    peak["jamba 4k request (13b)"] = jamba["13b"]["peak_bytes"]
     kernels = []
     for r in recs:
         t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
@@ -4322,7 +4890,7 @@ def main() -> int:
                                    ranks=ranks["reports"],
                                    ranks_s=ranks["seconds"],
                                    launches=shard_launches),
-                        lm=lm, moe=moe,
+                        lm=lm, moe=moe, jamba=jamba,
                         peak_memory_bytes=peak,
                         algo_row_launches=algos["row_launches"],
                         kernel_shapes={r["name"]: r["shape"] for r in recs},

@@ -4,12 +4,14 @@ greedy-decode with the KV cache (``examples/serve_lm.py`` on the port).
     PYTHONPATH=src python examples/torch_serve_lm.py --arch olmo_1b
     PYTHONPATH=src python examples/torch_serve_lm.py --device cpu
     PYTHONPATH=src python examples/torch_serve_lm.py --arch deepseek_v3_671b
+    PYTHONPATH=src python examples/torch_serve_lm.py --arch jamba_v01_52b
 
 Serves the arch's smoke config with seeded random weights, on the CUDA
-card unless ``--device cpu``: the dense and GQA archs and the MoE family
-(``phi35_moe_42b``; ``deepseek_v3_671b`` with MLA and its MTP module). The
-hybrid, ssm, vlm and audio archs raise ``NotImplementedError`` naming
-their ROADMAP item.
+card unless ``--device cpu``: the dense and GQA archs, the MoE family
+(``phi35_moe_42b``; ``deepseek_v3_671b`` with MLA and its MTP module) and
+the Jamba hybrid (``jamba_v01_52b``: Mamba layers, one attention layer in
+eight, MoE on the odd layers). The ssm, vlm and audio archs raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 import argparse
 import time

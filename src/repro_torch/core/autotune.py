@@ -41,7 +41,10 @@ sessions pin the resulting assignment per shape bucket.
 
 Cache location: ``$DRONE_AUTOTUNE_DIR`` when set, else ``~/.cache/drone/``,
 one JSON per (platform, schema version). A corrupt or stale-schema file is
-recalibrated, never trusted.
+recalibrated, never trusted. The processes of a job share the directory
+and calibrate at once on first use, so each writes its own temporary file
+and moves it into place: a reader sees one whole table, and no writer
+loses its file to another's move.
 """
 from __future__ import annotations
 
@@ -50,6 +53,7 @@ import json
 import logging
 import os
 import re
+import tempfile
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -355,10 +359,12 @@ def load_table(platform: Optional[str] = None
 def save_table(table: CalibrationTable) -> str:
     path = table_path(table.platform)
     os.makedirs(os.path.dirname(path), exist_ok=True)
-    tmp = path + ".tmp"
-    with open(tmp, "w", encoding="utf-8") as f:
+    with tempfile.NamedTemporaryFile(
+            "w", encoding="utf-8", dir=os.path.dirname(path),
+            prefix=os.path.basename(path) + ".", suffix=".tmp",
+            delete=False) as f:
         f.write(table.to_json())
-    os.replace(tmp, path)
+    os.replace(f.name, path)
     return path
 
 

@@ -82,10 +82,11 @@ def model_params_from_numpy(tree: Mapping, cfg: ModelConfig, *,
     ``init_model(key, cfg)`` pytree, given as numpy arrays: blocks stacked
     on a leading repeat axis per scan group, ``tree["blocks"][group][pos]``
     (repeat ``r`` of position ``i`` of group ``g`` is the port's layer
-    ``offset(g) + r * len(pattern) + i``); the MoE, MLA and MTP leaves go
-    by the same names (an MoE router and its bias stay float32). Every
-    leaf must land on a parameter of the same shape and every parameter
-    must get one."""
+    ``offset(g) + r * len(pattern) + i``: Jamba's full config is one group
+    of 8 positions repeated, its smoke config 8 groups of 1); the MoE, MLA,
+    MTP and Mamba leaves go by the same names (an MoE router and its bias,
+    a Mamba's ``A_log`` and ``D`` stay float32). Every leaf must land on a
+    parameter of the same shape and every parameter must get one."""
     model = Model(cfg, device=device)
     state = dict(_flat({k: v for k, v in tree.items() if k != "blocks"},
                        ""))

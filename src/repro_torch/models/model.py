@@ -1,6 +1,7 @@
 """Model assembly: config -> init / forward / prefill / decode. The port of
-the JAX package's ``models/model.py`` for attention and MLA blocks with
-dense or MoE MLPs, and DeepSeek's multi-token prediction (MTP) module.
+the JAX package's ``models/model.py`` for attention, MLA and Mamba blocks
+with dense or MoE MLPs (so the Jamba hybrid pattern), and DeepSeek's
+multi-token prediction (MTP) module.
 
 ``Model`` is an ``nn.Module``: the token embedding ``embed`` [V, d], the
 final norm, an ``lm_head`` [d, V] unless the embeddings are tied, the
@@ -14,11 +15,15 @@ A decode cache is a list with one dict per layer, by the layer's mixer:
 ``{"k", "v": [B, max_len, Hkv, Dh], "idx": int}`` for attention,
 ``{"ckv": [B, max_len, kv_lora], "kr": [B, max_len, rope], "idx": int}``
 for MLA, in the activation dtype; ``prefill`` and ``decode_step`` write it
-in place and return it with ``idx`` advanced. There is one card, so the
-reference's sharding hints have no counterpart, and
-``fsdp_gather_weights`` / ``tp_bf16_payload`` change no number. The SSM
-mixers, the encoder, the frontend stubs and cross-attention are later
-slices: a config that needs one is refused by ``Model``.
+in place and return it with ``idx`` advanced. A Mamba layer's is
+``{"conv": [B, d_conv - 1, di], "h": [B, di, n], "idx": int}``
+(``models/ssm.py``), replaced by each call; its ``idx`` advances as an
+attention layer's does, so ``decode_step`` reads the position from layer 0
+whatever its mixer. There is one card, so the reference's sharding hints
+have no counterpart, and ``fsdp_gather_weights`` / ``tp_bf16_payload``
+change no number. The xLSTM mixers, the encoder, the frontend stubs and
+cross-attention are later slices: a config that needs one is refused by
+``Model``.
 """
 from __future__ import annotations
 
@@ -32,9 +37,10 @@ from repro_torch.models.config import BlockSpec, ModelConfig
 from repro_torch.models.layers import (MLA, MLP, Attention, Norm, _param,
                                        mla_cache_shape, not_ported)
 from repro_torch.models.moe import MoE
+from repro_torch.models.ssm import Mamba, mamba_cache_shape
 
-_MIXER_ITEMS = {"mamba": "5d (Mamba and the hybrid pattern)",
-                "mlstm": "5e (mLSTM / sLSTM)", "slstm": "5e (mLSTM / sLSTM)"}
+_MIXERS = {"attn": Attention, "mla": MLA, "mamba": Mamba}
+_MIXER_ITEMS = {"mlstm": "5e (mLSTM / sLSTM)", "slstm": "5e (mLSTM / sLSTM)"}
 _ENC_DEC_ITEM = "5f (encoder-decoder and frontend stubs)"
 _MTP_SPEC = BlockSpec(mixer="attn", mlp="dense")
 
@@ -44,7 +50,7 @@ def _dtype(name: str) -> torch.dtype:
 
 
 def _check_spec(spec: BlockSpec) -> None:
-    if spec.mixer not in ("attn", "mla"):
+    if spec.mixer not in _MIXERS:
         raise not_ported(f"mixer {spec.mixer!r}",
                          _MIXER_ITEMS.get(spec.mixer, spec.mixer))
     if spec.cross:
@@ -70,8 +76,9 @@ def _check_ported(cfg: ModelConfig) -> None:
 class Block(nn.Module):
     """One pre-norm layer: ``x + mixer(norm1(x))``, then ``x +
     mlp(norm2(x))`` (the reference's ``init_block`` / ``block_apply``); the
-    mixer is attention or MLA, the MLP dense or MoE, by ``spec``. Its float
-    parameters are used in the activation dtype."""
+    mixer is attention, MLA or Mamba, the MLP dense or MoE, by ``spec``.
+    Its float parameters are used in the activation dtype (a Mamba's
+    float32 ``A_log`` and ``D`` too)."""
 
     def __init__(self, spec: BlockSpec, cfg: ModelConfig, *,
                  dtype: torch.dtype, device=None,
@@ -80,9 +87,8 @@ class Block(nn.Module):
         _check_spec(spec)
         self.cfg = cfg
         self.norm1 = Norm(cfg.d_model, cfg.norm, dtype=dtype, device=device)
-        mixer = MLA if spec.mixer == "mla" else Attention
-        self.mixer = mixer(cfg, dtype=dtype, device=device,
-                           generator=generator)
+        self.mixer = _MIXERS[spec.mixer](cfg, dtype=dtype, device=device,
+                                         generator=generator)
         self.norm2 = Norm(cfg.d_model, cfg.norm, dtype=dtype, device=device)
         self.mlp = (MoE(cfg, dtype=dtype, device=device, generator=generator)
                     if spec.mlp == "moe" else
@@ -217,7 +223,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device: DeviceLike = None) -> list:
     """A zeroed decode cache of capacity ``max_len``, one dict per layer
     by its mixer (the reference's ``block_cache_shape``; the reference
-    returns the shapes, the port allocates them)."""
+    returns the shapes, the port allocates them). A Mamba layer's state
+    has a fixed size whatever ``max_len``."""
     dev = resolve_device(device)
     dtype = _dtype(cfg.activation_dtype)
     shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
@@ -225,6 +232,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     def one(spec):
         if spec.mixer == "mla":
             return mla_cache_shape(cfg, batch, max_len, dtype, device=dev)
+        if spec.mixer == "mamba":
+            return mamba_cache_shape(cfg, batch, dtype, device=dev)
         return {"k": torch.zeros(shape, dtype=dtype, device=dev),
                 "v": torch.zeros(shape, dtype=dtype, device=dev), "idx": 0}
 

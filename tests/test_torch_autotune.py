@@ -111,6 +111,51 @@ def test_table_disk_roundtrip(tmp_path):
     assert TT.get_table(device="cpu").to_json() == t1.to_json()
 
 
+def test_concurrent_writers_and_readers_share_one_cache(tmp_path):
+    """The ranks of a job share the cache directory and calibrate at once
+    on first use. Writers racing on one directory must all succeed (a
+    shared temporary name let one writer's move take another's file, whose
+    own move then raised ``FileNotFoundError``: a rank that crashed and
+    left its peers waiting in a collective), readers must only ever see a
+    whole table, and no temporary file may be left behind. 16 threads, a
+    short switch interval, 100 saves or loads each."""
+    import sys
+    import threading
+    table = TT.calibrate("torch-cpu")
+    want = table.to_json()
+    TT.save_table(table)
+    errors, seen = [], []
+
+    def writer():
+        for _ in range(100):
+            try:
+                TT.save_table(table)
+            except Exception as e:      # a failed save is the fault
+                errors.append(repr(e))
+
+    def reader():
+        for _ in range(100):
+            got = TT.load_table("torch-cpu")
+            seen.append(None if got is None else got.to_json())
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=writer if i % 2 else reader)
+                   for i in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert errors == []
+    assert len(seen) == 800 and all(j == want for j in seen)
+    assert sorted(os.listdir(tmp_path)) == [os.path.basename(
+        TT.table_path("torch-cpu"))]
+
+
 def test_schema_mismatch_raises():
     raw = TT.calibrate("torch-cpu").to_json().replace(
         f'"version": {TT.SCHEMA_VERSION}', '"version": 999')

@@ -54,9 +54,8 @@ def test_import_leaves_jax_and_reference_out(tmp_path):
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "print(bad); assert not bad, bad\n")
-    for rc, text in wait_all(spawn_ranks(rank_code, 2, [],
-                                         tmp_path / "store"), 300):
-        assert rc == 0, text[-4000:]
+    wait_all(spawn_ranks(rank_code, 2, [], tmp_path / "store"), 300,
+             ["rank 0", "rank 1"])
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")),
@@ -205,17 +204,19 @@ def test_algos_export_the_reference_suite():
 
 
 def test_lm_stack_loads_no_jax():
-    """``repro_torch.models``, ``repro_torch.configs`` (every arch module)
-    and ``repro_torch.training`` load no ``jax`` and no module of the JAX
-    package, nor does a prefill and a decode step on the CPU."""
+    """``repro_torch.models`` (``ssm`` too), ``repro_torch.configs`` (every
+    arch module) and ``repro_torch.training`` load no ``jax`` and no module
+    of the JAX package, nor does a prefill and a decode step on the CPU of a
+    dense, the two MoE and the Jamba smoke configs."""
     code = ("import sys, torch\n"
             "import repro_torch.models, repro_torch.models.model as M\n"
             "import repro_torch.models.moe, repro_torch.models.layers\n"
+            "import repro_torch.models.ssm\n"
             "import repro_torch.configs as C, repro_torch.training\n"
             "from repro_torch.training import steps as S\n"
             "for a in C.ARCHS: C.get_config(a); C.get_smoke_config(a)\n"
             "for a in ('phi4_mini_3p8b', 'phi35_moe_42b', "
-            "'deepseek_v3_671b'):\n"
+            "'deepseek_v3_671b', 'jamba_v01_52b'):\n"
             "    cfg = C.get_smoke_config(a)\n"
             "    m = M.init_model(cfg, device='cpu')\n"
             "    t = torch.zeros((2, 5), dtype=torch.int32)\n"
@@ -234,15 +235,16 @@ def test_lm_stack_loads_no_jax():
 
 @pytest.mark.parametrize("arch,item", [
     ("deepseek_v3_671b", None), ("phi35_moe_42b", None),
-    ("jamba_v01_52b", "5d"), ("xlstm_350m", "5e"), ("internvl2_26b", "5f"),
+    ("jamba_v01_52b", None), ("xlstm_350m", "5e"), ("internvl2_26b", "5f"),
     ("seamless_m4t_large_v2", "5f")])
 def test_unported_lm_archs_raise_not_implemented(arch, item):
-    """Hybrid, ssm, vlm and audio configs are later slices: the model
-    refuses them, naming the ROADMAP item, before it allocates anything
-    (the full configs too). MoE (item 5b) and MLA + MTP (item 5c) are
-    ported: those full configs build on the meta device with the
-    reference's parameter count per dtype (``jax.eval_shape`` of its
-    ``init_model``), and their smoke configs serve."""
+    """The ssm, vlm and audio configs are later slices: the model refuses
+    them, naming the ROADMAP item, before it allocates anything (the full
+    configs too). MoE (item 5b), MLA + MTP (item 5c) and Mamba with the
+    Jamba hybrid (item 5d) are ported: those full configs build on the
+    meta device with the reference's parameter count per dtype
+    (``jax.eval_shape`` of its ``init_model``; Jamba's float32 ``A_log``
+    and ``D`` among them), and their smoke configs serve."""
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.models.model import Model, init_model
     from repro_torch.training import steps as S

@@ -1,7 +1,8 @@
 """The LM serving path of the port against the JAX package's: a 2-prompt
 prefill + greedy decode loop on carried weights (float32, logits within
-1e-4 at every step, identical greedy tokens) for the dense and the MoE
-archs, and the port's ``examples/torch_serve_lm.py`` on the CPU."""
+1e-4 at every step, identical greedy tokens) for the dense, the MoE and the
+Jamba hybrid archs, and the port's ``examples/torch_serve_lm.py`` on the
+CPU."""
 import importlib.util
 from pathlib import Path
 
@@ -22,6 +23,7 @@ from repro_torch.training import steps as TS
 ROOT = Path(__file__).resolve().parents[1]
 DENSE = ["olmo_1b", "phi4_mini_3p8b", "stablelm_3b", "llama3_405b"]
 MOE = ["phi35_moe_42b", "deepseek_v3_671b"]
+HYBRID = ["jamba_v01_52b"]
 LOGIT_ATOL = 1e-4
 
 
@@ -35,7 +37,7 @@ def _serve(prefill, step, model, prompts, gen, wrap):
     return np.stack(toks, axis=1)
 
 
-@pytest.mark.parametrize("arch", DENSE + MOE)
+@pytest.mark.parametrize("arch", DENSE + MOE + HYBRID)
 def test_serve_loop_matches_reference(arch):
     rcfg, tcfg = RC.get_smoke_config(arch), TC.get_smoke_config(arch)
     params = RM.init_model(jax.random.PRNGKey(7), rcfg)
@@ -96,8 +98,8 @@ def test_example_serves_on_cpu(capsys):
                      "--gen", "5"])
     # the first lane's prompt is drawn first, so its tokens agree
     np.testing.assert_array_equal(again[0], toks[0, :5])
-    with pytest.raises(NotImplementedError, match="item 5d"):
-        ex.main(["--arch", "jamba_v01_52b", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="item 5e"):
+        ex.main(["--arch", "xlstm_350m", "--device", "cpu"])
 
 
 @pytest.mark.parametrize("arch", MOE)
@@ -106,6 +108,20 @@ def test_example_serves_moe_archs_on_cpu(arch, capsys):
                             "6"])
     assert toks.shape == (4, 6) and toks.dtype == torch.int32
     assert f"{arch}: generated 4x6 tokens" in capsys.readouterr().out
+
+
+def test_example_serves_jamba_on_cpu(capsys):
+    """The Jamba smoke config (7 Mamba layers and one attention layer, MoE
+    on the odd layers) through the example's loop; a prompt past the scan
+    chunk of 512 takes the chunked path."""
+    ex = _example()
+    toks = ex.main(["--arch", "jamba_v01_52b", "--device", "cpu", "--gen",
+                    "6"])
+    assert toks.shape == (4, 6) and toks.dtype == torch.int32
+    assert "jamba_v01_52b: generated 4x6 tokens" in capsys.readouterr().out
+    long = ex.main(["--arch", "jamba_v01_52b", "--device", "cpu", "--batch",
+                    "1", "--prompt-len", "520", "--gen", "3"])
+    assert long.shape == (1, 3)
 
 
 def test_example_refuses_without_card(monkeypatch):

@@ -210,8 +210,8 @@ def runs(tmp_path_factory):
     ranks = spawn_ranks(SCRIPT, WORLD, [str(tmp)], tmp / "store",
                         dict(DRONE_SIDE="port",
                              DRONE_AUTOTUNE_DIR=str(tmp / "pt")))
-    for rc, text in wait_all(ranks + [ref], 600):
-        assert rc == 0, text[-4000:]
+    wait_all(ranks + [ref], 600,
+             [f"port rank {r}" for r in range(WORLD)] + ["reference"])
     return (dict(np.load(tmp / "reference.npz")),
             [dict(np.load(tmp / f"port_{r}.npz")) for r in range(WORLD)])
 

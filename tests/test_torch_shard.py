@@ -33,6 +33,8 @@ import json
 import os
 import subprocess
 import sys
+import threading
+import time
 from pathlib import Path
 
 import numpy as np
@@ -278,20 +280,88 @@ def spawn_ranks(script, world, args, store, env=None):
     return procs
 
 
-def wait_all(procs, timeout):
-    """``[(returncode, output), ...]`` of ``procs``; every process still
-    running at ``timeout`` seconds is killed."""
-    out = []
+def wait_all(procs, timeout, names=None):
+    """Wait for ``procs``, one job, under one deadline ``timeout`` seconds
+    away, reading every process's output at the same time (a thread
+    each, so no full pipe stalls a process); a process still running at
+    the deadline is killed. Returns ``[(returncode, output), ...]`` in list
+    order. If any process exited non-zero or was killed, raises
+    ``AssertionError`` with every process's exit code (or that it was
+    killed) and the tail of its output, the first to exit non-zero in time
+    first: a rank that crashes leaves its peers waiting in a collective,
+    so the one that failed first is the one to read."""
+    names = names or [f"process {i}" for i in range(len(procs))]
+    texts = [""] * len(procs)
+
+    def drain(i):
+        texts[i] = procs[i].stdout.read()
+
+    readers = [threading.Thread(target=drain, args=(i,), daemon=True)
+               for i in range(len(procs))]
+    for t in readers:
+        t.start()
+    t0 = time.monotonic()
+    ended, killed = {}, []
     try:
-        for p in procs:
-            text, _ = p.communicate(timeout=timeout)
-            out.append((p.returncode, text))
+        while len(ended) < len(procs) and time.monotonic() - t0 < timeout:
+            for i, p in enumerate(procs):
+                if i not in ended and p.poll() is not None:
+                    ended[i] = time.monotonic() - t0
+            time.sleep(0.05)
     finally:
-        for p in procs:
+        for i, p in enumerate(procs):
             if p.poll() is None:
                 p.kill()
-                p.communicate()
-    return out
+                killed.append(i)
+            p.wait()
+        for t in readers:
+            t.join(timeout=30)
+    out = [(p.returncode, texts[i]) for i, p in enumerate(procs)]
+    failed = sorted((i for i in ended if procs[i].returncode != 0),
+                    key=ended.get)
+    if not failed and not killed:
+        return out
+    lines = [f"{len(failed)} of {len(procs)} processes exited non-zero, "
+             f"{len(killed)} killed at the {timeout} s deadline"]
+    for n, i in enumerate(failed + killed
+                          + [i for i in range(len(procs))
+                             if i not in failed and i not in killed]):
+        state = (f"killed at {timeout} s" if i in killed else
+                 f"exit {procs[i].returncode} after {ended[i]:.1f} s")
+        tail = 4000 if n == 0 else 1500
+        lines.append(f"--- {names[i]}: {state} ---\n{texts[i][-tail:]}")
+    raise AssertionError("\n".join(lines))
+
+
+def test_wait_all_reports_every_process():
+    """One deadline for the job: a process that hangs is killed at it, and
+    the report names every process's exit code (or the kill) and output,
+    the first to exit non-zero in time first."""
+    code = ("import sys, time; print('out of', sys.argv[1], flush=True); "
+            "time.sleep(float(sys.argv[2])); sys.exit(int(sys.argv[3]))")
+    runs = [("late", 1.0, 5), ("early", 0.0, 3), ("hung", 60.0, 0),
+            ("fine", 0.0, 0)]
+    procs = [subprocess.Popen([sys.executable, "-c", code, n, str(t),
+                               str(rc)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for n, t, rc in runs]
+    t0 = time.monotonic()
+    with pytest.raises(AssertionError) as err:
+        wait_all(procs, 6, [n for n, _, _ in runs])
+    assert time.monotonic() - t0 < 30
+    msg = str(err.value)
+    assert msg.startswith("2 of 4 processes exited non-zero, 1 killed")
+    heads = [line for line in msg.splitlines() if line.startswith("---")]
+    assert [h.split(":")[0] for h in heads] == [
+        "--- early", "--- late", "--- hung", "--- fine"]
+    assert "exit 3 after" in heads[0] and "exit 5 after" in heads[1]
+    assert "killed at 6 s" in heads[2] and "exit 0 after" in heads[3]
+    for n, _, _ in runs:
+        assert f"out of {n}" in msg
+    ok = [subprocess.Popen([sys.executable, "-c", "print('hi')"],
+                           stdout=subprocess.PIPE, text=True)
+          for _ in range(2)]
+    assert wait_all(ok, 60) == [(0, "hi\n"), (0, "hi\n")]
 
 
 #: the reference runs in two processes at once, each over a few meshes
@@ -314,10 +384,9 @@ def runs(tmp_path_factory):
     tune = dict(DRONE_AUTOTUNE_DIR=str(tmp / "port_tune"))
     jobs = [spawn_ranks(PORT, w, [spec, str(tmp)], tmp / f"store{w}", tune)
             for w in (8, 4)]
-    outs = [wait_all(p, 600) for p in jobs + [refs]]
-    for o in outs:
-        for rc, text in o:
-            assert rc == 0, text[-4000:]
+    names = ([f"port rank {r} of {w}" for w in (8, 4) for r in range(w)]
+             + [f"reference {part}" for part in REFERENCE_PARTS])
+    wait_all(jobs[0] + jobs[1] + refs, 600, names)
     ref = {}
     for part in REFERENCE_PARTS:
         ref.update(np.load(tmp / f"reference_{part}.npz"))
