@@ -252,6 +252,51 @@ Phases (the run exits non-zero if any of them fails):
      per step; its projections and the scan's ~6 b s di n operations), and
      the device's idle share.
 
+ 14. The xLSTM cells on the LM serving path (``repro_torch.models.ssm``'s
+     ``MLSTM`` / ``SLSTM``; no kernel of their own), seeded weights, TF32
+     off, after phase 13's models are freed. xlstm-350m at full width and
+     depth: 24 blocks without an MLP (21 mLSTM, 3 sLSTM), d_model 1024, 4
+     heads of 256, vocab 50,304, tied embeddings, fp32 parameters (the
+     gate leaves ``wi`` / ``wf`` / ``b`` float32 too), bf16 activations;
+     187,013,120 parameters. 14a: serve_lm's defaults through the step
+     builders (timed after a warm-up), every cache checked (mLSTM ``C`` /
+     ``n`` / ``m`` float32, sLSTM ``h`` bf16 beside float32 ``c`` / ``n`` /
+     ``m``, each its own storage), the replay through ``prefill`` /
+     ``decode_step`` held against ``forward`` (``lm_held``: within
+     max(LM_BF16_ATOL, 2 x the model's one-ulp floor), as phase 13 holds
+     Jamba, the floor printed), 4 decode steps profiled. 14b: one
+     4,096-token request at batch 1 (8 mLSTM chunks of 512, 4,096
+     sequential steps in each sLSTM layer) and 16 greedy steps, timed and
+     held the same way over 4,111 tokens; one mLSTM layer's prefill (4,096
+     tokens) and one sLSTM layer's (4,096 timed, 256 profiled) timed and
+     profiled; with the model freed, the chunkwise mLSTM against the
+     parallel form at one layer's shapes over 2,048 tokens in float32
+     (within 5e-4, the reference test's bound). 14c: the first 8 layers (7
+     mLSTM, 1 sLSTM) in float32, card against CPU: forward logits and the
+     prefill's xLSTM caches within LM_FP32_ATOL, 8 greedy tokens equal, the
+     card's cached path against its own forward within 5e-4.
+ 15. The encoder-decoder and the frontend stubs (no kernel), seeded
+     weights, TF32 off. 15a: seamless-m4t-large-v2 at full width and
+     depth (24 encoder + 24 decoder layers with cross-attention, d_model
+     1024, 16 heads, d_ff 8192 gelu, vocab 256,206, fp32 parameters,
+     6.08 GiB; bf16 activations) on 1,024 seeded frame features of width
+     1,024 (times 0.02, as ``tests/test_archs.py:21``), the encoder timed
+     apart (its memory is computed once and given to every decode step;
+     ``prefill`` encodes again). 15b: internvl2-26b at full width and
+     depth (48 layers, d_model 6144, GQA 48/8, d_ff 16384, vocab 92,553,
+     37.03 GiB of bf16 weights) with 256 seeded patch features of width
+     3,200 before each 24-token prompt (the cache holds 256 more
+     positions). Each: serve_lm's defaults as 14a, held against ``forward``
+     the same way, 4 decode steps profiled. 15c: each cut to 2 layers
+     (seamless: 2 encoder layers too) in float32, card against CPU:
+     forward logits within LM_FP32_ATOL, 8 greedy tokens equal. Phases
+     14-15 print prefill, decode (and encoder) times, tokens/s and peak
+     memory beside their ``lm_work`` bounds (mLSTM: the state read and
+     written a step, the parallel and chunkwise forms' operations; sLSTM:
+     ``r`` read once per step of its loop; the encoder over its frames;
+     cross-attention: the memory read and projected to keys and values in
+     every layer at every call; the adapter), and the idle share.
+
 A small-graph check holds the three programs against independent numpy
 oracles on all three backends. The kernel JSON line gives each kernel's
 launches per phase (``launches`` = phases 3-4, ``launches_streaming`` =
@@ -3451,8 +3496,68 @@ def lm_config():
     return get_config(LM_ARCH)
 
 
+def mlstm_work(cfg, batch: int, new: int, past: int) -> tuple:
+    """(bytes, ops) of one mLSTM layer's call beyond its weights, in the
+    form ``mlstm_apply`` picks: its projections (wq, wk, wv, og, wo; wi, wf);
+    a decode step (``past`` > 0, one token) reads and writes the float32
+    ``C`` / ``n`` / ``m`` state and does ~6 B H dh^2 operations; up to 512
+    tokens the parallel form multiplies over the causal pairs (qk and the
+    scores times v, 4 H dh a pair) and a prefill folds the prompt into the
+    state (2 B S H dh^2) and writes it; past 512 the chunkwise form does
+    the pairs inside each chunk and ~4 B S H dh^2 for the state carried
+    between chunks."""
+    d, H = cfg.d_model, cfg.n_heads
+    dh = d // H
+    T = batch * new
+    ops = 2 * T * (5 * d * d + 2 * d * H)
+    state = batch * H * (dh * dh + dh + 1) * 4
+    if past and new == 1:
+        return 2 * state, ops + 6 * batch * H * dh * dh
+    if new > 512:
+        full, rest = divmod(new, 512)
+        pairs = batch * (full * 512 * 513 // 2 + rest * (rest + 1) // 2)
+        return state, ops + 4 * pairs * H * dh + 4 * T * H * dh * dh
+    pairs = batch * new * (new + 1) // 2
+    return state, ops + 4 * pairs * H * dh + 2 * T * H * dh * dh
+
+
+def slstm_work(cfg, mixer, batch: int, new: int, past: int,
+               act: int) -> tuple:
+    """(bytes, ops) of one sLSTM layer's call beyond reading ``w`` and
+    ``r`` once: the loop reads ``r`` once per further step (``new`` steps
+    in all); the state (``h`` in the activation dtype, ``c`` / ``n`` /
+    ``m`` float32) is written, and read too by a decode step; the
+    operations of ``x @ w`` and of every step's ``h @ r``."""
+    d = cfg.d_model
+    nbytes = (new - 1) * mixer.r.numel() * mixer.r.element_size()
+    nbytes += (2 if past else 1) * batch * d * (act + 12)
+    return nbytes, 2 * 2 * batch * new * d * 4 * d
+
+
+def encoder_work(cfg, model, batch: int, act: int) -> tuple:
+    """(bytes, ops) of ``_encode`` over ``frontend_len`` frames: the
+    frame features read (float32) and the adapter, the encoder's weights
+    read once, the memory written; the adapter's, the attention
+    projections', the non-causal attention's (every pair) and the MLPs'
+    operations."""
+    d, L = cfg.d_model, cfg.frontend_len
+    F_ = cfg.frontend_dim or d
+    Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    n_mats = 3 if cfg.act == "swiglu" else 2
+    T = batch * L
+    nbytes = T * F_ * 4 + T * d * act + sum(
+        p.numel() * p.element_size()
+        for m in (model.encoder, model.enc_norm) for p in m.parameters())
+    nbytes += model.frontend_adapter.numel() * \
+        model.frontend_adapter.element_size()
+    ops = 2 * T * F_ * d + cfg.n_enc_layers * (
+        2 * T * (d * (Hq + 2 * Hkv) * Dh + Hq * Dh * d)
+        + 4 * Hq * Dh * batch * L * L + 2 * T * n_mats * d * cfg.d_ff)
+    return nbytes, ops
+
+
 def lm_work(cfg, model, batch: int, new: int, past: int, used=(),
-            kept_pairs=()) -> tuple:
+            kept_pairs=(), frontend: bool = False) -> tuple:
     """(bytes, ops) the least a forward of ``new`` tokens per lane over a
     cache holding ``past`` must move and compute: the weights it uses read
     once (each routed expert only where a kept pair goes to it, given as
@@ -3468,12 +3573,19 @@ def lm_work(cfg, model, batch: int, new: int, past: int, used=(),
     layer reads its ``conv`` and ``h`` state and writes it (a prefill only
     writes it), in the activation dtype; its operations are the
     projections, the depthwise conv and the scan's ~6 per (token, channel,
-    state) element."""
+    state) element. An mLSTM or sLSTM layer adds ``mlstm_work`` /
+    ``slstm_work``. A cross-attention layer reads the encoder's memory and
+    projects it to keys and values at every call (2·2·B·L·d·Hkv·Dh), then
+    attends over all L positions. With ``frontend`` (a prefill or forward
+    that carries the features) the adapter's work is added, and an
+    encoder-decoder's ``encoder_work``; a frontend-prefixed model's
+    ``new`` counts the prefix."""
     from repro_torch.models.layers import MLA
     from repro_torch.models.moe import MoE
-    from repro_torch.models.ssm import Mamba
+    from repro_torch.models.ssm import MLSTM, SLSTM, Mamba
     d, H, V = cfg.d_model, cfg.n_heads, cfg.vocab
     act = 2 if cfg.activation_dtype == "bfloat16" else 4
+    n_mats = 3 if cfg.act == "swiglu" else 2
     T = batch * new
     pairs = batch * (new * past + new * (new + 1) // 2)
     positions = batch * (past + new)
@@ -3486,6 +3598,14 @@ def lm_work(cfg, model, batch: int, new: int, past: int, used=(),
         nbytes += model.lm_head.numel() * model.lm_head.element_size()
     nbytes += sum(p.numel() * p.element_size()
                   for p in model.final_norm.parameters())
+    if frontend and cfg.n_enc_layers:
+        eb, eo = encoder_work(cfg, model, batch, act)
+        nbytes, ops = nbytes + eb, ops + eo
+    elif frontend and cfg.frontend:
+        F_, L = cfg.frontend_dim or d, cfg.frontend_len
+        nbytes += (batch * L * F_ * 4 + model.frontend_adapter.numel()
+                   * model.frontend_adapter.element_size())
+        ops += 2 * batch * L * F_ * d
     moe_i = 0
     for blk in model.blocks:
         for name, p in blk.named_parameters():
@@ -3500,6 +3620,12 @@ def lm_work(cfg, model, batch: int, new: int, past: int, used=(),
                             + K * di) + 6 * T * di * n
             nbytes += (2 if past else 1) * batch * ((K - 1) * di
                                                     + di * n) * act
+        elif isinstance(blk.mixer, MLSTM):
+            mb, mo = mlstm_work(cfg, batch, new, past)
+            nbytes, ops = nbytes + mb, ops + mo
+        elif isinstance(blk.mixer, SLSTM):
+            sb, so = slstm_work(cfg, blk.mixer, batch, new, past, act)
+            nbytes, ops = nbytes + sb, ops + so
         elif isinstance(blk.mixer, MLA):
             m = cfg.mla
             qk, r = m.nope_head_dim + m.rope_head_dim, m.kv_lora_rank
@@ -3518,6 +3644,11 @@ def lm_work(cfg, model, batch: int, new: int, past: int, used=(),
             ops += 2 * T * (d * (H + 2 * Hkv) * Dh + H * Dh * d)
             ops += 4 * H * Dh * pairs
             nbytes += positions * 2 * Hkv * Dh * act
+        if blk.cross is not None:
+            Hkv, Dh, L = cfg.n_kv_heads, cfg.head_dim, cfg.frontend_len
+            ops += (2 * 2 * T * d * H * Dh + 2 * 2 * batch * L * d * Hkv
+                    * Dh + 4 * H * Dh * T * L)
+            nbytes += batch * L * d * act
         if isinstance(blk.mlp, MoE):
             mc = cfg.moe
             d_ffe = mc.d_ff_expert or cfg.d_ff
@@ -3526,8 +3657,8 @@ def lm_work(cfg, model, batch: int, new: int, past: int, used=(),
             ops += (2 * T * d * mc.n_experts + 2 * kept_pairs[moe_i]
                     * per_expert + 2 * T * mc.n_shared * per_expert)
             moe_i += 1
-        else:
-            ops += 2 * T * 3 * d * cfg.d_ff
+        elif blk.mlp is not None:
+            ops += 2 * T * n_mats * d * cfg.d_ff
     return nbytes, ops
 
 
@@ -3543,33 +3674,53 @@ def lm_sync():
         torch.cuda.synchronize()
 
 
-def lm_replay(M, model, cfg, prompts, toks, max_len):
-    """Logits [B, n, V] of ``prefill`` on ``prompts`` and of each
-    ``decode_step`` fed ``toks[:, :n-1]`` (the serve loop's own inputs)."""
+def lm_offset(cfg) -> int:
+    """Positions a frontend-prefixed (decoder-only) model puts before the
+    prompt: its ``frontend_len``; 0 otherwise."""
+    return cfg.frontend_len if cfg.frontend and not cfg.n_enc_layers else 0
+
+
+def lm_replay(M, model, cfg, prompts, toks, max_len, extra=None,
+              memory=None):
+    """Logits [B, n, V] of ``prefill`` on ``prompts`` (and the ``extra``
+    batch entries: frontend features) and of each ``decode_step`` fed
+    ``toks[:, :n-1]`` (the serve loop's own inputs; ``memory`` for an
+    encoder-decoder)."""
     import torch
-    lg, caches = M.prefill(model, {"tokens": prompts}, cfg, max_len)
+    lg, caches = M.prefill(model, {"tokens": prompts, **(extra or {})}, cfg,
+                           max_len)
     out = [lg]
     for i in range(toks.shape[1] - 1):
-        lg, caches = M.decode_step(model, caches,
-                                   {"tokens": toks[:, i:i + 1]}, cfg)
+        db = {"tokens": toks[:, i:i + 1]}
+        if memory is not None:
+            db["memory"] = memory
+        lg, caches = M.decode_step(model, caches, db, cfg)
         out.append(lg)
     return torch.cat(out, dim=1)
 
 
-def lm_serve_timed(S, model, cfg, prompts, gen: int):
+def lm_serve_timed(S, model, cfg, prompts, gen: int, extra=None,
+                   memory=None):
     """serve_lm's loop through the step builders: (tokens [B, gen],
-    prefill seconds, decode seconds, the cache after the last step)."""
+    prefill seconds, decode seconds, the cache after the last step).
+    ``extra`` joins the prompt batch (frontend features; the cache then
+    holds ``lm_offset`` more positions); ``memory`` joins every decode
+    step's."""
     import torch
-    prefill = S.make_prefill_step(cfg, prompts.shape[1] + gen)
+    prefill = S.make_prefill_step(cfg, prompts.shape[1] + gen
+                                  + lm_offset(cfg))
     step = S.make_serve_step(cfg)
     lm_sync()
     t0 = time.perf_counter()
-    nxt, caches = prefill(model, {"tokens": prompts})
+    nxt, caches = prefill(model, {"tokens": prompts, **(extra or {})})
     lm_sync()
     t1 = time.perf_counter()
     out = [nxt]
     for _ in range(gen - 1):
-        nxt, caches = step(model, caches, {"tokens": nxt[:, None]})
+        db = {"tokens": nxt[:, None]}
+        if memory is not None:
+            db["memory"] = memory
+        nxt, caches = step(model, caches, db)
         out.append(nxt)
     lm_sync()
     return (torch.stack(out, dim=1), t1 - t0, time.perf_counter() - t1,
@@ -3608,6 +3759,25 @@ def lm_check_greedy(sm: Smoke, label: str, toks, steps, full, atol: float):
              f"positions have a forward top-2 gap that small)")
     return dict(max_abs_err=err, tokens=same.numel(), argmax_equal=int(
         same.sum()), near_ties=int(near.sum()))
+
+
+def lm_floor(M, model, cfg, batch: dict, full, start: int) -> float:
+    """How far ``forward`` on ``batch`` moves when the input of the first
+    decoder block moves by one ulp of its dtype (``x * (1 + eps)``): the
+    max abs change of its logits from ``start`` on, against ``full``
+    (the unmoved forward's logits from ``start``)."""
+    import torch
+
+    def kick(mod, args):
+        return (args[0] * (1 + torch.finfo(args[0].dtype).eps),) + args[1:]
+
+    hook = model.blocks[0].register_forward_pre_hook(kick)
+    try:
+        with torch.no_grad():
+            moved, _ = M.forward(model, batch, cfg)
+    finally:
+        hook.remove()
+    return float((moved[:, start:].float() - full.float()).abs().max())
 
 
 LM_PROFILE_STEPS = 4                # 11a profiles prefill + 3 decode steps
@@ -3827,36 +3997,11 @@ def lm_long_part(sm: Smoke, M, model, cfg, ident) -> dict:
 
 def lm_cpu_part(sm: Smoke, M, S, cfg) -> dict:
     """11c: the full-width model cut to 2 layers with float32 activations,
-    the card against the same weights on the CPU: forward logits within
-    LM_FP32_ATOL, and a greedy serve loop's tokens equal."""
-    import torch
-    cfg2 = dataclasses.replace(cfg, n_layers=LM_CPU_LAYERS,
-                               activation_dtype="float32")
-    card = M.init_model(cfg2, seed=4, device=DEVICE)
-    cpu = M.Model(cfg2, device="cpu")
-    cpu.load_state_dict(card.state_dict())
-    gen = torch.Generator().manual_seed(4)
-    toks = torch.randint(0, cfg.vocab, (2, 32), generator=gen)
-    with torch.no_grad():
-        lc, _ = M.forward(card, {"tokens": toks.to(DEVICE)}, cfg2)
-        lh, _ = M.forward(cpu, {"tokens": toks}, cfg2)
-    err = float((lc.cpu() - lh).abs().max())
-    sm.check(err <= LM_FP32_ATOL, f"11c: {LM_CPU_LAYERS}-layer full-width "
-             f"float32 forward, card vs CPU, max abs err {err:.3g} <= "
-             f"{LM_FP32_ATOL} (|logits| <= {float(lh.abs().max()):.4g})")
-    outs = []
-    for model, dev in ((card, DEVICE), (cpu, "cpu")):
-        nxt, caches = S.make_prefill_step(cfg2, 24)(
-            model, {"tokens": toks[:, :16].to(dev)})
-        out = [nxt.cpu()]
-        for _ in range(7):
-            nxt, caches = S.make_serve_step(cfg2)(model, caches,
-                                                  {"tokens": nxt[:, None]})
-            out.append(nxt.cpu())
-        outs.append(torch.stack(out, dim=1))
-    sm.check(torch.equal(outs[0], outs[1]),
-             "11c: 8 greedy tokens of 2 prompts, card equal to CPU")
-    return dict(layers=LM_CPU_LAYERS, forward_max_abs_err=err)
+    the card against the same weights on the CPU (``lm_cpu_compare``):
+    forward logits within LM_FP32_ATOL, and a greedy serve loop's tokens
+    equal."""
+    return lm_cpu_compare(sm, M, S, "11c", dataclasses.replace(
+        cfg, n_layers=LM_CPU_LAYERS, activation_dtype="float32"))
 
 
 def lm_path(sm: Smoke, ident: str) -> dict:
@@ -4449,16 +4594,8 @@ def jamba_held(sm: Smoke, label: str, M, model, cfg, prompts, G: int,
         with moe_pinned(picks), torch.no_grad():
             full, _ = M.forward(model, seq, dcfg)
             full = full[:, P - 1:].clone()
-        def kick(mod, args):
-            return (args[0] * (1 + torch.finfo(args[0].dtype).eps),) \
-                + args[1:]
-
-        hook = model.blocks[0].register_forward_pre_hook(kick)
-        with moe_pinned(picks), torch.no_grad():
-            moved, _ = M.forward(model, seq, dcfg)
-        hook.remove()
-        floor = float((moved[:, P - 1:].float() - full.float()).abs().max())
-        del moved
+        with moe_pinned(picks):
+            floor = lm_floor(M, model, dcfg, seq, full, P - 1)
     pairs = B * (P + G - 1) * cfg.moe.top_k
     sm.check(round(float(aux["moe_dropped"]) * pairs) == 0,
              f"{label}: capacity factor {JAMBA_DROPLESS}: forward over "
@@ -4730,6 +4867,528 @@ def jamba_path(sm: Smoke, ident: str) -> dict:
     return rec
 
 
+# --------------------------------------------------------------------------- #
+# phases 14-15: the xLSTM cells and the encoder-decoder / frontend stubs
+# --------------------------------------------------------------------------- #
+XLSTM_ARCH = "xlstm_350m"
+XLSTM_PARAMS = 187_013_120           # the reference's eval_shape, 24 layers
+XLSTM_LONG_PROMPT, XLSTM_LONG_GEN = 4096, 16   # 8 mLSTM chunks of 512
+XLSTM_CHUNK_LEN = 2048               # 14b: chunkwise vs parallel mLSTM
+XLSTM_CHUNK_ATOL = 5e-4              # tests/test_longcontext_paths.py:64
+XLSTM_SLSTM_PROFILED = 256           # 14b: sLSTM steps under the profiler
+XLSTM_CPU_LAYERS = 8                 # 14c: 7 mLSTM + 1 sLSTM
+ENCDEC_CELLS = (("15a", "seamless_m4t_large_v2", 1_633_304_576),
+                ("15b", "internvl2_26b", 19_880_921_088))
+ENCDEC_CPU_LAYERS = 2                # 15c: decoder (and encoder) layers
+LM_FLOOR_FACTOR = JAMBA_FLOOR_FACTOR  # cached vs forward: rounding floors
+FRONTEND_SCALE = 0.02                # frontend features, as test_archs.py
+
+
+def lm_inputs(cfg, B: int, P: int, seed: int, dev=None) -> tuple:
+    """(prompts [B, P], extra): seeded tokens, and for a config with a
+    frontend its features [B, frontend_len, frontend_dim], normal times
+    FRONTEND_SCALE (``tests/test_archs.py:21``), float32."""
+    import torch
+    dev = DEVICE if dev is None else dev
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    prompts = torch.randint(0, cfg.vocab, (B, P), generator=gen, device=dev)
+    extra = {}
+    if cfg.frontend:
+        extra["frontend"] = FRONTEND_SCALE * torch.randn(
+            (B, cfg.frontend_len, cfg.frontend_dim), generator=gen,
+            device=dev)
+    return prompts, extra
+
+
+def lm_encode(M, model, cfg, extra):
+    """An encoder-decoder's memory (``_encode`` without autograd), else
+    None."""
+    import torch
+    if not cfg.n_enc_layers:
+        return None
+    with torch.no_grad():
+        return M._encode(model, extra, cfg)
+
+
+def lm_held(sm: Smoke, label: str, M, model, cfg, prompts, extra, toks,
+            steps, atol: float) -> dict:
+    """The cached steps' logits ``steps`` (a prefill on ``prompts`` and
+    decode steps fed ``toks``) against ``forward`` over the same prefix
+    (frontend features included), within max(``atol``, LM_FLOOR_FACTOR x
+    the model's one-ulp floor, ``lm_floor``), each greedy token the
+    forward's argmax or a near-tie (``lm_check_greedy``)."""
+    import torch
+    P, off = prompts.shape[1], lm_offset(cfg)
+    seq = {"tokens": torch.cat([prompts, toks[:, :-1].long()], dim=1),
+           **extra}
+    with torch.no_grad():
+        full, _ = M.forward(model, seq, cfg)
+        full = full[:, off + P - 1:].clone()
+    floor = lm_floor(M, model, cfg, seq, full, off + P - 1)
+    tol = max(atol, LM_FLOOR_FACTOR * floor)
+    sm.note(f"{label}: rounding floor (forward with its first block's input "
+            f"moved by one ulp) {floor:.4g}; tolerance max({atol}, "
+            f"{LM_FLOOR_FACTOR} x floor) = {tol:.4g}")
+    sm.check(full.dtype == steps.dtype == getattr(torch,
+                                                  cfg.activation_dtype),
+             f"{label}: logits in {full.dtype}")
+    rec = lm_check_greedy(sm, label, toks, steps, full, tol)
+    rec.update(floor=floor, tolerance=tol)
+    return rec
+
+
+def owns_storage(t) -> bool:
+    """A cache tensor that holds no view of a larger buffer."""
+    return t.untyped_storage().nbytes() == t.numel() * t.element_size()
+
+
+def xlstm_check_caches(sm: Smoke, label: str, cfg, caches, pos: int,
+                       batch: int) -> None:
+    """Every mLSTM layer's ``C`` [B, H, dh, dh], ``n`` [B, H, dh], ``m``
+    [B, H] float32 and every sLSTM layer's ``h`` [B, d] in the activation
+    dtype beside float32 ``c`` / ``n`` / ``m``, finite, each its own
+    storage, every layer at position ``pos``."""
+    import torch
+    act = getattr(torch, cfg.activation_dtype)
+    d, H = cfg.d_model, cfg.n_heads
+    dh = d // H
+    want = {"mlstm": {"C": ((batch, H, dh, dh), torch.float32),
+                      "n": ((batch, H, dh), torch.float32),
+                      "m": ((batch, H), torch.float32)},
+            "slstm": {"h": ((batch, d), act), "c": ((batch, d), torch.float32),
+                      "n": ((batch, d), torch.float32),
+                      "m": ((batch, d), torch.float32)}}
+    kinds = [spec.mixer for spec in cfg.layer_pattern()]
+    ok = len(caches) == len(kinds)
+    for kind, c in zip(kinds, caches):
+        ok &= c["idx"] == pos and set(c) == set(want[kind]) | {"idx"}
+        for key, (shape, dt) in want[kind].items():
+            t = c[key]
+            ok &= (tuple(t.shape) == shape and t.dtype == dt
+                   and owns_storage(t)
+                   and bool(torch.isfinite(t.float()).all()))
+    sm.check(ok, f"{label}: {kinds.count('mlstm')} mLSTM caches (C [{batch}, "
+             f"{H}, {dh}, {dh}], n, m float32) and {kinds.count('slstm')} "
+             f"sLSTM caches (h [{batch}, {d}] in {act}; c, n, m float32), "
+             f"finite, each its own storage, every layer at position {pos}")
+
+
+def lm_cell(sm: Smoke, M, S, label: str, cfg, model, ident: str) -> dict:
+    """14a / 15a / 15b: serve_lm's defaults (batch 4, prompt 24, 32 tokens;
+    the config's frontend features seeded; an encoder-decoder's memory
+    encoded once, timed apart) through the step builders, timed after a
+    warm-up; the same inputs replayed through ``prefill`` /
+    ``decode_step`` and held against ``forward`` (``lm_held``); 4 decode
+    steps under the profiler; each time beside its ``lm_work`` bound."""
+    import torch
+    B, P, G = LM_BATCH, LM_PROMPT, LM_GEN
+    off = lm_offset(cfg)
+    max_len = P + G + off
+    prompts, extra = lm_inputs(cfg, B, P, seed=1)
+    memory = lm_encode(M, model, cfg, extra)              # warm-up
+    lm_serve_timed(S, model, cfg, prompts, G, extra, memory)
+    torch.cuda.reset_peak_memory_stats()
+    lm_sync()
+    t0 = time.perf_counter()
+    memory = lm_encode(M, model, cfg, extra)
+    lm_sync()
+    encode_s = time.perf_counter() - t0
+    toks, prefill_s, decode_s, caches = lm_serve_timed(
+        S, model, cfg, prompts, G, extra, memory)
+    peak = torch.cuda.max_memory_allocated()
+    cache_bytes = sum(t.numel() * t.element_size() for c in caches
+                      for t in c.values() if isinstance(t, torch.Tensor))
+    sm.check(toks.shape == (B, G) and bool(((toks >= 0)
+                                             & (toks < cfg.vocab)).all()),
+             f"{label}: {B}x{G} greedy tokens in range")
+    if cfg.xlstm:
+        xlstm_check_caches(sm, label, cfg, caches, P + G - 1, B)
+    else:
+        sm.check(all(c["idx"] == off + P + G - 1 for c in caches),
+                 f"{label}: every layer's cache at position "
+                 f"{off + P + G - 1} ({off} frontend positions first)")
+    del caches
+    steps = lm_replay(M, model, cfg, prompts, toks, max_len, extra, memory)
+    sm.check(torch.equal(steps.float().argmax(-1), toks.long()),
+             f"{label}: the replay through prefill / decode_step reproduces "
+             f"the served tokens")
+    rec = lm_held(sm, label, M, model, cfg, prompts, extra, toks, steps,
+                  LM_BF16_ATOL)
+    del steps
+    step = S.make_serve_step(cfg)
+    nxt, caches = S.make_prefill_step(cfg, max_len)(
+        model, {"tokens": prompts, **extra})
+
+    def decode_some():
+        nonlocal nxt, caches
+        for _ in range(LM_PROFILE_STEPS):
+            db = {"tokens": nxt[:, None]}
+            if memory is not None:
+                db["memory"] = memory
+            nxt, caches = step(model, caches, db)
+
+    prof = lm_profile(decode_some)
+    lm_note_profile(sm, f"{label} profile ({LM_PROFILE_STEPS} decode "
+                    f"steps)", prof)
+    del caches
+    act = 2 if cfg.activation_dtype == "bfloat16" else 4
+    p_bound, p_by = lm_bound_ms(*lm_work(cfg, model, B, off + P, 0,
+                                         frontend=True), BF16_OPS_PER_S)
+    d_bound = sum(lm_bound_ms(*lm_work(cfg, model, B, 1, off + P + i),
+                              BF16_OPS_PER_S)[0]
+                  for i in range(G - 1)) / (G - 1)
+    d_ms = decode_s * 1e3 / (G - 1)
+    rec.update(batch=B, prompt=P, gen=G, frontend_len=cfg.frontend_len,
+               prefill_ms=prefill_s * 1e3, prefill_bound_ms=p_bound,
+               prefill_bound_by=p_by, decode_step_ms=d_ms,
+               decode_step_bound_ms=d_bound,
+               decode_tokens_per_s=B * (G - 1) / decode_s,
+               decode_bound_tokens_per_s=B / (d_bound / 1e3),
+               peak_bytes=peak, cache_bytes=cache_bytes, profile=prof)
+    enc = ""
+    if memory is not None:
+        e_bound, e_by = lm_bound_ms(*encoder_work(cfg, model, B, act),
+                                    BF16_OPS_PER_S)
+        rec.update(encode_ms=encode_s * 1e3, encode_bound_ms=e_bound,
+                   encode_bound_by=e_by)
+        enc = (f"encoder {B}x{cfg.frontend_len} frames "
+               f"{rec['encode_ms']:.3f} ms (bound {e_bound:.4f} ms, {e_by}); "
+               f"encoding again, ")
+    sm.note(f"{label} ({ident}): {enc}prefill {B}x{off + P} "
+            f"{rec['prefill_ms']:.3f} ms (bound {p_bound:.4f} ms, {p_by}); "
+            f"decode {d_ms:.4f} ms/step (bound {d_bound:.4f} ms), "
+            f"{rec['decode_tokens_per_s']:.1f} tok/s (bound "
+            f"{rec['decode_bound_tokens_per_s']:.1f}); peak {peak} bytes "
+            f"({peak / 2**30:.2f} GiB; cache {cache_bytes})")
+    return rec
+
+
+def lm_build(sm: Smoke, M, label: str, cfg, want_params: int):
+    """``cfg``'s model on the card with seeded weights: (model, seconds to
+    draw them); its parameter count must be the reference's."""
+    import torch
+    t0 = time.perf_counter()
+    model = M.init_model(cfg, seed=0, device=DEVICE)
+    lm_sync()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+    sm.check(n_params == want_params,
+             f"{label}: {cfg.name}, {cfg.n_layers} layers"
+             + (f" + {cfg.n_enc_layers} encoder layers"
+                if cfg.n_enc_layers else "")
+             + f", {n_params} parameters (the reference's {want_params}; "
+             f"{param_bytes} bytes, {param_bytes / 2**30:.2f} GiB, "
+             f"{cfg.param_dtype}), drawn in {init_s:.2f}s; "
+             f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    return model, init_s
+
+
+def lm_mixer_profile(sm: Smoke, label: str, mixer, cfg, T: int,
+                     profiled: int, bound: tuple) -> dict:
+    """One mixer's prefill of ``T`` tokens (a bf16 [1, T, d] input and a
+    fresh cache), timed unprofiled, then its first ``profiled`` tokens once
+    under the profiler; beside ``bound`` (ms, by)."""
+    import torch
+    from repro_torch.models.model import init_cache
+    act = getattr(torch, cfg.activation_dtype)
+    g = torch.Generator(device=DEVICE).manual_seed(6)
+    x = torch.randn((1, T, cfg.d_model), generator=g, device=DEVICE).to(act)
+    kind = type(mixer).__name__.lower()
+    spec = next(s_ for s_ in cfg.layer_pattern() if s_.mixer == kind)
+    one = dataclasses.replace(cfg, n_layers=1, pattern=(spec,))
+
+    def mix(n):
+        with torch.no_grad():
+            return mixer(x[:, :n], cache=init_cache(one, 1, n,
+                                                    device=DEVICE)[0],
+                         dtype=act)
+
+    mix(min(T, 64))
+    lm_sync()
+    t0 = time.perf_counter()
+    mix(T)
+    lm_sync()
+    ms = (time.perf_counter() - t0) * 1e3
+    prof = lm_profile(lambda: mix(profiled))
+    lm_note_profile(sm, f"{label} profile (one {type(mixer).__name__} "
+                    f"layer's prefill of {profiled} tokens)", prof)
+    sm.note(f"{label}: one {type(mixer).__name__} layer's prefill of {T} "
+            f"tokens {ms:.3f} ms unprofiled (bound {bound[0]:.4f} ms, "
+            f"{bound[1]})")
+    return dict(ms=ms, bound_ms=bound[0], bound_by=bound[1],
+                profiled_tokens=profiled, profile=prof)
+
+
+def xlstm_chunk_check(sm: Smoke, cfg) -> dict:
+    """14b, with the model freed: ``_mlstm_chunked`` (512) against
+    ``_mlstm_parallel`` at one full-width layer's shapes (H 4, dh 256)
+    over XLSTM_CHUNK_LEN tokens, float32 (TF32 off), within
+    XLSTM_CHUNK_ATOL; the inputs take the distributions of the reference's
+    own test."""
+    import math
+
+    import torch
+    from repro_torch.models.ssm import (_MLSTM_CHUNK, _mlstm_chunked,
+                                        _mlstm_parallel)
+    H, dh, S_ = cfg.n_heads, cfg.d_model // cfg.n_heads, XLSTM_CHUNK_LEN
+    g = torch.Generator(device=DEVICE).manual_seed(7)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=DEVICE)
+
+    q, k = (randn(1, S_, H, dh) / math.sqrt(dh) for _ in range(2))
+    v, ip, fp = randn(1, S_, H, dh), randn(1, S_, H), randn(1, S_, H) + 2
+    torch.cuda.reset_peak_memory_stats()
+    h1, _ = _mlstm_parallel(q, k, v, ip, fp)
+    h2, _ = _mlstm_chunked(q, k, v, ip, fp)
+    lm_sync()
+    peak = torch.cuda.max_memory_allocated()
+    err = float((h1 - h2).abs().max())
+    sm.check(err <= XLSTM_CHUNK_ATOL,
+             f"14b: chunkwise mLSTM ({_MLSTM_CHUNK}) against the parallel "
+             f"form over {S_} tokens at H {H}, dh {dh}, float32: max abs err "
+             f"{err:.3g} <= {XLSTM_CHUNK_ATOL} (|h| <= "
+             f"{float(h1.abs().max()):.4g}); peak {peak / 2**30:.2f} GiB")
+    return dict(chunk_len=S_, chunked_vs_parallel_err=err,
+                chunk_peak_bytes=peak)
+
+
+def xlstm_long_part(sm: Smoke, M, model, cfg, ident: str) -> dict:
+    """14b: one 4,096-token request at batch 1 (8 mLSTM chunks of 512 and
+    4,096 sequential sLSTM steps in each of 3 layers) and 16 greedy steps
+    through ``prefill`` / ``decode_step``, timed, its caches checked, held
+    against ``forward`` over the same 4,111 tokens (``lm_held``); one
+    mLSTM and one sLSTM layer's prefill timed and profiled."""
+    import torch
+    from repro_torch.models.ssm import MLSTM, SLSTM
+    P, G = XLSTM_LONG_PROMPT, XLSTM_LONG_GEN
+    prompt, _ = lm_inputs(cfg, 1, P, seed=2)
+    torch.cuda.reset_peak_memory_stats()
+    lm_sync()
+    t0 = time.perf_counter()
+    lg, caches = M.prefill(model, {"tokens": prompt}, cfg, P + G)
+    nxt = lg[:, -1].argmax(-1)
+    lm_sync()
+    t1 = time.perf_counter()
+    out, logits = [nxt], [lg]
+    for _ in range(G - 1):
+        lg, caches = M.decode_step(model, caches, {"tokens": nxt[:, None]},
+                                   cfg)
+        nxt = lg[:, -1].argmax(-1)
+        out.append(nxt)
+        logits.append(lg)
+    lm_sync()
+    t2 = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated()
+    xlstm_check_caches(sm, "14b", cfg, caches, P + G - 1, 1)
+    del caches
+    toks, steps = torch.stack(out, dim=1), torch.cat(logits, dim=1)
+    rec = lm_held(sm, "14b", M, model, cfg, prompt, {}, toks, steps,
+                  LM_BF16_ATOL)
+    p_bound, p_by = lm_bound_ms(*lm_work(cfg, model, 1, P, 0),
+                                BF16_OPS_PER_S)
+    d_bound = sum(lm_bound_ms(*lm_work(cfg, model, 1, 1, P + i),
+                              BF16_OPS_PER_S)[0]
+                  for i in range(G - 1)) / (G - 1)
+    rec.update(prompt=P, gen=G, prefill_ms=(t1 - t0) * 1e3,
+               prefill_bound_ms=p_bound, prefill_bound_by=p_by,
+               decode_step_ms=(t2 - t1) * 1e3 / (G - 1),
+               decode_step_bound_ms=d_bound,
+               decode_tokens_per_s=(G - 1) / (t2 - t1), peak_bytes=peak)
+    sm.note(f"14b ({ident}): prefill 1x{P} {rec['prefill_ms']:.1f} ms "
+            f"(bound {p_bound:.3f} ms, {p_by}); decode "
+            f"{rec['decode_step_ms']:.4f} ms/step (bound {d_bound:.4f} ms), "
+            f"{rec['decode_tokens_per_s']:.1f} tok/s; peak {peak} bytes "
+            f"({peak / 2**30:.2f} GiB)")
+    act = 2 if cfg.activation_dtype == "bfloat16" else 4
+    for kind, profiled in ((MLSTM, P), (SLSTM, XLSTM_SLSTM_PROFILED)):
+        mixer = next(b.mixer for b in model.blocks
+                     if isinstance(b.mixer, kind))
+        wbytes = sum(p_.numel() * p_.element_size()
+                     for p_ in mixer.parameters())
+        if kind is MLSTM:
+            xb, xo = mlstm_work(cfg, 1, P, 0)
+        else:
+            xb, xo = slstm_work(cfg, mixer, 1, P, 0, act)
+        bound = lm_bound_ms(wbytes + xb + 2 * P * cfg.d_model * act, xo,
+                            BF16_OPS_PER_S)
+        rec[kind.__name__.lower()] = lm_mixer_profile(
+            sm, "14b", mixer, cfg, P, profiled, bound)
+    return rec
+
+
+def lm_cpu_compare(sm: Smoke, M, S, label: str, cfg, self_atol=None):
+    """14c / 15c: ``cfg`` (float32) on the card against the CPU on the same
+    weights: forward logits within LM_FP32_ATOL (2 prompts of 32 tokens,
+    with the config's frontend features), the prefill's state caches
+    (xLSTM) within LM_FP32_ATOL, 8 greedy tokens of a prefill (16 tokens)
+    and a decode loop equal; with ``self_atol``, the card's own cached
+    path against its forward within it."""
+    import torch
+    card = M.init_model(cfg, seed=4, device=DEVICE)
+    cpu = M.Model(cfg, device="cpu")
+    cpu.load_state_dict(card.state_dict())
+    n_params = sum(p.numel() for p in card.parameters())
+    toks, extra = lm_inputs(cfg, 2, 32, seed=4, dev="cpu")
+    outs = []
+    for model, dev in ((card, DEVICE), (cpu, "cpu")):
+        batch = {"tokens": toks.to(dev),
+                 **{k: v.to(dev) for k, v in extra.items()}}
+        with torch.no_grad():
+            lg, _ = M.forward(model, batch, cfg)
+        outs.append(lg.cpu())
+    err = float((outs[0] - outs[1]).abs().max())
+    sm.check(err <= LM_FP32_ATOL,
+             f"{label}: {cfg.n_layers}-layer"
+             + (f" (+{cfg.n_enc_layers} encoder)" if cfg.n_enc_layers
+                else "")
+             + f" full-width float32 forward ({n_params} parameters), card "
+             f"vs CPU, max abs err {err:.3g} <= {LM_FP32_ATOL} (|logits| <= "
+             f"{float(outs[1].abs().max()):.4g})")
+    rec = dict(arch=cfg.name, layers=cfg.n_layers, params=n_params,
+               forward_max_abs_err=err)
+    served, states = [], []
+    off = lm_offset(cfg)
+    for model, dev in ((card, DEVICE), (cpu, "cpu")):
+        ex = {k: v.to(dev) for k, v in extra.items()}
+        memory = lm_encode(M, model, cfg, ex)
+        nxt, caches = S.make_prefill_step(cfg, 24 + off)(
+            model, {"tokens": toks[:, :16].to(dev), **ex})
+        states.append([{k: t.cpu() for k, t in c.items()
+                        if isinstance(t, torch.Tensor)}
+                       for spec, c in zip(cfg.layer_pattern(), caches)
+                       if spec.mixer in ("mlstm", "slstm")])
+        got = [nxt.cpu()]
+        for _ in range(7):
+            db = {"tokens": nxt[:, None]}
+            if memory is not None:
+                db["memory"] = memory
+            nxt, caches = S.make_serve_step(cfg)(model, caches, db)
+            got.append(nxt.cpu())
+        served.append(torch.stack(got, dim=1))
+    sm.check(torch.equal(served[0], served[1]),
+             f"{label}: 8 greedy tokens of 2 prompts, card equal to CPU")
+    if states[0]:
+        cache_err = max(float((a[k] - b[k]).abs().max())
+                        for a, b in zip(*states) for k in a)
+        scale = max(float(b[k].abs().max()) for b in states[1] for k in b)
+        sm.check(cache_err <= LM_FP32_ATOL,
+                 f"{label}: the {len(states[0])} xLSTM caches after the "
+                 f"prefill, card vs CPU, max abs err {cache_err:.3g} <= "
+                 f"{LM_FP32_ATOL} (|state| <= {scale:.4g})")
+        rec.update(cache_err=cache_err)
+    if self_atol is not None:
+        prompts, toks_card = toks[:, :16].to(DEVICE), served[0].to(DEVICE)
+        memory = lm_encode(M, card, cfg, {k: v.to(DEVICE)
+                                         for k, v in extra.items()})
+        steps = lm_replay(M, card, cfg, prompts, toks_card, 24 + off,
+                          {k: v.to(DEVICE) for k, v in extra.items()},
+                          memory)
+        with torch.no_grad():
+            full, _ = M.forward(card, {"tokens": torch.cat(
+                [prompts, toks_card[:, :-1].long()], dim=1), **{
+                    k: v.to(DEVICE) for k, v in extra.items()}}, cfg)
+        rec.update(held=lm_check_greedy(
+            sm, f"{label} (card, cached vs forward)", toks_card, steps,
+            full[:, off + 15:], self_atol))
+    return rec
+
+
+def xlstm_path(sm: Smoke, ident: str) -> dict:
+    """Phase 14: xlstm-350m at full width and depth (24 layers: 21 mLSTM,
+    3 sLSTM; fp32 parameters, bf16 activations) with seeded weights: 14a,
+    14b; freed; the chunkwise form at full width; 14c the first 8 layers in
+    float32, card against CPU."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models.ssm import MLSTM, SLSTM
+    from repro_torch.training import steps as S
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    cfg = get_config(XLSTM_ARCH)
+    model, init_s = lm_build(sm, M, "14a", cfg, XLSTM_PARAMS)
+    gates = [(n, p.dtype) for b in model.blocks
+             for n, p in b.mixer.named_parameters() if n in ("wi", "wf", "b")]
+    kinds = [type(b.mixer) for b in model.blocks]
+    sm.check(kinds.count(MLSTM) == 21 and kinds.count(SLSTM) == 3
+             and all(b.mlp is None and b.norm2 is None for b in model.blocks)
+             and all(dt == torch.float32 for _, dt in gates),
+             f"14a: {kinds.count(MLSTM)} mLSTM and {kinds.count(SLSTM)} "
+             f"sLSTM blocks without an MLP; {len(gates)} gate leaves "
+             f"(wi, wf, b) float32")
+    rec = {"14a": lm_cell(sm, M, S, "14a", cfg, model, ident)}
+    rec["14a"].update(init_s=init_s)
+    sm.note(f"14a: {time.perf_counter() - t0:.1f}s")
+    t = time.perf_counter()
+    rec["14b"] = xlstm_long_part(sm, M, model, cfg, ident)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["14b"].update(xlstm_chunk_check(sm, cfg))
+    sm.note(f"14b: {time.perf_counter() - t:.1f}s")
+    t = time.perf_counter()
+    from repro_torch.configs.xlstm_350m import _pattern
+    cut = dataclasses.replace(cfg, n_layers=XLSTM_CPU_LAYERS,
+                              pattern=_pattern(XLSTM_CPU_LAYERS),
+                              activation_dtype="float32")
+    rec["14c"] = lm_cpu_compare(sm, M, S, "14c", cut,
+                                self_atol=JAMBA_FP32_SELF_ATOL)
+    gc.collect()
+    torch.cuda.empty_cache()
+    sm.note(f"14c: {time.perf_counter() - t:.1f}s; phase 14: "
+            f"{time.perf_counter() - t0:.1f}s")
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
+
+
+def encdec_path(sm: Smoke, ident: str) -> dict:
+    """Phase 15: seamless-m4t-large-v2 (15a: 24 encoder + 24 decoder
+    layers, 1,024 frame features) and internvl2-26b (15b: 48 layers, 256
+    patch features before the prompt) at full width and depth with seeded
+    weights, each freed before the next; then 15c, each cut to 2 layers
+    (seamless: 2 encoder layers too) in float32, card against CPU."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.training import steps as S
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    rec = {}
+    for label, arch, want in ENCDEC_CELLS:
+        t = time.perf_counter()
+        cfg = get_config(arch)
+        model, init_s = lm_build(sm, M, label, cfg, want)
+        rec[label] = lm_cell(sm, M, S, label, cfg, model, ident)
+        rec[label].update(arch=cfg.name, init_s=init_s)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        sm.note(f"{label}: {time.perf_counter() - t:.1f}s")
+    t = time.perf_counter()
+    rec["15c"] = []
+    for _, arch, _ in ENCDEC_CELLS:
+        full = get_config(arch)
+        cut = dict(n_layers=ENCDEC_CPU_LAYERS, param_dtype="float32",
+                   activation_dtype="float32")
+        if full.pattern is not None:
+            cut["pattern"] = full.pattern[:ENCDEC_CPU_LAYERS]
+        if full.n_enc_layers:
+            cut["n_enc_layers"] = ENCDEC_CPU_LAYERS
+        rec["15c"].append(lm_cpu_compare(
+            sm, M, S, f"15c {full.name}", dataclasses.replace(full, **cut)))
+        gc.collect()
+        torch.cuda.empty_cache()
+    sm.note(f"15c: {time.perf_counter() - t:.1f}s; phase 15: "
+            f"{time.perf_counter() - t0:.1f}s")
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
+
+
 def main() -> int:
     try:
         import torch
@@ -4852,6 +5511,17 @@ def main() -> int:
     jamba = jamba_path(sm, ident)
     peak["jamba serve (13a)"] = jamba["13a"]["peak_bytes"]
     peak["jamba 4k request (13b)"] = jamba["13b"]["peak_bytes"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    xlstm = xlstm_path(sm, ident)
+    peak["xlstm serve (14a)"] = xlstm["14a"]["peak_bytes"]
+    peak["xlstm 4k request (14b)"] = xlstm["14b"]["peak_bytes"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    encdec = encdec_path(sm, ident)
+    for label, _, _ in ENCDEC_CELLS:
+        peak[f"{encdec[label]['arch']} serve ({label})"] = \
+            encdec[label]["peak_bytes"]
     kernels = []
     for r in recs:
         t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
@@ -4890,7 +5560,8 @@ def main() -> int:
                                    ranks=ranks["reports"],
                                    ranks_s=ranks["seconds"],
                                    launches=shard_launches),
-                        lm=lm, moe=moe, jamba=jamba,
+                        lm=lm, moe=moe, jamba=jamba, xlstm=xlstm,
+                        encdec=encdec,
                         peak_memory_bytes=peak,
                         algo_row_launches=algos["row_launches"],
                         kernel_shapes={r["name"]: r["shape"] for r in recs},

@@ -5,13 +5,20 @@ greedy-decode with the KV cache (``examples/serve_lm.py`` on the port).
     PYTHONPATH=src python examples/torch_serve_lm.py --device cpu
     PYTHONPATH=src python examples/torch_serve_lm.py --arch deepseek_v3_671b
     PYTHONPATH=src python examples/torch_serve_lm.py --arch jamba_v01_52b
+    PYTHONPATH=src python examples/torch_serve_lm.py --arch xlstm_350m
+    PYTHONPATH=src python examples/torch_serve_lm.py \
+        --arch seamless_m4t_large_v2
 
 Serves the arch's smoke config with seeded random weights, on the CUDA
-card unless ``--device cpu``: the dense and GQA archs, the MoE family
-(``phi35_moe_42b``; ``deepseek_v3_671b`` with MLA and its MTP module) and
-the Jamba hybrid (``jamba_v01_52b``: Mamba layers, one attention layer in
-eight, MoE on the odd layers). The ssm, vlm and audio archs raise
-``NotImplementedError`` naming their ROADMAP item.
+card unless ``--device cpu``. Every LM arch of the registry serves: the
+dense and GQA archs, the MoE family (``phi35_moe_42b``;
+``deepseek_v3_671b`` with MLA and its MTP module), the Jamba hybrid
+(``jamba_v01_52b``: Mamba layers, one attention layer in eight, MoE on the
+odd layers), xLSTM (``xlstm_350m``: mLSTM and sLSTM blocks, 7:1), the VLM
+(``internvl2_26b``: seeded patch features before the prompt, so the cache
+holds ``frontend_len`` more positions) and the speech encoder-decoder
+(``seamless_m4t_large_v2``: seeded frame features, encoded once into the
+``memory`` that every decode step attends to).
 """
 import argparse
 import time
@@ -37,19 +44,31 @@ def main(argv=None) -> torch.Tensor:
     dev = resolve_device(args.device)
     cfg = get_smoke_config(args.arch)
     model = M.init_model(cfg, seed=0, device=dev)
-    max_len = args.prompt_len + args.gen
+    max_len = args.prompt_len + args.gen + (cfg.frontend_len or 0)
     gen = torch.Generator(device=dev).manual_seed(0)
     prompts = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
                             generator=gen, device=dev)
+    batch = {"tokens": prompts}
+    if cfg.frontend:        # precomputed patch / frame features (a stub)
+        batch["frontend"] = 0.02 * torch.randn(
+            (args.batch, cfg.frontend_len, cfg.frontend_dim), generator=gen,
+            device=dev)
 
     prefill = S.make_prefill_step(cfg, max_len)
     step = S.make_serve_step(cfg)
 
     t0 = time.perf_counter()
-    nxt, caches = prefill(model, {"tokens": prompts})
+    memory = None
+    if cfg.n_enc_layers:    # the encoder runs once per request
+        with torch.no_grad():
+            memory = M._encode(model, batch, cfg)
+    nxt, caches = prefill(model, batch)
     out = [nxt]
     for _ in range(args.gen - 1):
-        nxt, caches = step(model, caches, {"tokens": nxt[:, None]})
+        db = {"tokens": nxt[:, None]}
+        if memory is not None:
+            db["memory"] = memory
+        nxt, caches = step(model, caches, db)
         out.append(nxt)
     toks = torch.stack(out, dim=1).cpu()     # waits for the device
     dt = time.perf_counter() - t0

@@ -83,21 +83,36 @@ def model_params_from_numpy(tree: Mapping, cfg: ModelConfig, *,
     on a leading repeat axis per scan group, ``tree["blocks"][group][pos]``
     (repeat ``r`` of position ``i`` of group ``g`` is the port's layer
     ``offset(g) + r * len(pattern) + i``: Jamba's full config is one group
-    of 8 positions repeated, its smoke config 8 groups of 1); the MoE, MLA,
-    MTP and Mamba leaves go by the same names (an MoE router and its bias,
-    a Mamba's ``A_log`` and ``D`` stay float32). Every leaf must land on a
-    parameter of the same shape and every parameter must get one."""
+    of 8 positions repeated, its smoke config 8 groups of 1); the
+    encoder's blocks stacked the same way in one group of one position,
+    ``tree["encoder"][0]`` (repeat ``r`` is the port's ``encoder.{r}``).
+    The MoE, MLA, MTP, Mamba, mLSTM, sLSTM, cross-attention, ``enc_norm``
+    and ``frontend_adapter`` leaves go by the same names (an MoE router
+    and its bias, a Mamba's ``A_log`` and ``D``, an mLSTM's ``wi`` and
+    ``wf`` and an sLSTM's ``b`` stay float32); a block without an MLP has
+    no ``norm2`` or ``mlp``. Every leaf must land on a parameter of the
+    same shape and every parameter must get one."""
     model = Model(cfg, device=device)
-    state = dict(_flat({k: v for k, v in tree.items() if k != "blocks"},
+    stacked = ("blocks", "encoder")
+    state = dict(_flat({k: v for k, v in tree.items() if k not in stacked},
                        ""))
+
+    def unstack(group: Mapping, prefix: str, r: int):
+        for name, leaf in _flat(group, prefix):
+            state[name] = np.asarray(leaf)[r]
+
     layer = 0
     for gi, (pattern, n_rep) in enumerate(cfg.scan_groups()):
         for r in range(n_rep):
             for i in range(len(pattern)):
-                for name, leaf in _flat(tree["blocks"][gi][i],
-                                        f"blocks.{layer}."):
-                    state[name] = np.asarray(leaf)[r]
+                unstack(tree["blocks"][gi][i], f"blocks.{layer}.", r)
                 layer += 1
+    layer = 0
+    for group in tree.get("encoder", ()):
+        _, first = next(_flat(group, ""))
+        for r in range(len(first)):
+            unstack(group, f"encoder.{layer}.", r)
+            layer += 1
     model.load_state_dict({k: _tensor(v) for k, v in state.items()},
                           strict=True)
     return model

@@ -3,7 +3,8 @@
 
 Each layer is a pure function over tensors under the reference's name
 (``norm_apply``, ``rope``, ``mlp_apply``, ``_sdpa_dense``,
-``_sdpa_blockwise``, ``_sdpa``, ``attention_apply``, ``mla_apply``) and an
+``_sdpa_blockwise``, ``_sdpa``, ``attention_apply``, ``mla_apply``,
+``cross_attention_apply``) and an
 ``nn.Module`` (``Norm``, ``MLP``, ``Attention``, ``MLA``) that holds the
 parameters in the reference's shapes and calls it, with its float parameters cast to the
 compute dtype it is given (the reference's ``_cast_floats``).
@@ -21,12 +22,6 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
-
-
-def not_ported(what: str, item: str) -> NotImplementedError:
-    """The error of a part of the LM stack that a later slice ports."""
-    return NotImplementedError(
-        f"{what} is not ported yet: ROADMAP Queue 1 item {item}")
 
 
 # --------------------------------------------------------------------------- #
@@ -418,8 +413,20 @@ class MLA(nn.Module):
 
 
 # --------------------------------------------------------------------------- #
-# cross-attention: a later slice
+# cross-attention (the encoder-decoder's decoder blocks)
 # --------------------------------------------------------------------------- #
-def cross_attention_apply(*args, **kwargs):
-    raise not_ported("cross-attention",
-                     "5f (encoder-decoder and frontend stubs)")
+def cross_attention_apply(params: dict, x: torch.Tensor,
+                          memory: torch.Tensor, cfg, *,
+                          positions: torch.Tensor) -> torch.Tensor:
+    """x [B,T,d] attends to the encoder's ``memory`` [B,L,d] with
+    ``Attention``'s leaves (wq, wk, wv, wo): no rope, no mask. K and V are
+    computed from ``memory`` at every call, decode steps too, as in the
+    reference (which keeps no cross-attention cache); ``positions`` is
+    taken for the signature's sake and unused."""
+    q = (x @ params["wq"].flatten(1)).unflatten(-1, params["wq"].shape[1:])
+    k = (memory @ params["wk"].flatten(1)).unflatten(
+        -1, params["wk"].shape[1:])
+    v = (memory @ params["wv"].flatten(1)).unflatten(
+        -1, params["wv"].shape[1:])
+    out = _sdpa(q, k, v, causal=False, q_offset=0)
+    return out.flatten(2) @ params["wo"].flatten(0, 1)

@@ -1,29 +1,43 @@
 """Model assembly: config -> init / forward / prefill / decode. The port of
-the JAX package's ``models/model.py`` for attention, MLA and Mamba blocks
-with dense or MoE MLPs (so the Jamba hybrid pattern), and DeepSeek's
-multi-token prediction (MTP) module.
+the JAX package's ``models/model.py``: attention, MLA, Mamba, mLSTM and
+sLSTM blocks with dense, MoE or no MLPs (so the Jamba and xLSTM
+patterns), cross-attention in an encoder-decoder's decoder blocks, the
+encoder, the modality frontend stubs and DeepSeek's multi-token
+prediction (MTP) module.
 
 ``Model`` is an ``nn.Module``: the token embedding ``embed`` [V, d], the
 final norm, an ``lm_head`` [d, V] unless the embeddings are tied, the
 blocks as an ``nn.ModuleList`` in the reference's layer order (its scan
-groups, repeat by repeat, position by position) and, with ``mtp_depth``,
-``mtp_proj`` [2d, d], ``mtp_block`` (an attention + dense block) and
-``mtp_norm``. The module-level functions keep the reference's names and
-arguments, with the model in place of the parameter pytree.
+groups, repeat by repeat, position by position); with ``n_enc_layers``
+the ``encoder`` (that many attention + dense blocks, applied
+non-causally) and its norm ``enc_norm``; with a ``frontend`` the
+``frontend_adapter`` [frontend_dim or d, d] that maps the precomputed
+patch or frame features into the model; with ``mtp_depth``, ``mtp_proj``
+[2d, d], ``mtp_block`` (an attention + dense block) and ``mtp_norm``. The
+module-level functions keep the reference's names and arguments, with
+the model in place of the parameter pytree.
+
+The frontend is a stub, as in the reference: a batch carries
+``batch["frontend"]`` [B, frontend_len, frontend_dim]. An encoder-decoder
+(``n_enc_layers``) encodes it into ``memory`` [B, frontend_len, d]
+(``_encode``), which every decoder block attends to without a mask and
+without rope; ``forward`` and ``prefill`` encode it themselves, and
+``decode_step`` takes it as ``batch["memory"]`` (computed once per
+request, as the reference's serve loop does). A decoder-only config with
+a frontend (a VLM) prepends the adapted features to the token
+embeddings, so its positions, its logits and the cache capacity a
+prefill needs count ``frontend_len`` more.
 
 A decode cache is a list with one dict per layer, by the layer's mixer:
 ``{"k", "v": [B, max_len, Hkv, Dh], "idx": int}`` for attention,
 ``{"ckv": [B, max_len, kv_lora], "kr": [B, max_len, rope], "idx": int}``
 for MLA, in the activation dtype; ``prefill`` and ``decode_step`` write it
-in place and return it with ``idx`` advanced. A Mamba layer's is
-``{"conv": [B, d_conv - 1, di], "h": [B, di, n], "idx": int}``
-(``models/ssm.py``), replaced by each call; its ``idx`` advances as an
-attention layer's does, so ``decode_step`` reads the position from layer 0
-whatever its mixer. There is one card, so the reference's sharding hints
-have no counterpart, and ``fsdp_gather_weights`` / ``tp_bf16_payload``
-change no number. The xLSTM mixers, the encoder, the frontend stubs and
-cross-attention are later slices: a config that needs one is refused by
-``Model``.
+in place and return it with ``idx`` advanced. A Mamba, mLSTM or sLSTM
+layer's is a fixed-size state (``models/ssm.py``), replaced by each call;
+its ``idx`` advances as an attention layer's does, so ``decode_step``
+reads the position from layer 0 whatever its mixer. There is one card,
+so the reference's sharding hints have no counterpart, and
+``fsdp_gather_weights`` / ``tp_bf16_payload`` change no number.
 """
 from __future__ import annotations
 
@@ -34,83 +48,90 @@ from torch import nn
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.config import BlockSpec, ModelConfig
-from repro_torch.models.layers import (MLA, MLP, Attention, Norm, _param,
-                                       mla_cache_shape, not_ported)
+from repro_torch.models.layers import (MLA, MLP, Attention, Norm, _cast_params,
+                                       _param, cross_attention_apply,
+                                       mla_cache_shape)
 from repro_torch.models.moe import MoE
-from repro_torch.models.ssm import Mamba, mamba_cache_shape
+from repro_torch.models.ssm import (MLSTM, SLSTM, Mamba, mamba_cache_shape,
+                                    mlstm_cache_shape, slstm_cache_shape)
 
-_MIXERS = {"attn": Attention, "mla": MLA, "mamba": Mamba}
-_MIXER_ITEMS = {"mlstm": "5e (mLSTM / sLSTM)", "slstm": "5e (mLSTM / sLSTM)"}
-_ENC_DEC_ITEM = "5f (encoder-decoder and frontend stubs)"
-_MTP_SPEC = BlockSpec(mixer="attn", mlp="dense")
+_MIXERS = {"attn": Attention, "mla": MLA, "mamba": Mamba, "mlstm": MLSTM,
+           "slstm": SLSTM}
+_STATE_CACHES = {"mamba": mamba_cache_shape, "mlstm": mlstm_cache_shape,
+                 "slstm": slstm_cache_shape}
+# the encoder's blocks and the MTP module's
+_ATTN_DENSE = BlockSpec(mixer="attn", mlp="dense")
 
 
 def _dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
 
 
-def _check_spec(spec: BlockSpec) -> None:
-    if spec.mixer not in _MIXERS:
-        raise not_ported(f"mixer {spec.mixer!r}",
-                         _MIXER_ITEMS.get(spec.mixer, spec.mixer))
-    if spec.cross:
-        raise not_ported("cross-attention", _ENC_DEC_ITEM)
-    if spec.mlp not in ("dense", "moe"):
-        raise not_ported(f"mlp {spec.mlp!r}", _MIXER_ITEMS["mlstm"])
-
-
-def _check_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP item of the first
-    part of ``cfg`` that the port does not run yet."""
-    if cfg.n_enc_layers:
-        raise not_ported("the encoder", _ENC_DEC_ITEM)
-    if cfg.frontend:
-        raise not_ported(f"the {cfg.frontend} frontend", _ENC_DEC_ITEM)
-    for spec in cfg.layer_pattern():
-        _check_spec(spec)
-
-
 # --------------------------------------------------------------------------- #
 # one block
 # --------------------------------------------------------------------------- #
 class Block(nn.Module):
-    """One pre-norm layer: ``x + mixer(norm1(x))``, then ``x +
-    mlp(norm2(x))`` (the reference's ``init_block`` / ``block_apply``); the
-    mixer is attention, MLA or Mamba, the MLP dense or MoE, by ``spec``.
-    Its float parameters are used in the activation dtype (a Mamba's
-    float32 ``A_log`` and ``D`` too)."""
+    """One pre-norm layer: ``x + mixer(norm1(x))``; with ``spec.cross``,
+    then ``x + cross(norm_cross(x), memory)``; unless ``spec.mlp ==
+    "none"``, then ``x + mlp(norm2(x))`` (the reference's ``init_block`` /
+    ``block_apply``). The mixer is attention, MLA, Mamba, mLSTM or sLSTM,
+    the MLP dense or MoE, by ``spec``; a block without an MLP holds no
+    ``norm2`` and no ``mlp`` parameter. Its float parameters are used in
+    the activation dtype (the float32 leaves of the SSM mixers too)."""
 
     def __init__(self, spec: BlockSpec, cfg: ModelConfig, *,
                  dtype: torch.dtype, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        _check_spec(spec)
         self.cfg = cfg
         self.norm1 = Norm(cfg.d_model, cfg.norm, dtype=dtype, device=device)
         self.mixer = _MIXERS[spec.mixer](cfg, dtype=dtype, device=device,
                                          generator=generator)
-        self.norm2 = Norm(cfg.d_model, cfg.norm, dtype=dtype, device=device)
-        self.mlp = (MoE(cfg, dtype=dtype, device=device, generator=generator)
-                    if spec.mlp == "moe" else
-                    MLP(cfg.d_model, cfg.d_ff, cfg.act, dtype=dtype,
-                        device=device, generator=generator))
+        self.norm_cross = self.cross = None
+        if spec.cross:
+            self.norm_cross = Norm(cfg.d_model, cfg.norm, dtype=dtype,
+                                   device=device)
+            self.cross = Attention(cfg, dtype=dtype, device=device,
+                                   generator=generator)
+        self.norm2 = self.mlp = None
+        if spec.mlp != "none":
+            self.norm2 = Norm(cfg.d_model, cfg.norm, dtype=dtype,
+                              device=device)
+            self.mlp = (MoE(cfg, dtype=dtype, device=device,
+                            generator=generator)
+                        if spec.mlp == "moe" else
+                        MLP(cfg.d_model, cfg.d_ff, cfg.act, dtype=dtype,
+                            device=device, generator=generator))
 
     def forward(self, x: torch.Tensor, *, positions: torch.Tensor,
-                causal: bool = True, cache: Optional[dict] = None):
+                causal: bool = True, cache: Optional[dict] = None,
+                memory: Optional[torch.Tensor] = None):
         """Returns (x, new_cache, aux): aux is the MoE's stats ({"load",
-        "dropped"}), or None for a dense MLP."""
+        "dropped"}), or None for a dense MLP or none. ``memory`` [B, L, d]
+        is the encoder's output, which a cross-attention block needs."""
         dtype = _dtype(self.cfg.activation_dtype)
         h = self.norm1(x, dtype)
         out, new_cache = self.mixer(h, positions=positions, causal=causal,
                                     cache=cache, dtype=dtype)
         x = x + out.to(x.dtype)
-        h = self.norm2(x, dtype)
+        if self.cross is not None:
+            if memory is None:
+                raise ValueError("a cross-attention block needs the "
+                                 "encoder's memory (batch['memory'] in "
+                                 "decode_step)")
+            h = self.norm_cross(x, dtype)
+            out = cross_attention_apply(_cast_params(self.cross, dtype), h,
+                                        memory, self.cfg,
+                                        positions=positions)
+            x = x + out.to(x.dtype)
         aux = None
-        if isinstance(self.mlp, MoE):
-            out, aux = self.mlp(h, dtype)
-        else:
-            out = self.mlp(h, dtype)
-        x = x + out.to(x.dtype)
+        if self.mlp is not None:
+            h = self.norm2(x, dtype)
+            if isinstance(self.mlp, MoE):
+                out, aux = self.mlp(h, dtype)
+            else:
+                out = self.mlp(h, dtype)
+            x = x + out.to(x.dtype)
         return x, new_cache, aux
 
 
@@ -125,7 +146,6 @@ class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, *, device: DeviceLike = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        _check_ported(cfg)
         dev = resolve_device(device)
         dtype = _dtype(cfg.param_dtype)
         self.cfg = cfg
@@ -141,10 +161,21 @@ class Model(nn.Module):
         self.blocks = nn.ModuleList(
             Block(spec, cfg, dtype=dtype, device=dev, generator=generator)
             for spec in cfg.layer_pattern())
+        if cfg.n_enc_layers:
+            self.encoder = nn.ModuleList(
+                Block(_ATTN_DENSE, cfg, dtype=dtype, device=dev,
+                      generator=generator)
+                for _ in range(cfg.n_enc_layers))
+            self.enc_norm = Norm(cfg.d_model, cfg.norm, dtype=dtype,
+                                 device=dev)
+        if cfg.frontend:
+            fdim = cfg.frontend_dim or cfg.d_model
+            self.frontend_adapter = _param(generator, (fdim, cfg.d_model),
+                                           fdim, dtype, dev)
         if cfg.mtp_depth:
             self.mtp_proj = _param(generator, (2 * cfg.d_model, cfg.d_model),
                                    2 * cfg.d_model, dtype, dev)
-            self.mtp_block = Block(_MTP_SPEC, cfg, dtype=dtype, device=dev,
+            self.mtp_block = Block(_ATTN_DENSE, cfg, dtype=dtype, device=dev,
                                    generator=generator)
             self.mtp_norm = Norm(cfg.d_model, cfg.norm, dtype=dtype,
                                  device=dev)
@@ -164,9 +195,45 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
     return Model(cfg, device=dev, generator=gen)
 
 
+def _embed_tokens(model: Model, tokens: torch.Tensor, cfg: ModelConfig):
+    return model.embed[tokens.long()].to(_dtype(cfg.activation_dtype))
+
+
+def _adapt_frontend(model: Model, batch: dict, cfg: ModelConfig):
+    """The precomputed frontend features [B, L, frontend_dim] through the
+    adapter -> [B, L, d], in the activation dtype."""
+    dtype = _dtype(cfg.activation_dtype)
+    return batch["frontend"].to(dtype) @ model.frontend_adapter.to(dtype)
+
+
 def _embed_inputs(model: Model, batch: dict, cfg: ModelConfig):
-    return model.embed[batch["tokens"].long()].to(
-        _dtype(cfg.activation_dtype))
+    """The token embeddings, after the adapted frontend features when the
+    config has a frontend and the batch carries them."""
+    x = _embed_tokens(model, batch["tokens"], cfg)
+    if cfg.frontend and "frontend" in batch:
+        x = torch.cat([_adapt_frontend(model, batch, cfg), x], dim=1)
+    return x
+
+
+def _encode(model: Model, batch: dict, cfg: ModelConfig):
+    """An encoder-decoder's encoder: the adapted frontend features through
+    the encoder blocks (non-causal, positions 0..L-1) and ``enc_norm`` ->
+    memory [B, L, d] in the activation dtype."""
+    h = _adapt_frontend(model, batch, cfg)
+    pos = torch.arange(h.shape[1], device=h.device)
+    for blk in model.encoder:
+        h, _, _ = blk(h, positions=pos, causal=False)
+    return model.enc_norm(h)
+
+
+def _decoder_inputs(model: Model, batch: dict, cfg: ModelConfig):
+    """(x, memory) for ``forward`` and ``prefill``: an encoder-decoder
+    encodes the frontend and embeds only the tokens; any other config
+    embeds its inputs and has no memory."""
+    if cfg.n_enc_layers:
+        return (_embed_tokens(model, batch["tokens"], cfg),
+                _encode(model, batch, cfg))
+    return _embed_inputs(model, batch, cfg), None
 
 
 def _lm_logits(model: Model, h: torch.Tensor, cfg: ModelConfig):
@@ -174,15 +241,16 @@ def _lm_logits(model: Model, h: torch.Tensor, cfg: ModelConfig):
     return h @ head.to(h.dtype)
 
 
-def _apply_blocks(model: Model, x, *, positions, caches=None):
+def _apply_blocks(model: Model, x, *, positions, caches=None, memory=None):
     """(x, new_caches, dropped): ``dropped`` sums the MoE layers' dropped
     shares in float32, layer by layer (the reference's ``_apply_stack``
-    aux sum); dense layers add nothing."""
+    aux sum); other layers add nothing."""
     new_caches = []
     dropped = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, blk in enumerate(model.blocks):
         x, nc, aux = blk(x, positions=positions, causal=True,
-                         cache=None if caches is None else caches[i])
+                         cache=None if caches is None else caches[i],
+                         memory=memory)
         new_caches.append(nc)
         if aux is not None:
             dropped = dropped + aux["dropped"]
@@ -192,10 +260,12 @@ def _apply_blocks(model: Model, x, *, positions, caches=None):
 def forward(model: Model, batch: dict, cfg: ModelConfig):
     """Full-sequence forward -> (logits [B,S,V], aux): aux["moe_dropped"],
     and with MTP aux["mtp_hidden"], the final-normed hidden state that
-    ``mtp_logits`` takes."""
-    x = _embed_inputs(model, batch, cfg)
+    ``mtp_logits`` takes. An encoder-decoder encodes batch["frontend"] and
+    decodes batch["tokens"]; a frontend-prefixed config's S counts the
+    prefix."""
+    x, memory = _decoder_inputs(model, batch, cfg)
     pos = torch.arange(x.shape[1], device=x.device)
-    x, _, dropped = _apply_blocks(model, x, positions=pos)
+    x, _, dropped = _apply_blocks(model, x, positions=pos, memory=memory)
     h = model.final_norm(x)
     aux = {"moe_dropped": dropped}
     if cfg.mtp_depth:
@@ -223,8 +293,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device: DeviceLike = None) -> list:
     """A zeroed decode cache of capacity ``max_len``, one dict per layer
     by its mixer (the reference's ``block_cache_shape``; the reference
-    returns the shapes, the port allocates them). A Mamba layer's state
-    has a fixed size whatever ``max_len``."""
+    returns the shapes, the port allocates them). A Mamba, mLSTM or sLSTM
+    layer's state has a fixed size whatever ``max_len``."""
     dev = resolve_device(device)
     dtype = _dtype(cfg.activation_dtype)
     shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
@@ -232,8 +302,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     def one(spec):
         if spec.mixer == "mla":
             return mla_cache_shape(cfg, batch, max_len, dtype, device=dev)
-        if spec.mixer == "mamba":
-            return mamba_cache_shape(cfg, batch, dtype, device=dev)
+        if spec.mixer in _STATE_CACHES:
+            return _STATE_CACHES[spec.mixer](cfg, batch, dtype, device=dev)
         return {"k": torch.zeros(shape, dtype=dtype, device=dev),
                 "v": torch.zeros(shape, dtype=dtype, device=dev), "idx": 0}
 
@@ -242,13 +312,15 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 
 @torch.no_grad()
 def decode_step(model: Model, caches: list, batch: dict, cfg: ModelConfig):
-    """One-token decode: batch['tokens'] [B,1]. Returns (logits [B,1,V],
-    new_caches); ``caches`` is consumed."""
-    x = _embed_inputs(model, batch, cfg)
+    """One-token decode: batch['tokens'] [B,1], and for an encoder-decoder
+    batch['memory'] [B,L,d] (``_encode``'s output). Returns (logits
+    [B,1,V], new_caches); ``caches`` is consumed."""
+    x = _embed_tokens(model, batch["tokens"], cfg)
     # positions from the first layer's idx (uniform across the batch)
     idx = caches[0]["idx"]
     pos = torch.arange(idx, idx + 1, device=x.device)
-    x, new_caches, _ = _apply_blocks(model, x, positions=pos, caches=caches)
+    x, new_caches, _ = _apply_blocks(model, x, positions=pos, caches=caches,
+                                     memory=batch.get("memory"))
     h = model.final_norm(x)
     return _lm_logits(model, h, cfg), new_caches
 
@@ -256,12 +328,14 @@ def decode_step(model: Model, caches: list, batch: dict, cfg: ModelConfig):
 @torch.no_grad()
 def prefill(model: Model, batch: dict, cfg: ModelConfig, max_len: int):
     """Run the full prompt through zeroed caches of capacity ``max_len``
-    (attention over the whole cache, ``kv_len_valid`` = prompt length).
-    Returns (last-position logits [B,1,V], caches)."""
+    (attention over the whole cache, ``kv_len_valid`` = prompt length; a
+    frontend prefix counts in both). Returns (last-position logits
+    [B,1,V], caches)."""
     B = batch["tokens"].shape[0]
     caches = init_cache(cfg, B, max_len, device=model.embed.device)
-    x = _embed_inputs(model, batch, cfg)
+    x, memory = _decoder_inputs(model, batch, cfg)
     pos = torch.arange(x.shape[1], device=x.device)
-    x, new_caches, _ = _apply_blocks(model, x, positions=pos, caches=caches)
+    x, new_caches, _ = _apply_blocks(model, x, positions=pos, caches=caches,
+                                     memory=memory)
     h = model.final_norm(x[:, -1:])
     return _lm_logits(model, h, cfg), new_caches

@@ -207,7 +207,8 @@ def test_lm_stack_loads_no_jax():
     """``repro_torch.models`` (``ssm`` too), ``repro_torch.configs`` (every
     arch module) and ``repro_torch.training`` load no ``jax`` and no module
     of the JAX package, nor does a prefill and a decode step on the CPU of a
-    dense, the two MoE and the Jamba smoke configs."""
+    dense, the two MoE, the Jamba, the xLSTM and the encoder-decoder smoke
+    configs (seamless with its frame features and its encoded memory)."""
     code = ("import sys, torch\n"
             "import repro_torch.models, repro_torch.models.model as M\n"
             "import repro_torch.models.moe, repro_torch.models.layers\n"
@@ -216,13 +217,20 @@ def test_lm_stack_loads_no_jax():
             "from repro_torch.training import steps as S\n"
             "for a in C.ARCHS: C.get_config(a); C.get_smoke_config(a)\n"
             "for a in ('phi4_mini_3p8b', 'phi35_moe_42b', "
-            "'deepseek_v3_671b', 'jamba_v01_52b'):\n"
+            "'deepseek_v3_671b', 'jamba_v01_52b', 'xlstm_350m', "
+            "'seamless_m4t_large_v2'):\n"
             "    cfg = C.get_smoke_config(a)\n"
             "    m = M.init_model(cfg, device='cpu')\n"
-            "    t = torch.zeros((2, 5), dtype=torch.int32)\n"
-            "    nxt, c = S.make_prefill_step(cfg, 8)(m, {'tokens': t})\n"
-            "    nxt, c = S.make_serve_step(cfg)(m, c, "
-            "{'tokens': nxt[:, None]})\n"
+            "    b = {'tokens': torch.zeros((2, 5), dtype=torch.int32)}\n"
+            "    if cfg.frontend:\n"
+            "        b['frontend'] = torch.zeros((2, cfg.frontend_len, "
+            "cfg.frontend_dim))\n"
+            "    nxt, c = S.make_prefill_step(cfg, 8)(m, b)\n"
+            "    d = {'tokens': nxt[:, None]}\n"
+            "    if cfg.n_enc_layers:\n"
+            "        with torch.no_grad(): d['memory'] = M._encode(m, b, "
+            "cfg)\n"
+            "    nxt, c = S.make_serve_step(cfg)(m, c, d)\n"
             "    assert c[0]['idx'] == 6\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
@@ -233,32 +241,39 @@ def test_lm_stack_loads_no_jax():
     assert out.returncode == 0, out.stderr + out.stdout
 
 
+# the reference's parameter count (jax.eval_shape of its init_model) of the
+# configs ported in item 5e / 5f, by dtype
+_PORTED_PARAMS = {"xlstm_350m": {"float32": 187_013_120},
+                  "seamless_m4t_large_v2": {"float32": 1_633_304_576},
+                  "internvl2_26b": {"bfloat16": 19_880_921_088}}
+
+
 @pytest.mark.parametrize("arch,item", [
     ("deepseek_v3_671b", None), ("phi35_moe_42b", None),
     ("jamba_v01_52b", None), ("xlstm_350m", "5e"), ("internvl2_26b", "5f"),
     ("seamless_m4t_large_v2", "5f")])
 def test_unported_lm_archs_raise_not_implemented(arch, item):
-    """The ssm, vlm and audio configs are later slices: the model refuses
-    them, naming the ROADMAP item, before it allocates anything (the full
-    configs too). MoE (item 5b), MLA + MTP (item 5c) and Mamba with the
-    Jamba hybrid (item 5d) are ported: those full configs build on the
+    """Each of these archs was once refused, naming the ROADMAP item that
+    would port it; all are ported now (MoE 5b, MLA + MTP 5c, Mamba and
+    Jamba 5d; ``item``: xLSTM 5e, the VLM and the encoder-decoder 5f), and
+    the LM stack has no refusal left (``not_ported`` is gone). Each full
+    config builds on the
     meta device with the reference's parameter count per dtype
-    (``jax.eval_shape`` of its ``init_model``; Jamba's float32 ``A_log``
-    and ``D`` among them), and their smoke configs serve."""
-    from repro_torch.configs import get_config, get_smoke_config
-    from repro_torch.models.model import Model, init_model
-    from repro_torch.training import steps as S
-    if item is not None:
-        for cfg in (get_smoke_config(arch), get_config(arch)):
-            with pytest.raises(NotImplementedError, match=f"item {item}"):
-                init_model(cfg, device="cpu")
-        return
+    (``jax.eval_shape`` of its ``init_model``: Jamba's float32 ``A_log``
+    and ``D``, xLSTM's float32 ``wi`` / ``wf`` / ``b`` among them), and its
+    smoke config serves a prefill and a decode step (with its frontend
+    features, and the encoder-decoder with its memory)."""
     import collections
     import math
 
     import jax
     import repro.configs as RC
     import repro.models.model as RM
+    import repro_torch.models.layers as TL
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.models.model import Model, _encode, init_model
+    from repro_torch.training import steps as S
+    assert not hasattr(TL, "not_ported")
     ref = jax.eval_shape(lambda: RM.init_model(jax.random.PRNGKey(0),
                                                RC.get_config(arch)))
     want, got = collections.Counter(), collections.Counter()
@@ -266,14 +281,26 @@ def test_unported_lm_archs_raise_not_implemented(arch, item):
         want[str(leaf.dtype)] += math.prod(leaf.shape)
     for p in Model(get_config(arch), device="meta").parameters():
         got[str(p.dtype).removeprefix("torch.")] += p.numel()
-    assert got == want and want["bfloat16"] > 4e10
+    assert got == want
+    if item is None:
+        assert want["bfloat16"] > 4e10
+    else:
+        assert dict(want) == _PORTED_PARAMS[arch]
     cfg = get_smoke_config(arch)
     model = init_model(cfg, device="cpu")
-    t = torch.zeros((2, 5), dtype=torch.int32)
-    nxt, caches = S.make_prefill_step(cfg, 8)(model, {"tokens": t})
-    nxt, caches = S.make_serve_step(cfg)(model, caches,
-                                         {"tokens": nxt[:, None]})
-    assert nxt.shape == (2,) and caches[0]["idx"] == 6
+    batch = {"tokens": torch.zeros((2, 5), dtype=torch.int32)}
+    off = 0
+    if cfg.frontend:
+        batch["frontend"] = torch.zeros((2, cfg.frontend_len,
+                                         cfg.frontend_dim))
+        off = 0 if cfg.n_enc_layers else cfg.frontend_len
+    nxt, caches = S.make_prefill_step(cfg, 8 + off)(model, batch)
+    step = {"tokens": nxt[:, None]}
+    if cfg.n_enc_layers:
+        with torch.no_grad():
+            step["memory"] = _encode(model, batch, cfg)
+    nxt, caches = S.make_serve_step(cfg)(model, caches, step)
+    assert nxt.shape == (2,) and caches[0]["idx"] == 6 + off
 
 
 def test_lm_entry_points_refuse_missing_gpu(monkeypatch):

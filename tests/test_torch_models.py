@@ -199,8 +199,25 @@ def test_sdpa_switches_to_blockwise_past_threshold():
 
 
 def test_not_ported_layers_name_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 5f"):
-        TL.cross_attention_apply()
+    """Cross-attention, once refused naming ROADMAP item 5f, against the
+    reference: queries from ``x``, keys and values from ``memory``, no rope
+    and no mask, within 1e-5 (``tests/test_torch_encdec.py`` holds the
+    encoder-decoder around it)."""
+    cfg = TC.get_smoke_config("seamless_m4t_large_v2")
+    att = TL.Attention(cfg, dtype=torch.float32, device="cpu",
+                       generator=torch.Generator().manual_seed(8))
+    p = {n: t.detach() for n, t in att.named_parameters()}
+    rng = np.random.default_rng(8)
+    x, mem = _normal(rng, (2, 5, cfg.d_model)), _normal(rng, (2, 12,
+                                                              cfg.d_model))
+    want = RL.cross_attention_apply({k: jnp.asarray(v.numpy())
+                                     for k, v in p.items()},
+                                    jnp.asarray(x), jnp.asarray(mem), cfg,
+                                    positions=jnp.arange(5))
+    got = TL.cross_attention_apply(p, torch.from_numpy(x),
+                                   torch.from_numpy(mem), cfg,
+                                   positions=torch.arange(5))
+    np.testing.assert_allclose(_np(got), np.asarray(want), atol=LAYER_ATOL)
 
 
 # --------------------------------------------------------------------------- #

@@ -98,8 +98,13 @@ def test_example_serves_on_cpu(capsys):
                      "--gen", "5"])
     # the first lane's prompt is drawn first, so its tokens agree
     np.testing.assert_array_equal(again[0], toks[0, :5])
-    with pytest.raises(NotImplementedError, match="item 5e"):
-        ex.main(["--arch", "xlstm_350m", "--device", "cpu"])
+    # the xLSTM, VLM and encoder-decoder archs, once refused, serve too
+    for arch in ("xlstm_350m", "internvl2_26b", "seamless_m4t_large_v2"):
+        got = ex.main(["--arch", arch, "--device", "cpu", "--gen", "4"])
+        assert got.shape == (4, 4) and got.dtype == torch.int32
+        assert f"{arch}: generated 4x4 tokens" in capsys.readouterr().out
+        np.testing.assert_array_equal(
+            ex.main(["--arch", arch, "--device", "cpu", "--gen", "4"]), got)
 
 
 @pytest.mark.parametrize("arch", MOE)
