@@ -159,7 +159,8 @@ Phases (the run exits non-zero if any of them fails):
      ``forward`` over the same prefix, and each greedy token equal to the
      forward's argmax, or else its forward logit within twice its row's
      decode-vs-forward error of the forward's largest (a near-tie at bf16
-     resolution). 11b: one long request, a 32,768-token prompt at batch 1
+     resolution). 11b: the model cut to its first 4 layers (to pay for
+     phase 16), one long request, a 32,768-token prompt at batch 1
      (prefill_32k's length; its batch of 32 would need ~137 GB of cache)
      through the blockwise path, and 16 greedy steps, held against
      ``forward`` over the same 32,783 tokens the same way; blockwise
@@ -177,8 +178,9 @@ Phases (the run exits non-zero if any of them fails):
      MLA, MTP; no kernel of its own), seeded bf16 weights, TF32 off, each
      model freed before the next. 12a: phi3.5-MoE-42B at full width
      (d_model 4096, 32 heads, GQA kv 8, 16 experts top-2, d_ffe 6400,
-     vocab 32,064, capacity 1.25), depth cut from 32 to 28 layers
-     (36,671,529,408 parameters, 68.31 GiB). 12b: DeepSeek-V3 at full width
+     vocab 32,064, capacity 1.25), depth cut from 32 to 8 layers
+     (10,665,205,888 parameters, 19.87 GiB; 28 fit the card, 8 pay for
+     phase 16). 12b: DeepSeek-V3 at full width
      (d_model 7168, 128 heads, MLA q_lora 1536 / kv_lora 512 / rope 64, 3
      dense layers then MoE of 256 experts top-8 plus 1 shared expert,
      d_ffe 2048, aux-free bias, vocab 129,280) cut from 61 to 5 layers plus
@@ -212,9 +214,10 @@ Phases (the run exits non-zero if any of them fails):
      weights, TF32 off, after phase 12's models are freed. jamba-v0.1-52b
      at full width (d_model 4096, 32 heads, GQA kv 8, d_ff 14336, Mamba
      d_state 16 / d_conv 4 / expand 2, so di 8192 and dt_rank 256, 16
-     experts top-2 on the odd layers, vocab 65,536), depth cut from 32 to 24
-     layers, three whole 8-layer Jamba blocks (38,811,955,392 parameters,
-     72.30 GiB; 32 take 96.07). 13a: serve_lm's defaults through the step
+     experts top-2 on the odd layers, vocab 65,536), depth cut from 32 to 8
+     layers, one whole 8-layer Jamba block: 7 Mamba, 1 attention, 4 MoE
+     (13,295,235,136 parameters, 24.77 GiB; 24 fit the card, 8 pay for
+     phase 16). 13a: serve_lm's defaults through the step
      builders (timed after a warm-up) and phase 12's tapped replay (no
      decode step drops a pair; the prefill's last logits equal
      ``forward`` on the same prompt), 4 decode steps profiled. Then the
@@ -233,10 +236,11 @@ Phases (the run exits non-zero if any of them fails):
      token is the forward's argmax or a near-tie. 13b: one 4,096-token
      request at batch 1 (8 scan chunks of 512) and 16 greedy steps, timed
      and tapped, the prefill against ``forward`` on the same prompt, one
-     Mamba layer's prefill timed and profiled; then the model cut to its
-     first 16 layers (a dropless MoE at 4,111 tokens needs ~7 GiB of
-     expert intermediates beside 72.30 GiB of weights) and the request
-     held the same way; with the model freed, the chunked scan against
+     Mamba layer's prefill timed and profiled; then the request replayed
+     dropless and held the same way on JAMBA_LONG_HELD_LAYERS layers (the
+     whole 8-layer model; at 24 layers a dropless MoE at 4,111 tokens
+     needed ~7 GiB beside 72.30 GiB of weights, so 16 were held); with
+     the model freed, the chunked scan against
      the single-shot one at one Mamba layer's shapes (di 8192, n 16) over
      2,048 tokens in float32 (within 1e-5). 13c: the model cut to its first
      5 layers (4 Mamba, the attention layer, 2 MoE) with 4 of its 16
@@ -276,26 +280,57 @@ Phases (the run exits non-zero if any of them fails):
      prefill's xLSTM caches within LM_FP32_ATOL, 8 greedy tokens equal, the
      card's cached path against its own forward within 5e-4.
  15. The encoder-decoder and the frontend stubs (no kernel), seeded
-     weights, TF32 off. 15a: seamless-m4t-large-v2 at full width and
-     depth (24 encoder + 24 decoder layers with cross-attention, d_model
-     1024, 16 heads, d_ff 8192 gelu, vocab 256,206, fp32 parameters,
-     6.08 GiB; bf16 activations) on 1,024 seeded frame features of width
-     1,024 (times 0.02, as ``tests/test_archs.py:21``), the encoder timed
-     apart (its memory is computed once and given to every decode step;
-     ``prefill`` encodes again). 15b: internvl2-26b at full width and
-     depth (48 layers, d_model 6144, GQA 48/8, d_ff 16384, vocab 92,553,
-     37.03 GiB of bf16 weights) with 256 seeded patch features of width
+     weights, TF32 off. 15a: seamless-m4t-large-v2 at full width (d_model
+     1024, 16 heads, d_ff 8192 gelu, vocab 256,206, fp32 parameters, bf16
+     activations), depth cut from 24 + 24 to 8 encoder + 8 decoder layers
+     with cross-attention (894,943,232 parameters, 3.33 GiB), on 1,024
+     seeded frame features of width 1,024 (times 0.02, as
+     ``tests/test_archs.py:21``), the encoder timed apart (its memory is
+     computed once and given to every decode step; ``prefill`` encodes
+     again). 15b: internvl2-26b at full width (d_model 6144, GQA 48/8, d_ff
+     16384, vocab 92,553), depth cut from 48 to 16 layers (7,398,279,168
+     bf16 parameters, 13.78 GiB), with 256 seeded patch features of width
      3,200 before each 24-token prompt (the cache holds 256 more
-     positions). Each: serve_lm's defaults as 14a, held against ``forward``
-     the same way, 4 decode steps profiled. 15c: each cut to 2 layers
-     (seamless: 2 encoder layers too) in float32, card against CPU:
-     forward logits within LM_FP32_ATOL, 8 greedy tokens equal. Phases
-     14-15 print prefill, decode (and encoder) times, tokens/s and peak
-     memory beside their ``lm_work`` bounds (mLSTM: the state read and
-     written a step, the parallel and chunkwise forms' operations; sLSTM:
-     ``r`` read once per step of its loop; the encoder over its frames;
-     cross-attention: the memory read and projected to keys and values in
-     every layer at every call; the adapter), and the idle share.
+     positions). Full depth fit the card; the cuts pay for phase 16. Each:
+     serve_lm's defaults as 14a, held against ``forward`` the same way, 4
+     decode steps profiled. 15c: each cut to 2 layers (seamless: 2 encoder
+     layers too) in float32, card against CPU: forward logits within
+     LM_FP32_ATOL, 8 greedy tokens equal. Phases 14-15 print prefill,
+     decode (and encoder) times, tokens/s and peak memory beside their
+     ``lm_work`` bounds (mLSTM: the state read and written a step, the
+     parallel and chunkwise forms' operations; sLSTM: ``r`` read once per
+     step of its loop; the encoder over its frames; cross-attention: the
+     memory read and projected to keys and values in every layer at every
+     call; the adapter), and the idle share.
+ 16. LM training (``repro_torch.training``, ``repro_torch.launch.train``;
+     no kernel: the reference's gradients are ``jax.value_and_grad`` over
+     ``jnp`` code), TF32 off, after phase 15's models are freed. 16a:
+     olmo-1b at full width and depth (1,176,764,416 fp32 parameters, bf16
+     activations) from ``make_train_state(cfg, seed=0)``, 6 steps of
+     ``make_train_step(cfg, peak_lr=1e-3, warmup=2, total=6)`` on batches
+     0-5 of ``SyntheticTokens(50304, 4096, 4)`` (train_4k's length at batch
+     4; every block recomputed in the backward): every loss and grad_norm
+     finite, lr equal to ``lr_schedule`` at each step, batch 0's loss after
+     the steps below step 1's; steps 3-6 timed (each ends in a
+     synchronize), step 2 profiled; the step time and tokens/s beside the
+     ``train_work`` bound (the forward's operations 3 times: forward and
+     backward; AdamW's 28 bytes a parameter) and remat's recompute (the
+     blocks' forward once more) printed apart from it, peak memory
+     beside parameters, gradients and moments (18.83 GB). 16b:
+     ``tests/test_training.py``'s restart on the card through
+     ``launch.train.train`` (6 steps straight against 3, a checkpoint under
+     ``build/``, 3 resumed): losses and every parameter and moment within
+     1e-6, bit-equality printed. 16c: olmo-1b cut to 2 layers in float32
+     (237,240,320 parameters), drawn on the CPU and carried to the card,
+     one step on each (warm-up 0, so the step moves the parameters): loss
+     and grad_norm within 1e-5 relative, the moments within the CPU tests'
+     1e-5 of each leaf's largest value (v, a square, 2e-5), each leaf's
+     change within 2e-3 relative to the CPU's and every element within
+     2 lr. 16d: the 10 LM archs' smoke configs, drawn on the CPU and
+     carried, 5 steps on one batch on each: losses within 1e-5 relative
+     and falling, ``moe_dropped`` equal, DeepSeek's ``mtp_loss`` within
+     1e-5; then ``compressed_psum`` on an NCCL world of one, each mean
+     within one quantum of the gradient.
 
 A small-graph check holds the three programs against independent numpy
 oracles on all three backends. The kernel JSON line gives each kernel's
@@ -305,8 +340,10 @@ phase 6, ``launches_algos`` = phase 7, ``launches_auto`` = phase 8's
 uniform queries it compares them with; ``launches_serving`` = phase 9's
 serving calls; ``launches_shard`` = phase 10b's queries over every rank
 and phase 10c's sharded sessions) and its K = 16 rows (``k16``). The
-line before the last is the card's name and power limit from
-``nvidia-smi``; the last line is ``{"ok": true, "device": {...}}``.
+line before it gives each phase's seconds (``phase_seconds``; phase 10 is
+10a and 10b-c together). The line before the last is the card's name and
+power limit from ``nvidia-smi``; the last line is ``{"ok": true,
+"device": {...}}``.
 """
 from __future__ import annotations
 
@@ -3483,6 +3520,10 @@ LM_ARCH = "olmo_1b"
 LM_PARAMS = 1_176_764_416            # olmo-1b at full width, tied embeddings
 LM_BATCH, LM_PROMPT, LM_GEN = 4, 24, 32   # examples/serve_lm.py's defaults
 LM_LONG_PROMPT, LM_LONG_GEN = 32768, 16   # prefill_32k's length, batch 1
+# 11b's depth: the 32k request's first 4 layers of 16 (371,458,048
+# parameters; every 11b check is per layer or against this model's own
+# forward, so the cut keeps them all and frees phase 16's time)
+LM_LONG_LAYERS = 4
 LM_CPU_LAYERS = 2                    # 11c: full width, depth cut to 2
 # bf16 logits (|logit| < ~6), cached decode against forward: an H100 at 700 W
 # shows at most 0.078 (11a) and 0.105 (11b), a few bf16 ulps of the logit
@@ -4006,7 +4047,8 @@ def lm_cpu_part(sm: Smoke, M, S, cfg) -> dict:
 
 def lm_path(sm: Smoke, ident: str) -> dict:
     """Phase 11: olmo-1b at full width and depth with the port's seeded
-    weights (fp32 parameters, bf16 activations)."""
+    weights (fp32 parameters, bf16 activations); 11b on its first
+    LM_LONG_LAYERS layers."""
     import torch
     from repro_torch.models import model as M
     from repro_torch.training import steps as S
@@ -4025,7 +4067,11 @@ def lm_path(sm: Smoke, ident: str) -> dict:
              f"({param_bytes} bytes, {cfg.param_dtype}), drawn in "
              f"{init_s:.2f}s")
     serve = lm_serve_part(sm, M, S, model, cfg, ident)
-    long = lm_long_part(sm, M, model, cfg, ident)
+    del model.blocks[LM_LONG_LAYERS:]
+    gc.collect()
+    torch.cuda.empty_cache()
+    long = lm_long_part(sm, M, model, dataclasses.replace(
+        cfg, n_layers=LM_LONG_LAYERS), ident)
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -4040,7 +4086,10 @@ def lm_path(sm: Smoke, ident: str) -> dict:
 # phase 12: the MoE family on the LM serving path
 # --------------------------------------------------------------------------- #
 # (label, arch, the depth cut); full width, seeded bf16 weights
-MOE_CELLS = (("12a", "phi35_moe_42b", 28), ("12b", "deepseek_v3_671b", 5))
+# depths: phi3.5-MoE 8 of 32 layers (10,665,205,888 parameters, 19.87 GiB;
+# 28 fit the card, 8 free phase 16's time and keep every check), DeepSeek-V3
+# 5 of 61 (3 dense, 2 MoE) plus MTP
+MOE_CELLS = (("12a", "phi35_moe_42b", 8), ("12b", "deepseek_v3_671b", 5))
 MOE_CPU_LAYERS = 2                   # 12c: full width, depth cut to 2
 MOE_CPU_EXPERTS = 16                 # 12c DeepSeek: routed experts 256 -> 16
 MOE_PROFILE_STEPS = 4                # decode steps under torch.profiler
@@ -4368,7 +4417,7 @@ def moe_cpu_part(sm: Smoke, M, S, label: str, cfg):
 
 
 def moe_path(sm: Smoke, ident: str) -> dict:
-    """Phase 12: phi3.5-MoE (28 layers) and DeepSeek-V3 (5 layers and its
+    """Phase 12: phi3.5-MoE (8 layers) and DeepSeek-V3 (5 layers and its
     MTP module) at full width with seeded bf16 weights, each freed before
     the next; then the 2-layer float32 cuts, card against CPU."""
     import torch
@@ -4406,10 +4455,12 @@ def moe_path(sm: Smoke, ident: str) -> dict:
 # phase 13: Mamba and the Jamba hybrid on the LM serving path
 # --------------------------------------------------------------------------- #
 JAMBA_ARCH = "jamba_v01_52b"
-JAMBA_LAYERS = 24                    # three whole 8-layer Jamba blocks of 32
-JAMBA_PARAMS = 38_811_955_392        # the reference's eval_shape at 24 layers
+JAMBA_LAYERS = 8                     # one whole 8-layer Jamba block of 4:
+                                     # 7 Mamba, 1 attention, 4 MoE; 24
+                                     # fit, 8 free phase 16's time
+JAMBA_PARAMS = 13_295_235_136        # the reference's eval_shape at 8 layers
 JAMBA_LONG_PROMPT, JAMBA_LONG_GEN = 4096, 16   # 8 scan chunks of 512
-JAMBA_LONG_HELD_LAYERS = 16          # 13b's dropless replay: two blocks
+JAMBA_LONG_HELD_LAYERS = 8           # 13b's dropless replay: the block
 JAMBA_DROPLESS = 8.0                 # capacity factor >= n_experts / top_k
 JAMBA_SCAN_LEN = 2048                # 13b: chunked vs single-shot scan
 JAMBA_SCAN_ATOL = 1e-5
@@ -4674,9 +4725,10 @@ def jamba_long_part(sm: Smoke, M, model, cfg, ident) -> dict:
     """13b: one 4,096-token request at batch 1 and 16 greedy steps through
     ``prefill`` / ``decode_step`` (timed, the MoE layers tapped), the
     prefill against ``forward`` on the same prompt, one Mamba layer's
-    prefill profiled; then the model cut to its first 16 layers and the
-    request replayed dropless, held against ``forward`` over the same
-    4,111 tokens. Leaves ``model`` at 16 layers."""
+    prefill profiled; then the model cut to its first
+    JAMBA_LONG_HELD_LAYERS layers and the request replayed dropless, held
+    against ``forward`` over the same 4,111 tokens. Leaves ``model`` at
+    that depth."""
     import torch
     P, G = JAMBA_LONG_PROMPT, JAMBA_LONG_GEN
     gen = torch.Generator(device=DEVICE).manual_seed(2)
@@ -4746,7 +4798,7 @@ def jamba_long_part(sm: Smoke, M, model, cfg, ident) -> dict:
             f"{d_bound:.4f} ms), {rec['decode_tokens_per_s']:.1f} tok/s; "
             f"peak {peak} bytes ({peak / 2**30:.2f} GiB)")
 
-    # held: the first two blocks, dropless
+    # held: the first JAMBA_LONG_HELD_LAYERS layers, dropless
     H = JAMBA_LONG_HELD_LAYERS
     del model.blocks[H:]
     hcfg = dataclasses.replace(cfg, n_layers=H,
@@ -4817,7 +4869,7 @@ def jamba_cpu_part(sm: Smoke, M, S) -> dict:
 
 
 def jamba_path(sm: Smoke, ident: str) -> dict:
-    """Phase 13: jamba-v0.1-52b at full width cut to 24 layers with
+    """Phase 13: jamba-v0.1-52b at full width cut to 8 layers with
     seeded bf16 weights (13a, 13b), freed; the scan at full width; then
     the 5-layer float32 cut, card against CPU (13c)."""
     import torch
@@ -4877,8 +4929,12 @@ XLSTM_CHUNK_LEN = 2048               # 14b: chunkwise vs parallel mLSTM
 XLSTM_CHUNK_ATOL = 5e-4              # tests/test_longcontext_paths.py:64
 XLSTM_SLSTM_PROFILED = 256           # 14b: sLSTM steps under the profiler
 XLSTM_CPU_LAYERS = 8                 # 14c: 7 mLSTM + 1 sLSTM
-ENCDEC_CELLS = (("15a", "seamless_m4t_large_v2", 1_633_304_576),
-                ("15b", "internvl2_26b", 19_880_921_088))
+# (label, arch, layers, the reference's eval_shape parameters at them):
+# seamless 8 encoder + 8 decoder layers of 24 + 24 (894,943,232 float32
+# parameters), internvl2 16 layers of 48 (7,398,279,168 bf16); full depth
+# fit the card, the cuts free phase 16's time and keep every check
+ENCDEC_CELLS = (("15a", "seamless_m4t_large_v2", 8, 894_943_232),
+                ("15b", "internvl2_26b", 16, 7_398_279_168))
 ENCDEC_CPU_LAYERS = 2                # 15c: decoder (and encoder) layers
 LM_FLOOR_FACTOR = JAMBA_FLOOR_FACTOR  # cached vs forward: rounding floors
 FRONTEND_SCALE = 0.02                # frontend features, as test_archs.py
@@ -5345,10 +5401,21 @@ def xlstm_path(sm: Smoke, ident: str) -> dict:
     return rec
 
 
+def encdec_config(cfg, layers: int):
+    """``cfg`` cut to its first ``layers`` decoder layers (its pattern
+    too), and an encoder-decoder to as many encoder layers."""
+    cut = dict(n_layers=layers)
+    if cfg.pattern is not None:
+        cut["pattern"] = cfg.pattern[:layers]
+    if cfg.n_enc_layers:
+        cut["n_enc_layers"] = layers
+    return dataclasses.replace(cfg, **cut)
+
+
 def encdec_path(sm: Smoke, ident: str) -> dict:
-    """Phase 15: seamless-m4t-large-v2 (15a: 24 encoder + 24 decoder
-    layers, 1,024 frame features) and internvl2-26b (15b: 48 layers, 256
-    patch features before the prompt) at full width and depth with seeded
+    """Phase 15: seamless-m4t-large-v2 (15a: 8 encoder + 8 decoder layers
+    of 24 + 24, 1,024 frame features) and internvl2-26b (15b: 16 layers of
+    48, 256 patch features before the prompt) at full width with seeded
     weights, each freed before the next; then 15c, each cut to 2 layers
     (seamless: 2 encoder layers too) in float32, card against CPU."""
     import torch
@@ -5359,9 +5426,9 @@ def encdec_path(sm: Smoke, ident: str) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     rec = {}
-    for label, arch, want in ENCDEC_CELLS:
+    for label, arch, layers, want in ENCDEC_CELLS:
         t = time.perf_counter()
-        cfg = get_config(arch)
+        cfg = encdec_config(get_config(arch), layers)
         model, init_s = lm_build(sm, M, label, cfg, want)
         rec[label] = lm_cell(sm, M, S, label, cfg, model, ident)
         rec[label].update(arch=cfg.name, init_s=init_s)
@@ -5371,16 +5438,11 @@ def encdec_path(sm: Smoke, ident: str) -> dict:
         sm.note(f"{label}: {time.perf_counter() - t:.1f}s")
     t = time.perf_counter()
     rec["15c"] = []
-    for _, arch, _ in ENCDEC_CELLS:
-        full = get_config(arch)
-        cut = dict(n_layers=ENCDEC_CPU_LAYERS, param_dtype="float32",
-                   activation_dtype="float32")
-        if full.pattern is not None:
-            cut["pattern"] = full.pattern[:ENCDEC_CPU_LAYERS]
-        if full.n_enc_layers:
-            cut["n_enc_layers"] = ENCDEC_CPU_LAYERS
-        rec["15c"].append(lm_cpu_compare(
-            sm, M, S, f"15c {full.name}", dataclasses.replace(full, **cut)))
+    for _, arch, _, _ in ENCDEC_CELLS:
+        cut = dataclasses.replace(
+            encdec_config(get_config(arch), ENCDEC_CPU_LAYERS),
+            param_dtype="float32", activation_dtype="float32")
+        rec["15c"].append(lm_cpu_compare(sm, M, S, f"15c {cut.name}", cut))
         gc.collect()
         torch.cuda.empty_cache()
     sm.note(f"15c: {time.perf_counter() - t:.1f}s; phase 15: "
@@ -5388,6 +5450,358 @@ def encdec_path(sm: Smoke, ident: str) -> dict:
     rec["seconds"] = time.perf_counter() - t0
     return rec
 
+
+# --------------------------------------------------------------------------- #
+# phase 16: LM training
+# --------------------------------------------------------------------------- #
+TRAIN_BATCH, TRAIN_SEQ = 4, 4096     # train_4k's length at batch 4
+TRAIN_STEPS = 6                      # steps 1-2 warm up, 3-6 are timed
+TRAIN_WARM = 2
+TRAIN_PROFILED = 1                   # step 2 (index 1) runs under the profiler
+TRAIN_SCHEDULE = dict(peak_lr=1e-3, warmup=2, total=6)
+TRAIN_RESTART = dict(steps=6, batch=2, seq=32)   # tests/test_training.py:71
+TRAIN_RESTART_ATOL = 1e-6            # the reference's bar for the restart
+TRAIN_CPU_LAYERS = 2                 # 16c: full width, depth cut to 2
+TRAIN_CPU_BATCH, TRAIN_CPU_SEQ = 2, 128
+# 16c: warm-up 0, so the one step moves the parameters (lr(0) = peak)
+TRAIN_CPU_SCHEDULE = dict(peak_lr=1e-3, warmup=0, total=6)
+TRAIN_RTOL = 1e-5                    # loss, grad_norm, mtp_loss: card vs CPU
+TRAIN_GRAD_TOL = 1e-5                # a moment leaf: of its largest |value|
+TRAIN_PARAM_RTOL = 2e-3              # a leaf's change, card vs CPU, relative
+TRAIN_ARCH_STEPS = 5                 # 16d: steps on one batch per arch
+TRAIN_ARCH_SCHEDULE = dict(peak_lr=1e-3, warmup=2, total=50)
+ADAMW_BYTES = 28                     # p, m, v read and written; g read (fp32)
+
+
+def train_work(cfg, model, batch: int, seq: int) -> tuple:
+    """(bytes, ops, recompute ops) of a train step of ``batch`` x ``seq``
+    tokens. Bytes and ops are the least the step must move and compute:
+    the forward's operations (``lm_work`` over the whole sequence, the
+    head's product at every position) counted 3 times (the forward, and 2
+    for the backward: the products with the activations' and the weights'
+    gradients); bytes: the forward's, and AdamW's 28 per float32 parameter
+    (p, m and v read and written, the gradient read). The recompute ops
+    are the blocks' forward once more, which remat adds to save memory:
+    work of this implementation, not of the step, so not in the bound."""
+    fb, fo = lm_work(cfg, model, batch, seq, 0)
+    head = 2 * batch * cfg.d_model * cfg.vocab
+    blocks = fo - head
+    n = sum(p.numel() for p in model.parameters())
+    return fb + ADAMW_BYTES * n, 3 * (blocks + head * seq), blocks
+
+
+def train_batch(b: dict, dev, cfg=None) -> dict:
+    """A ``SyntheticTokens`` batch on ``dev``; with a frontend ``cfg``, its
+    zero features (as ``launch.train`` gives them)."""
+    import torch
+    out = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+    if cfg is not None and cfg.frontend:
+        B = out["tokens"].shape[0]
+        out["frontend"] = torch.zeros((B, cfg.frontend_len,
+                                       cfg.frontend_dim), device=dev)
+    return out
+
+
+def train_carry(S, state, cfg, dev):
+    """A CPU ``TrainState`` carried to ``dev``: the same weights, zero
+    moments (a fresh state, as the CPU's is)."""
+    from repro_torch.models import model as M
+    from repro_torch.training.optimizer import adamw_init
+    model = M.Model(cfg, device=dev)
+    model.load_state_dict(state.params.state_dict())
+    return S.TrainState(params=model, opt=adamw_init(model))
+
+
+def train_full_part(sm: Smoke, ident: str) -> dict:
+    """16a: olmo-1b at full width and depth, 6 train steps at 4 x 4,096
+    tokens (steps 3-6 timed, step 2 profiled), its loss on batch 0 after
+    training, peak memory beside the state's bytes."""
+    import math
+    import torch
+    from repro_torch.training import steps as S
+    from repro_torch.training.data import SyntheticTokens
+    from repro_torch.training.optimizer import lr_schedule
+    cfg = lm_config()
+    t0 = time.perf_counter()
+    state = S.make_train_state(cfg, seed=0, device=DEVICE)
+    lm_sync()
+    init_s = time.perf_counter() - t0
+    model = state.params
+    n = sum(p.numel() for p in model.parameters())
+    sm.check(cfg.name != "olmo-1b" or n == LM_PARAMS,
+             f"16a: {cfg.name}, {cfg.n_layers} layers, {n} parameters "
+             f"({cfg.param_dtype}, {cfg.activation_dtype} activations) and "
+             f"zero float32 moments drawn in {init_s:.2f}s")
+    step = S.make_train_step(cfg, **TRAIN_SCHEDULE)
+    ds = SyntheticTokens(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    batches = [train_batch(ds.batch(i), DEVICE) for i in range(TRAIN_STEPS)]
+    torch.cuda.reset_peak_memory_stats()
+    rows, prof = [], None
+    for i, b in enumerate(batches):
+        out = []
+        lm_sync()
+        t = time.perf_counter()
+        if i == TRAIN_PROFILED:
+            prof = lm_profile(lambda: out.append(step(state, b)))
+        else:
+            out.append(step(state, b))
+        lm_sync()
+        dt = time.perf_counter() - t
+        state, m = out[0]
+        rows.append(dict(step=i + 1, s=dt, loss=float(m["loss"]),
+                         grad_norm=float(m["grad_norm"]), lr=float(m["lr"]),
+                         want_lr=float(lr_schedule(
+                             torch.tensor(i, dtype=torch.int32),
+                             **TRAIN_SCHEDULE))))
+        sm.note(f"16a step {i + 1}: {dt:.3f}s, loss {rows[-1]['loss']:.5f},"
+                f" grad_norm {rows[-1]['grad_norm']:.4f}, lr "
+                f"{rows[-1]['lr']:.4g}"
+                + (" (profiled)" if i == TRAIN_PROFILED else ""))
+    peak = torch.cuda.max_memory_allocated()
+    with torch.no_grad():
+        after, _ = S.loss_fn(model, batches[0], cfg)
+    after = float(after)
+    sm.check(all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+                 for r in rows),
+             f"16a: every loss and grad_norm finite")
+    sm.check(all(r["lr"] == r["want_lr"] for r in rows),
+             f"16a: lr equals lr_schedule at every step "
+             f"{[r['lr'] for r in rows]}")
+    sm.check(after < rows[0]["loss"],
+             f"16a: batch 0's loss after {TRAIN_STEPS} steps {after:.5f} < "
+             f"its loss at step 1 {rows[0]['loss']:.5f}")
+    state_bytes = 4 * 4 * n
+    timed = [r["s"] for r in rows[TRAIN_WARM:]]
+    step_s = sum(timed) / len(timed)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    nb, no, nr = train_work(cfg, model, TRAIN_BATCH, TRAIN_SEQ)
+    bound_ms, by = lm_bound_ms(nb, no, BF16_OPS_PER_S)
+    recompute_ms = nr / BF16_OPS_PER_S * 1e3
+    sm.note(f"16a ({ident}): step {step_s * 1e3:.1f} ms (mean of steps "
+            f"{TRAIN_WARM + 1}-{TRAIN_STEPS}: "
+            + ", ".join(f"{x * 1e3:.1f}" for x in timed)
+            + f"), {tokens / step_s:.0f} tokens/s; bound {bound_ms:.2f} ms "
+            f"({by}: {no / 1e12:.2f} TFLOP at 989 TFLOP/s bf16, {nb / 1e9:.2f}"
+            f" GB at 3.35 TB/s), {tokens / (bound_ms / 1e3):.0f} tokens/s; "
+            f"remat's recompute, not in the bound: {nr / 1e12:.2f} TFLOP, "
+            f"{recompute_ms:.2f} ms at 989 TFLOP/s; "
+            f"peak {peak} bytes ({peak / 2**30:.2f} GiB) beside parameters, "
+            f"gradients and moments {state_bytes} bytes "
+            f"({state_bytes / 1e9:.2f} GB)")
+    lm_note_profile(sm, "16a profile (train step 2)", prof)
+    del state, model, batches, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(arch=cfg.name, layers=cfg.n_layers, params=n,
+                batch=TRAIN_BATCH, seq=TRAIN_SEQ, init_s=init_s, steps=rows,
+                step_ms=step_s * 1e3, tokens_per_s=tokens / step_s,
+                bound_ms=bound_ms, bound_by=by, bound_ops=no,
+                bound_bytes=nb, recompute_ops=nr, recompute_ms=recompute_ms,
+                peak_bytes=peak, state_bytes=state_bytes,
+                loss_after=after, profile=prof)
+
+
+def train_restart_part(sm: Smoke) -> dict:
+    """16b: ``tests/test_training.py``'s restart on the card through
+    ``launch.train.train``: 6 steps straight against 3 steps, a checkpoint
+    under ``build/``, and 3 resumed."""
+    import shutil
+    import torch
+    from repro_torch.launch.train import train
+    from repro_torch.training.checkpoint import _leaves
+    root = ROOT / "build" / "train_restart"
+    shutil.rmtree(root, ignore_errors=True)
+    kw = dict(TRAIN_RESTART, log_every=100, device=DEVICE)
+    full, h_full = train("olmo_1b", **kw, ckpt_dir=str(root / "a"),
+                         ckpt_every=100)
+    train("olmo_1b", **dict(kw, steps=3), ckpt_dir=str(root / "b"),
+          ckpt_every=3)
+    res, h_res = train("olmo_1b", **kw, ckpt_dir=str(root / "b"),
+                       ckpt_every=100, resume=True)
+    pairs = list(zip(_leaves(full), _leaves(res)))
+    err = max(float((a.float() - b.float()).abs().max())
+              for (_, a), (_, b) in pairs)
+    bits = h_full[3:] == h_res and all(torch.equal(a, b)
+                                       for (_, a), (_, b) in pairs)
+    loss_err = abs(h_full[-1] - h_res[-1])
+    sm.check(len(h_res) == 3 and loss_err <= TRAIN_RESTART_ATOL
+             and err <= TRAIN_RESTART_ATOL,
+             f"16b: 6 steps straight vs 3 + checkpoint + 3 resumed on the "
+             f"card: final loss {h_full[-1]:.7f} vs {h_res[-1]:.7f}, every "
+             f"parameter and moment within {err:.3g} <= "
+             f"{TRAIN_RESTART_ATOL}; bits equal: {bits}")
+    shutil.rmtree(root, ignore_errors=True)
+    return dict(losses=h_full, resumed=h_res, max_abs_err=err,
+                bit_equal=bits)
+
+
+def train_cpu_part(sm: Smoke) -> dict:
+    """16c: olmo-1b cut to 2 layers with float32 activations, its state
+    drawn on the CPU and carried to the card; one train step on each, on
+    batch 0 of ``SyntheticTokens(50304, 128, 2)``."""
+    import torch
+    from repro_torch.training import steps as S
+    from repro_torch.training.data import SyntheticTokens
+    cfg = dataclasses.replace(lm_config(), n_layers=TRAIN_CPU_LAYERS,
+                              activation_dtype="float32")
+    cpu = S.make_train_state(cfg, seed=0, device="cpu")
+    card = train_carry(S, cpu, cfg, DEVICE)
+    p0 = {name: p.detach().clone()
+          for name, p in cpu.params.named_parameters()}
+    n = sum(p.numel() for p in cpu.params.parameters())
+    b = SyntheticTokens(cfg.vocab, TRAIN_CPU_SEQ, TRAIN_CPU_BATCH).batch(0)
+    step = S.make_train_step(cfg, **TRAIN_CPU_SCHEDULE)
+    card, mc = step(card, train_batch(b, DEVICE))
+    cpu, mh = step(cpu, train_batch(b, "cpu"))
+    rel = {k: abs(float(mc[k]) - float(mh[k])) / abs(float(mh[k]))
+           for k in ("loss", "grad_norm")}
+    sm.check(all(v <= TRAIN_RTOL for v in rel.values()),
+             f"16c: {cfg.n_layers}-layer full-width float32 train step "
+             f"({n} parameters), card vs CPU: loss {float(mc['loss']):.6f} "
+             f"vs {float(mh['loss']):.6f}, relative errors {rel} <= "
+             f"{TRAIN_RTOL}")
+    # the CPU tests' bars: a moment leaf within TRAIN_GRAD_TOL of its
+    # largest value (v, a square, twice that); each leaf's change within
+    # TRAIN_PARAM_RTOL of the CPU's (norm of the difference over the norm),
+    # and every element within 2 lr R_1 = 2 lr (an element whose gradient
+    # sits at rounding noise can step either way)
+    lr = float(mh["lr"])
+    worst = {"m": 0.0, "v": 0.0, "params": 0.0, "change_rel": 0.0}
+    ok = True
+    for name, p in cpu.params.named_parameters():
+        q = card.params.get_parameter(name).detach().cpu()
+        d = float((q - p.detach()).abs().max())
+        worst["params"] = max(worst["params"], d)
+        ok &= d <= 2 * lr
+        want = p.detach() - p0[name]
+        got = q - p0[name]
+        r = float((got - want).norm() / want.norm()) if want.any() \
+            else float(got.abs().max())
+        worst["change_rel"] = max(worst["change_rel"], r)
+        ok &= r <= TRAIN_PARAM_RTOL
+        for which, tol in (("m", TRAIN_GRAD_TOL), ("v", 2 * TRAIN_GRAD_TOL)):
+            a = getattr(card.opt, which)[name].cpu()
+            w = getattr(cpu.opt, which)[name]
+            scale = float(w.abs().max())
+            d = float((a - w).abs().max()) / max(scale, 1e-30)
+            worst[which] = max(worst[which], d)
+            ok &= d <= tol
+    sm.check(ok, f"16c: after the step, card vs CPU: moments m within "
+             f"{worst['m']:.3g} (<= {TRAIN_GRAD_TOL}) and v within "
+             f"{worst['v']:.3g} (<= {2 * TRAIN_GRAD_TOL}) of each leaf's "
+             f"largest value, each leaf's change within "
+             f"{worst['change_rel']:.3g} (<= {TRAIN_PARAM_RTOL}) relative "
+             f"to the CPU's, parameters within {worst['params']:.3g} "
+             f"(<= 2 lr = {2 * lr:.3g})")
+    del card, cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(params=n, rel=rel, worst=worst)
+
+
+def train_archs_part(sm: Smoke) -> dict:
+    """16d: every LM arch's smoke config (``tests/test_archs.py``'s
+    ``LM_ARCHS``), weights drawn on the CPU and carried to the card, 5 train
+    steps on one batch on each; then ``compressed_psum`` on an NCCL world of
+    one."""
+    import torch
+    from repro_torch.configs import ARCHS, get_smoke_config
+    from repro_torch.training import steps as S
+    out = {}
+    for arch in [a for a in ARCHS if a != "drone_graph"]:
+        cfg = get_smoke_config(arch)
+        cpu = S.make_train_state(cfg, seed=1, device="cpu")
+        card = train_carry(S, cpu, cfg, DEVICE)
+        gen = torch.Generator().manual_seed(1)
+        toks = torch.randint(0, cfg.vocab, (4, 32), generator=gen)
+        b = {"tokens": toks, "labels": torch.roll(toks, -1, 1)}
+        if cfg.frontend:
+            b["frontend"] = FRONTEND_SCALE * torch.randn(
+                (4, cfg.frontend_len, cfg.frontend_dim), generator=gen)
+        bc = {k: v.to(DEVICE) for k, v in b.items()}
+        step = S.make_train_step(cfg, **TRAIN_ARCH_SCHEDULE)
+        rows = []
+        for _ in range(TRAIN_ARCH_STEPS):
+            card, mc = step(card, bc)
+            cpu, mh = step(cpu, b)
+            rows.append({k: (float(mc[k]), float(mh[k])) for k in mc})
+        loss_rel = max(abs(a - b_) / abs(b_) for a, b_ in
+                       (r["loss"] for r in rows))
+        mtp_rel = max((abs(a - b_) / abs(b_) for a, b_ in
+                       (r["mtp_loss"] for r in rows if "mtp_loss" in r)),
+                      default=0.0)
+        dropped = all(r["moe_dropped"][0] == r["moe_dropped"][1]
+                      for r in rows)
+        falls = rows[-1]["loss"][0] < rows[0]["loss"][0]
+        sm.check(loss_rel <= TRAIN_RTOL and mtp_rel <= TRAIN_RTOL and dropped
+                 and falls,
+                 f"16d {arch}: {TRAIN_ARCH_STEPS} steps, card vs CPU: loss "
+                 f"{rows[0]['loss'][0]:.5f} -> {rows[-1]['loss'][0]:.5f} "
+                 f"(falls: {falls}), relative error {loss_rel:.3g}"
+                 + (f", mtp_loss {mtp_rel:.3g}" if "mtp_loss" in rows[0]
+                    else "")
+                 + f" <= {TRAIN_RTOL}; moe_dropped equal: {dropped}")
+        out[arch] = dict(rows=rows, loss_rel=loss_rel, mtp_rel=mtp_rel)
+        del card, cpu
+    out["compressed_psum"] = train_psum_check(sm)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_psum_check(sm: Smoke) -> dict:
+    """``compressed_psum`` on an NCCL world of one (phase 10c's store): the
+    mean of one rank is its own gradient within one quantum (the shared
+    scale: the noise and the rounding each move it by at most half)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.training.optimizer import compressed_psum
+    store = ROOT / "build" / "shard" / "train_store"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    if store.exists():
+        store.unlink()
+    dist.init_process_group("nccl" if DEVICE == "cuda" else "gloo",
+                            init_method=f"file://{store}", rank=0,
+                            world_size=1)
+    try:
+        gen = torch.Generator(device=DEVICE).manual_seed(0)
+        g = {"w": torch.randn((1024, 256), generator=gen, device=DEVICE)
+             * 0.01, "b": torch.randn((256,), generator=gen, device=DEVICE)}
+        mean, err = compressed_psum(g, None, gen)
+        rows = {}
+        for k, x in g.items():
+            quantum = float(x.abs().max()) / 127.0 + 1e-12
+            rows[k] = dict(err=float((mean[k] - x).abs().max()),
+                           quantum=quantum,
+                           feedback=float((err[k] - (x - mean[k])).abs()
+                                          .max()))
+    finally:
+        dist.destroy_process_group()
+    sm.check(all(r["err"] <= r["quantum"] and r["feedback"] <= 1e-6
+                 for r in rows.values()),
+             f"16d: compressed_psum on an NCCL world of one: each mean within"
+             f" one quantum of the gradient, the fed-back error the "
+             f"difference: {rows}")
+    return rows
+
+
+def train_path(sm: Smoke, ident: str) -> dict:
+    """Phase 16: LM training on the card (TF32 off): 16a olmo-1b at full
+    width and depth, 16b the restart, 16c card vs CPU at full width, 16d
+    every LM arch's smoke config and compressed_psum."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    rec = {"16a": train_full_part(sm, ident)}
+    for label, part in (("16b", train_restart_part), ("16c", train_cpu_part),
+                        ("16d", train_archs_part)):
+        t = time.perf_counter()
+        rec[label] = part(sm)
+        sm.note(f"{label}: {time.perf_counter() - t:.1f}s")
+    sm.note(f"phase 16: {time.perf_counter() - t0:.1f}s")
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
 
 def main() -> int:
     try:
@@ -5409,6 +5823,8 @@ def main() -> int:
     from repro_torch.kernels import segment_combine as sk
 
     sm = Smoke()
+    phase_s = {}                  # seconds per phase, 1-16
+    t_phase = time.perf_counter()
     ident = gpu_identity()
     sm.note(f"gpu: {ident}; torch {torch.__version__} cuda "
             f"{torch.version.cuda}; {torch.cuda.get_device_name(0)}")
@@ -5421,21 +5837,28 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 sm.note(f"ptxas {name}: {line.strip()}")
 
+    phase_s["1"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
     errs = {"bsp_spmv": 0.0, "segment_combine": 0.0}
     kernel_case_grid(sm, errs)
     small_graph_check(sm)
+    phase_s["2"] = time.perf_counter() - t_phase
 
     log: list = []
     bk.bsp_spmv.launches = 0
     sk.segment_combine_windowed.launches = 0
     peak = {}
     torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
     win = windows_path(sm, log)
     peak["windows path"] = torch.cuda.max_memory_allocated()
     w_launch = (bk.bsp_spmv.launches, sk.segment_combine_windowed.launches)
+    phase_s["3"] = time.perf_counter() - t_phase
     torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
     tile = tiles_path(sm, log)
     peak["tiles path"] = torch.cuda.max_memory_allocated()
+    phase_s["4"] = time.perf_counter() - t_phase
     for path, nbytes in peak.items():
         sm.note(f"peak device memory, {path}: {nbytes} bytes "
                 f"({nbytes / 2**30:.2f} GiB; torch.cuda.max_memory_allocated)")
@@ -5450,11 +5873,14 @@ def main() -> int:
     syncs = sum(r["host_syncs"] for r in log)
     sm.note(f"host syncs over {len(log)} main-path queries: {syncs}")
 
+    t_phase = time.perf_counter()
     recs = main_path_kernels(sm, errs, win, tile)
+    phase_s["5"] = time.perf_counter() - t_phase
 
     bk.bsp_spmv.launches = 0
     sk.segment_combine_windowed.launches = 0
     torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
     stream = streaming_path(sm, log, win, tile, ident)
     peak["streaming"] = torch.cuda.max_memory_allocated()
     stream_launches = {"bsp_spmv": bk.bsp_spmv.launches,
@@ -5464,12 +5890,16 @@ def main() -> int:
     sm.check(all(v > 0 for v in stream_launches.values()),
              "the streaming phase launched both kernels")
     stream_kernel_checks(sm, errs, win, tile, stream)
+    phase_s["6"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
     algos = algos_path(sm, log, errs, win, tile)
     peak.update({f"algorithms, {k}": v for k, v in algos["peak"].items()})
+    phase_s["7"] = time.perf_counter() - t_phase
     t = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     shard_lists = shard_lists_path(sm, errs, win, tile)
     peak["shard lists (10a)"] = torch.cuda.max_memory_allocated()
+    phase_s["10"] = time.perf_counter() - t
     sm.note(f"10a: {time.perf_counter() - t:.1f}s")
     # close the earlier sessions, so that phase 8's peak is its own
     g20 = win[2]
@@ -5477,10 +5907,14 @@ def main() -> int:
     stream = dict(steps=stream["steps"])
     gc.collect()
     torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
     auto = auto_path(sm, log, errs, g20, ident)
     peak["auto and rebalance"] = auto["peak"]
+    phase_s["8"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
     serve = serving_path(sm, log, errs, auto.pop("sess"), g20)
     peak["serving"] = serve["peak"]
+    phase_s["9"] = time.perf_counter() - t_phase
     gc.collect()
     torch.cuda.empty_cache()
     t = time.perf_counter()
@@ -5496,6 +5930,7 @@ def main() -> int:
              f"phase 10's sharded runs launched both kernels "
              f"{shard_launches}")
     sm.note(f"phase 10b-c: {time.perf_counter() - t:.1f}s")
+    phase_s["10"] += time.perf_counter() - t
     gc.collect()
     torch.cuda.empty_cache()
     lm = lm_path(sm, ident)
@@ -5519,9 +5954,19 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     encdec = encdec_path(sm, ident)
-    for label, _, _ in ENCDEC_CELLS:
+    for label, _, _, _ in ENCDEC_CELLS:
         peak[f"{encdec[label]['arch']} serve ({label})"] = \
             encdec[label]["peak_bytes"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = train_path(sm, ident)
+    peak["train step (16a)"] = train["16a"]["peak_bytes"]
+    for k, rec in (("11", lm), ("12", moe), ("13", jamba), ("14", xlstm),
+                   ("15", encdec), ("16", train)):
+        phase_s[k] = rec["seconds"]
+    phase_s = {k: round(phase_s[k], 1) for k in sorted(phase_s, key=int)}
+    lm_s = sum(phase_s[k] for k in ("11", "12", "13", "14", "15", "16"))
+    sm.note(f"phases 11-16: {lm_s:.1f}s")
     kernels = []
     for r in recs:
         t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
@@ -5561,7 +6006,7 @@ def main() -> int:
                                    ranks_s=ranks["seconds"],
                                    launches=shard_launches),
                         lm=lm, moe=moe, jamba=jamba, xlstm=xlstm,
-                        encdec=encdec,
+                        encdec=encdec, train=train, phase_seconds=phase_s,
                         peak_memory_bytes=peak,
                         algo_row_launches=algos["row_launches"],
                         kernel_shapes={r["name"]: r["shape"] for r in recs},
@@ -5574,6 +6019,7 @@ def main() -> int:
         for f in sm.failures:
             print(f"  {f}", file=sys.stderr)
         return 1
+    print(json.dumps({"phase_seconds": phase_s}))
     print(json.dumps({"kernels": kernels}))
     print(ident)
     print(json.dumps({"ok": True, "device": {

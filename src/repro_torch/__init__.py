@@ -10,10 +10,13 @@ sweep's semiring product on ``edge_backend`` ``"coo"`` (PyTorch scatter),
 The backend names are kept from the reference so configurations carry
 across unchanged.
 
-The LM stack's serving path is ported too: ``repro_torch.configs`` (the
-reference's architecture registry), ``repro_torch.models`` (dense and GQA
-attention blocks, ``prefill`` and ``decode_step`` with a KV cache) and
-``repro_torch.training.steps`` (the prefill and greedy serve steps).
+The LM stack is ported too: ``repro_torch.configs`` (the reference's
+architecture registry), ``repro_torch.models`` (every arch's blocks,
+``forward``, ``prefill`` and ``decode_step`` with its caches),
+``repro_torch.training`` (the train, prefill and greedy serve steps,
+AdamW, the synthetic token stream, checkpoints) and
+``repro_torch.launch.train`` (the training driver with checkpoint and
+restart).
 
 Every entry point takes ``device=None``, which means the first CUDA card;
 on a machine without one it raises unless the caller passes

@@ -54,9 +54,7 @@ all-gathered, and every rank returns the global ``[P, ...]`` results.
 from __future__ import annotations
 
 import dataclasses
-import json
 import os
-import tempfile
 import time
 from typing import Any, Callable, Optional
 
@@ -75,6 +73,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.bsp_spmv import TM, TN, bsp_spmv
 from repro_torch.kernels.ref import combine_identity, tile_pad_identity
 from repro_torch.kernels.segment_combine import W, segment_combine_windowed
+from repro_torch.npz_io import load_flat, save_flat
 
 __all__ = ["EngineConfig", "EdgeCombine", "run", "run_sim",
            "run_shard_map", "make_sim_runner", "make_bsp_runner",
@@ -1001,7 +1000,7 @@ def run_shard_map(program: VertexProgram, pg: PartitionedGraph, mesh,
 
 
 # --------------------------------------------------------------------------- #
-# BSP checkpoints (the JAX package's .npz layout, written with numpy alone)
+# BSP checkpoints (the JAX package's .npz layout, ``repro_torch.npz_io``)
 # --------------------------------------------------------------------------- #
 _SEP = "|"
 
@@ -1022,32 +1021,16 @@ def _flatten_carry(tree, path=()) -> dict:
 
 def save_checkpoint(path: str, carry: dict) -> str:
     """Atomically write a BSP carry ``dict(state, last_out, merged, step)``
-    as an ``.npz`` with a ``__manifest__`` member: the layout of the JAX
-    package's ``save_pytree``, so either engine resumes the other's
-    checkpoints."""
-    flat = _flatten_carry(carry)
-    d = os.path.dirname(os.path.abspath(path))
-    os.makedirs(d, exist_ok=True)
-    meta = {"keys": sorted(flat), "meta": {}}
-    fd, tmp = tempfile.mkstemp(dir=d, suffix=".tmp")
-    try:
-        with os.fdopen(fd, "wb") as f:
-            np.savez(f, __manifest__=np.frombuffer(
-                json.dumps(meta).encode(), dtype=np.uint8), **flat)
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return path
+    in the format of the JAX package's ``save_pytree``, with its key
+    spelling, so either engine resumes the other's checkpoints."""
+    return save_flat(path, _flatten_carry(carry))
 
 
 def load_checkpoint(path: str, like: dict, device) -> dict:
     """Read a BSP checkpoint into the structure of ``like`` (a carry of
     tensors), each leaf cast to the dtype of its ``like`` leaf and moved to
     ``device``; ``step`` comes back as an int."""
-    with np.load(path) as z:
-        meta = json.loads(bytes(z["__manifest__"]).decode())
-        flat = {k: z[k] for k in meta["keys"]}
+    flat, _ = load_flat(path)
     want = _flatten_carry(like)
     if sorted(want) != sorted(flat):
         raise ValueError(f"checkpoint {path} holds {sorted(flat)}, the "

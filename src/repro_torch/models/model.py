@@ -38,6 +38,15 @@ its ``idx`` advances as an attention layer's does, so ``decode_step``
 reads the position from layer 0 whatever its mixer. There is one card,
 so the reference's sharding hints have no counterpart, and
 ``fsdp_gather_weights`` / ``tp_bf16_payload`` change no number.
+
+Remat: while autograd records (``torch.is_grad_enabled()``), ``forward``
+and ``_encode`` run each block under ``torch.utils.checkpoint``
+(``use_reentrant=False``), so the backward keeps only the blocks' inputs
+and recomputes each block's activations, as the reference's scanned
+layer bodies are ``jax.checkpoint``-ed; the MTP block runs plainly, as in
+the reference. With grad off (``prefill``, ``decode_step``, ``forward``
+under ``torch.no_grad()``) nothing changes. A forward hook on a block or
+on a module inside one fires again in the recompute.
 """
 from __future__ import annotations
 
@@ -45,6 +54,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.config import BlockSpec, ModelConfig
@@ -222,7 +232,7 @@ def _encode(model: Model, batch: dict, cfg: ModelConfig):
     h = _adapt_frontend(model, batch, cfg)
     pos = torch.arange(h.shape[1], device=h.device)
     for blk in model.encoder:
-        h, _, _ = blk(h, positions=pos, causal=False)
+        h, _, _ = _remat(blk)(h, positions=pos, causal=False)
     return model.enc_norm(h)
 
 
@@ -241,6 +251,15 @@ def _lm_logits(model: Model, h: torch.Tensor, cfg: ModelConfig):
     return h @ head.to(h.dtype)
 
 
+def _remat(blk: Block):
+    """``blk`` itself, or while autograd records, ``blk`` under
+    ``torch.utils.checkpoint``: its activations are recomputed in the
+    backward instead of kept (the reference's ``remat=True``)."""
+    if not torch.is_grad_enabled():
+        return blk
+    return lambda *a, **kw: checkpoint(blk, *a, use_reentrant=False, **kw)
+
+
 def _apply_blocks(model: Model, x, *, positions, caches=None, memory=None):
     """(x, new_caches, dropped): ``dropped`` sums the MoE layers' dropped
     shares in float32, layer by layer (the reference's ``_apply_stack``
@@ -248,9 +267,10 @@ def _apply_blocks(model: Model, x, *, positions, caches=None, memory=None):
     new_caches = []
     dropped = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, blk in enumerate(model.blocks):
-        x, nc, aux = blk(x, positions=positions, causal=True,
-                         cache=None if caches is None else caches[i],
-                         memory=memory)
+        call = blk if caches is not None else _remat(blk)
+        x, nc, aux = call(x, positions=positions, causal=True,
+                          cache=None if caches is None else caches[i],
+                          memory=memory)
         new_caches.append(nc)
         if aux is not None:
             dropped = dropped + aux["dropped"]

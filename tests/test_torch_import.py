@@ -203,17 +203,39 @@ def test_algos_export_the_reference_suite():
     assert out.returncode == 0, out.stderr + out.stdout
 
 
+def test_graph_engine_loads_no_lm_stack():
+    """The graph engine (``repro_torch.core``, whose BSP checkpoints share
+    ``repro_torch.npz_io``'s file format with the LM's) loads nothing of
+    the LM stack: no ``repro_torch.training``, ``models`` or ``launch``."""
+    code = ("import sys, repro_torch.core.engine, repro_torch.core\n"
+            "bad = [m for m in sys.modules if m.split('.')[:2] in "
+            "(['repro_torch', 'training'], ['repro_torch', 'models'], "
+            "['repro_torch', 'launch'])]\n"
+            "assert 'repro_torch.npz_io' in sys.modules\n"
+            "print(bad); assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr + out.stdout
+
+
 def test_lm_stack_loads_no_jax():
     """``repro_torch.models`` (``ssm`` too), ``repro_torch.configs`` (every
-    arch module) and ``repro_torch.training`` load no ``jax`` and no module
-    of the JAX package, nor does a prefill and a decode step on the CPU of a
-    dense, the two MoE, the Jamba, the xLSTM and the encoder-decoder smoke
-    configs (seamless with its frame features and its encoded memory)."""
-    code = ("import sys, torch\n"
+    arch module), ``repro_torch.training`` (every module) and
+    ``repro_torch.launch.train`` load no ``jax`` and no module of the JAX
+    package, nor does a prefill and a decode step on the CPU of a dense,
+    the two MoE, the Jamba, the xLSTM and the encoder-decoder smoke configs
+    (seamless with its frame features and its encoded memory), nor two
+    training steps with a checkpoint through the training driver."""
+    code = ("import sys, tempfile, torch\n"
             "import repro_torch.models, repro_torch.models.model as M\n"
             "import repro_torch.models.moe, repro_torch.models.layers\n"
             "import repro_torch.models.ssm\n"
             "import repro_torch.configs as C, repro_torch.training\n"
+            "import repro_torch.training.optimizer, "
+            "repro_torch.training.data\n"
+            "import repro_torch.training.checkpoint, "
+            "repro_torch.launch.train as T\n"
             "from repro_torch.training import steps as S\n"
             "for a in C.ARCHS: C.get_config(a); C.get_smoke_config(a)\n"
             "for a in ('phi4_mini_3p8b', 'phi35_moe_42b', "
@@ -232,6 +254,9 @@ def test_lm_stack_loads_no_jax():
             "cfg)\n"
             "    nxt, c = S.make_serve_step(cfg)(m, c, d)\n"
             "    assert c[0]['idx'] == 6\n"
+            "_, h = T.train('deepseek_v3_671b', steps=2, batch=2, seq=8, "
+            "ckpt_dir=tempfile.mkdtemp(), device='cpu')\n"
+            "assert len(h) == 2\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "print(bad); assert not bad, bad\n")
