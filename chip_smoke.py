@@ -331,6 +331,25 @@ Phases (the run exits non-zero if any of them fails):
      and falling, ``moe_dropped`` equal, DeepSeek's ``mtp_loss`` within
      1e-5; then ``compressed_psum`` on an NCCL world of one, each mean
      within one quantum of the gradient.
+ 17. The graph examples, the lint and the ``ops`` rig, after phase 16's
+     models are freed. 17a: ``examples/torch_quickstart.py``,
+     ``torch_sssp_road.py``, ``torch_pagerank_powerlaw.py`` and
+     ``torch_streaming_updates.py`` on the card (each makes its own
+     asserts), each against the same example run with ``--device cpu``
+     here: every count equal (supersteps, messages, components, slots,
+     flushes, runner builds, uploads), SSSP distances and CC labels
+     bit-identical, PageRank ranks within 1e-5 of their largest value.
+     17b: ``tools/drone_lint_torch.py src/repro_torch`` exits 0 and strict
+     DL005 (``--no-baseline --select DL005 src/repro_torch/kernels``)
+     reports nothing. 17c: ``benchmarks/kernel_roofline.py``'s large shape,
+     the busiest cdbh partition of ``kronecker_graph(16, seed=3,
+     weighted=True)`` at P = 16, with both launch counters reset first:
+     ``ops.spmv`` through ``build_tiles`` (plus_times, min_plus) and
+     ``window_align_edges`` (sum, min) on the card, each kernel launched,
+     each result against the same call on the CPU; then each kernel on
+     those layouts against its plain version (min exact, sums within 1e-5
+     of the sum over |terms|), timed beside its bound, the plain version
+     and a library call.
 
 A small-graph check holds the three programs against independent numpy
 oracles on all three backends. The kernel JSON line gives each kernel's
@@ -339,11 +358,12 @@ phase 6, ``launches_algos`` = phase 7, ``launches_auto`` = phase 8's
 ``'auto'`` runs: its ``'auto'`` queries and the forced mix, without the
 uniform queries it compares them with; ``launches_serving`` = phase 9's
 serving calls; ``launches_shard`` = phase 10b's queries over every rank
-and phase 10c's sharded sessions) and its K = 16 rows (``k16``). The
-line before it gives each phase's seconds (``phase_seconds``; phase 10 is
-10a and 10b-c together). The line before the last is the card's name and
-power limit from ``nvidia-smi``; the last line is ``{"ok": true,
-"device": {...}}``.
+and phase 10c's sharded sessions, ``launches_ops`` = phase 17c's
+``ops.spmv`` calls), its K = 16 rows (``k16``) and its phase 17c rows
+(``ops17``). The line before it gives each phase's seconds
+(``phase_seconds``; phase 10 is 10a and 10b-c together). The line
+before the last is the card's name and power limit from ``nvidia-smi``;
+the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -1171,7 +1191,7 @@ def streaming_path(sm: Smoke, log: list, win, tile, ident: str) -> dict:
     def q(s, prog, params, warm, cfg, rec, name):
         res, st = s.query(prog, params, warm=warm, cfg=cfg)
         rec.setdefault("queries", []).append(dict(
-            query=name, edge_backend=cfg.edge_backend, wall_s=st.wall_time,
+            query=name, edge_backend=st.edge_backend, wall_s=st.wall_time,
             supersteps=st.supersteps, messages=st.total_messages))
         return res, st
 
@@ -5803,6 +5823,277 @@ def train_path(sm: Smoke, ident: str) -> dict:
     rec["seconds"] = time.perf_counter() - t0
     return rec
 
+
+# --------------------------------------------------------------------------- #
+# phase 17: the graph examples, the lint and the ops rig
+# --------------------------------------------------------------------------- #
+EXAMPLES = ("quickstart", "sssp_road", "pagerank_powerlaw",
+            "streaming_updates")
+OPS_SCALE = 16                # benchmarks/kernel_roofline.py's large shape
+OPS_PARTS = 16
+
+
+def load_example(name: str):
+    import importlib.util
+    path = ROOT / "examples" / f"torch_{name}.py"
+    spec = importlib.util.spec_from_file_location(f"torch_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def example_diffs(got, want, key: str = "") -> list:
+    """Where an example's record on the card differs from the CPU's: every
+    count equal, arrays bit-identical, except PageRank's ranks (within
+    ``PR_RTOL`` of their largest value) and its mass (relative)."""
+    import numpy as np
+    if isinstance(want, dict):
+        if set(got) != set(want):
+            return [f"{key}: keys {sorted(got)} vs {sorted(want)}"]
+        return [d for k in want for d in example_diffs(got[k], want[k],
+                                                      f"{key}.{k}")]
+    if isinstance(want, (list, tuple)) and not isinstance(want, str):
+        if len(got) != len(want):
+            return [f"{key}: {len(got)} vs {len(want)} entries"]
+        return [d for i, (a, b) in enumerate(zip(got, want))
+                for d in example_diffs(a, b, f"{key}[{i}]")]
+    if isinstance(want, np.ndarray):
+        if key.endswith("ranks"):
+            err = float(np.abs(got - want).max())
+            ok = err <= PR_RTOL * float(np.abs(want).max())
+            return [] if ok else [f"{key}: max err {err:.3g}"]
+        ok = got.dtype == want.dtype and np.array_equal(got, want)
+        return [] if ok else [f"{key}: arrays differ"]
+    if key.endswith("mass"):
+        ok = abs(got - want) <= PR_RTOL * abs(want)
+        return [] if ok else [f"{key}: {got!r} vs {want!r}"]
+    return [] if got == want else [f"{key}: {got!r} vs {want!r}"]
+
+
+def examples_part(sm: Smoke) -> dict:
+    """17a: each graph example on the card and on the CPU."""
+    out = {}
+    for name in EXAMPLES:
+        mod = load_example(name)
+        t = time.perf_counter()
+        card = mod.main([])
+        card_s = time.perf_counter() - t
+        t = time.perf_counter()
+        cpu = mod.main(["--device", "cpu"])
+        cpu_s = time.perf_counter() - t
+        diffs = example_diffs(card, cpu)
+        sm.check(not diffs, f"17a: examples/torch_{name}.py on the card "
+                            f"counts as on the CPU ({card_s:.1f}s card, "
+                            f"{cpu_s:.1f}s CPU){': ' if diffs else ''}"
+                            f"{'; '.join(diffs[:5])}")
+        out[name] = dict(card_s=card_s, cpu_s=cpu_s, diffs=diffs)
+    return out
+
+
+def lint_part(sm: Smoke) -> dict:
+    """17b: the port's lint gate and strict DL005 on its kernels."""
+    cli = str(ROOT / "tools" / "drone_lint_torch.py")
+    out = {}
+    for label, args in (("gate", ["src/repro_torch"]),
+                        ("strict DL005", ["--no-baseline", "--select",
+                                          "DL005",
+                                          "src/repro_torch/kernels"])):
+        run = subprocess.run([sys.executable, cli, *args], cwd=ROOT,
+                             capture_output=True, text=True, timeout=120)
+        last = (run.stdout.strip().splitlines() or [""])[-1]
+        sm.check(run.returncode == 0 and " 0 finding(s)" in last
+                 if label == "strict DL005" else run.returncode == 0,
+                 f"17b: drone_lint_torch {' '.join(args)}: exit "
+                 f"{run.returncode}, {last}{run.stderr.strip()[-300:]}")
+        out[label] = dict(rc=run.returncode, last=last)
+    return out
+
+
+def ops_inputs(src, dst, w, nv: int, vals):
+    """The busiest partition's layouts and the kernels' device inputs, as
+    ``ops.spmv`` makes them: the tile list and value blocks of both
+    semirings, and the windowed message buffers of both combiners."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import combine_identity, tile_pad_identity
+    dev = vals.device
+    K = vals.shape[1]
+    out = {}
+    for semi in ("plus_times", "min_plus"):
+        tl = ops.build_tiles(src, dst, w, nv, nv, semi)
+        ident = float(tile_pad_identity(semi, np.float32))
+        v = torch.full((tl.n_src_tiles * 128, K), ident, device=dev)
+        v[:nv] = vals
+        out[("tiles", semi)] = dict(
+            layout=tl, args=(torch.from_numpy(tl.tiles).to(dev),
+                             torch.from_numpy(tl.tile_dst).to(dev),
+                             torch.from_numpy(tl.tile_src).to(dev),
+                             v.reshape(tl.n_src_tiles, 128, K)),
+            n=tl.n_dst_tiles)
+    wl = ops.window_align_edges(dst, nv)
+    sv = vals[torch.from_numpy(src).to(dev)]
+    wt = torch.from_numpy(np.asarray(w, np.float32)).to(dev)[:, None]
+    order = torch.from_numpy(wl.order).to(dev)
+    slot = torch.from_numpy(wl.edge_slot).to(dev)
+    for semi, comb in (("plus_times", "sum"), ("min_plus", "min")):
+        msgs = sv * wt if semi == "plus_times" else sv + wt
+        buf = torch.full((wl.n_blocks * wl.block_edges, K),
+                         float(combine_identity(comb, np.float32)),
+                         device=dev)
+        buf[slot] = msgs[order]
+        out[("windowed", semi)] = dict(
+            layout=wl, args=(buf, torch.from_numpy(wl.local_dst).to(dev),
+                             torch.from_numpy(wl.block_window).to(dev)),
+            n=wl.n_windows, combiner=comb)
+    return out
+
+
+def ops_row(sm: Smoke, kernel: str, semi: str, inp: dict, ident: str):
+    """One kernel on one 17c layout: against its plain version, timed
+    beside its bound, the plain version and a library call."""
+    import torch
+    from repro_torch.kernels import bsp_spmv as bk
+    from repro_torch.kernels import segment_combine as sk
+    args, n = inp["args"], inp["n"]
+    if kernel == "tiles":
+        name, plan = "bsp_spmv", bk.plan_tiles(args[1], n)
+        tiles, td, ts, v = args
+        K = v.shape[-1]
+
+        def run():
+            return bk.bsp_spmv(*args, n_dst_tiles=n, semiring=semi,
+                               plan=plan)
+
+        def plain():
+            return bk.bsp_spmv_plain(*args, n_dst_tiles=n, semiring=semi)
+        mag = spmv_magnitude(*args, n, semi)
+        T = tiles.shape[0]
+        nbytes = T * 128 * 128 * 4 + 2 * T * 4 + v.numel() * 4 \
+            + n * 128 * K * 4
+        ops = 2 * T * 128 * 128 * K
+        lib = bsr_yardstick(*args, n)[0] if semi == "plus_times" else None
+        what = f"{T} tiles"
+    else:
+        name, comb = "segment_combine_windowed", inp["combiner"]
+        msgs, ldst, bwin = args
+        plan = sk.plan_windows(bwin, n)
+        K = msgs.shape[1]
+
+        def run():
+            return sk.segment_combine_windowed(*args, n_windows=n,
+                                               combiner=comb, plan=plan)
+
+        def plain():
+            return sk.segment_combine_plain(*args, n_windows=n,
+                                            combiner=comb)
+        mag = segment_magnitude(*args, n, comb)
+        Be = msgs.shape[0] // bwin.shape[0]
+        nbytes = msgs.numel() * 4 + ldst.numel() * 4 + bwin.numel() * 4 \
+            + n * 128 * K * 4
+        ops = msgs.numel()
+        row = (bwin.long().repeat_interleave(Be) * 128 + ldst.long())
+        lib_out = plain()
+        if comb == "sum":
+            def lib():
+                return lib_out.view(-1, K).index_add_(0, row, msgs)
+        else:
+            idx = row[:, None].expand(-1, K).contiguous()
+
+            def lib():
+                return lib_out.view(-1, K).scatter_reduce_(
+                    0, idx, msgs, "amin", include_self=True)
+        what = f"msgs {tuple(msgs.shape)}, {bwin.shape[0]} blocks"
+    got = run()
+    want = plain()
+    torch.cuda.synchronize()
+    ok, err = compare(got, want, mag)
+    sm.check(ok, f"17c: {name} {semi} at the kron-{OPS_SCALE} partition "
+                 f"({what}) vs plain (max err {err:.3g})")
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    rec = dict(name=name, semiring=semi, shape=what, max_abs_err=err,
+               ms=time_ms(run), plain_ms=time_ms(plain, max_iters=5),
+               bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               library_ms=time_ms(lib) if lib is not None else None,
+               chunks=plan.n_chunks)
+    sm.note(f"17c: {name} {semi} ({what}, {plan.n_chunks} chunks): "
+            f"{rec['ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+            f"({rec['bound_by']}), plain {rec['plain_ms']:.4f} ms, library "
+            + (f"{rec['library_ms']:.4f} ms" if lib is not None else "none")
+            + f" [{ident}]")
+    return rec
+
+
+def ops_part(sm: Smoke, ident: str) -> dict:
+    """17c: the ops rig on the busiest partition of kron-16."""
+    import numpy as np
+    import torch
+    from repro_torch.core import partition_and_build
+    from repro_torch.graphgen import kronecker_graph
+    from repro_torch.kernels import bsp_spmv as bk
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import segment_combine as sk
+    dev = torch.device(DEVICE)
+    g = kronecker_graph(OPS_SCALE, seed=3, weighted=True)
+    pg = partition_and_build(g, OPS_PARTS, "cdbh")
+    p = int(np.argmax(pg.edges_per_part))
+    m = pg.emask[p]
+    src = pg.esrc[p][m].astype(np.int64)
+    dst = pg.edst[p][m].astype(np.int64)
+    w = pg.ew[p][m]
+    nv = int(pg.vertices_per_part[p])
+    vals = np.random.default_rng(0).uniform(0, 2, (nv, 1)).astype(
+        np.float32)
+    cells = [(k, s) for k in ("tiles", "windowed")
+             for s in ("plus_times", "min_plus")]
+    bk.bsp_spmv.launches = 0
+    sk.segment_combine_windowed.launches = 0
+    card = {}
+    for kernel, semi in cells:
+        card[(kernel, semi)] = ops.spmv(src, dst, w, vals, nv,
+                                        semiring=semi, kernel=kernel,
+                                        device=dev)
+    torch.cuda.synchronize()
+    launches = {"bsp_spmv": bk.bsp_spmv.launches,
+                "segment_combine_windowed":
+                    sk.segment_combine_windowed.launches}
+    sm.check(launches["bsp_spmv"] == 2
+             and launches["segment_combine_windowed"] == 2,
+             f"17c: ops.spmv launched each kernel once per semiring "
+             f"{launches}")
+    for kernel, semi in cells:
+        want = ops.spmv(src, dst, w, vals, nv, semiring=semi, kernel=kernel,
+                        device="cpu")
+        mag = None
+        if semi == "plus_times":
+            mag = ops.spmv(src, dst, np.abs(w), np.abs(vals), nv,
+                           semiring=semi, kernel=kernel, device="cpu")
+        ok, err = compare(card[(kernel, semi)].cpu(), want, mag)
+        sm.check(ok, f"17c: ops.spmv {kernel} {semi} on the card vs the "
+                     f"CPU (max err {err:.3g})")
+    vdev = torch.from_numpy(vals).to(dev)
+    rows = [ops_row(sm, kernel, semi, inp, ident) for (kernel, semi), inp
+            in ops_inputs(src, dst, w, nv, vdev).items()]
+    return dict(launches=launches, rows=rows, edges=int(src.shape[0]),
+                vertices=nv, partition=p)
+
+
+def graph_tools_path(sm: Smoke, ident: str) -> dict:
+    """Phase 17: 17a the graph examples, 17b the lint, 17c the ops rig."""
+    t0 = time.perf_counter()
+    rec = {}
+    for label, part in (("17a", examples_part), ("17b", lint_part),
+                        ("17c", lambda s: ops_part(s, ident))):
+        t = time.perf_counter()
+        rec[label] = part(sm)
+        sm.note(f"{label}: {time.perf_counter() - t:.1f}s")
+    rec["seconds"] = time.perf_counter() - t0
+    sm.note(f"phase 17: {rec['seconds']:.1f}s [{ident}]")
+    return rec
+
+
 def main() -> int:
     try:
         import torch
@@ -5823,7 +6114,7 @@ def main() -> int:
     from repro_torch.kernels import segment_combine as sk
 
     sm = Smoke()
-    phase_s = {}                  # seconds per phase, 1-16
+    phase_s = {}                  # seconds per phase, 1-17
     t_phase = time.perf_counter()
     ident = gpu_identity()
     sm.note(f"gpu: {ident}; torch {torch.__version__} cuda "
@@ -5961,8 +6252,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     train = train_path(sm, ident)
     peak["train step (16a)"] = train["16a"]["peak_bytes"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    graph_tools = graph_tools_path(sm, ident)
     for k, rec in (("11", lm), ("12", moe), ("13", jamba), ("14", xlstm),
-                   ("15", encdec), ("16", train)):
+                   ("15", encdec), ("16", train), ("17", graph_tools)):
         phase_s[k] = rec["seconds"]
     phase_s = {k: round(phase_s[k], 1) for k in sorted(phase_s, key=int)}
     lm_s = sum(phase_s[k] for k in ("11", "12", "13", "14", "15", "16"))
@@ -5972,6 +6266,10 @@ def main() -> int:
         t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
         t_ops = r["ops"] / FP32_OPS_PER_S * 1e3
         err_key = "bsp_spmv" if r["name"] == "bsp_spmv" else "segment_combine"
+        ops17 = [o for o in graph_tools["17c"]["rows"]
+                 if o["name"] == r["name"]]
+        errs[err_key] = max([errs[err_key]]
+                            + [o["max_abs_err"] for o in ops17])
         sm.note(f"{r['name']}: {r['shape']}; {r['bytes']} bytes, {r['ops']} "
                 f"ops")
         extra = {k: r[k] for k in ("padded_ms", "plus_times_ms",
@@ -5989,7 +6287,8 @@ def main() -> int:
             launches_auto=auto["launches"][r["name"]],
             launches_serving=serve["launches"][r["name"]],
             launches_shard=shard_launches[r["name"]],
-            k16=algos["rows"][r["name"]], **extra))
+            launches_ops=graph_tools["17c"]["launches"][r["name"]],
+            k16=algos["rows"][r["name"]], ops17=ops17, **extra))
     Path(ROOT / "chiprun_out").mkdir(exist_ok=True)
     (ROOT / "chiprun_out" / "chip_smoke_queries.json").write_text(
         json.dumps(dict(gpu=ident, queries=log, kernels=kernels,
@@ -6006,7 +6305,8 @@ def main() -> int:
                                    ranks_s=ranks["seconds"],
                                    launches=shard_launches),
                         lm=lm, moe=moe, jamba=jamba, xlstm=xlstm,
-                        encdec=encdec, train=train, phase_seconds=phase_s,
+                        encdec=encdec, train=train,
+                        graph_tools=graph_tools, phase_seconds=phase_s,
                         peak_memory_bytes=peak,
                         algo_row_launches=algos["row_launches"],
                         kernel_shapes={r["name"]: r["shape"] for r in recs},

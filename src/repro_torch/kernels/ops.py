@@ -1,12 +1,14 @@
 """Single-partition layouts around the two kernels — the kernel-level rig.
 
-``TileLayout``   COO edges -> dst-major dense 128x128 tile list (the
-                 ``bsp_spmv`` input; identity filler tiles cover every dst
-                 tile row).
-``WindowLayout`` dst-sorted COO -> per-128-row-window edge blocks (the
-                 ``segment_combine_windowed`` input; empty windows get one
-                 identity block).
-``spmv``         one-shot semiring SpMV on COO edges through either kernel.
+``build_tiles`` / ``TileLayout``
+        COO edges -> dst-major dense 128x128 tile list (the ``bsp_spmv``
+        input; identity filler tiles cover every dst tile row).
+``window_align_edges`` / ``WindowLayout``
+        dst-sorted COO -> per-128-row-window edge blocks (the
+        ``segment_combine_windowed`` input; empty windows get one identity
+        block).
+``spmv``
+        one-shot semiring SpMV on COO edges through either kernel.
 
 Host layouts are numpy and bit-identical to the JAX package's
 ``repro.kernels.ops``; the engine-facing stacked layouts live in
@@ -17,13 +19,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.graph import unique_sorted
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.bsp_spmv import TM, TN, bsp_spmv
 from repro_torch.kernels.ref import (combine_identity, numpy_dtype,
                                      tile_pad_identity, torch_dtype)
 from repro_torch.kernels.segment_combine import W, segment_combine_windowed
 
-__all__ = ["TileLayout", "WindowLayout", "spmv"]
+__all__ = ["build_tiles", "window_align_edges", "spmv", "TileLayout",
+           "WindowLayout"]
 
 
 class TileLayout:
@@ -42,7 +46,7 @@ class TileLayout:
 
         td, ts = dst // TM, src // TN
         key = td * self.n_src_tiles + ts
-        uniq = np.unique(key)
+        uniq = unique_sorted(key)
         covered = np.zeros(self.n_dst_tiles, bool)
         covered[(uniq // self.n_src_tiles).astype(np.int64)] = True
         missing = np.nonzero(~covered)[0]
@@ -89,6 +93,12 @@ class TileLayout:
         return out.reshape(self.n_dst_tiles * TM, K)
 
 
+def build_tiles(src, dst, w, n_src_rows, n_dst_rows, semiring,
+                dtype=np.float32) -> TileLayout:
+    return TileLayout(src, dst, w, n_src_rows, n_dst_rows, semiring,
+                      dtype=dtype)
+
+
 class WindowLayout:
     """Edge blocks confined to 128-dst-row windows."""
 
@@ -131,6 +141,10 @@ class WindowLayout:
         return out.reshape(self.n_windows * W, K)
 
 
+def window_align_edges(dst, n_rows, block_edges: int = 512) -> WindowLayout:
+    return WindowLayout(dst, n_rows, block_edges)
+
+
 def spmv(src, dst, w, vals, n_rows, *, semiring="plus_times",
          kernel="tiles", dtype=np.float32,
          device: DeviceLike = None) -> torch.Tensor:
@@ -142,12 +156,12 @@ def spmv(src, dst, w, vals, n_rows, *, semiring="plus_times",
     if vals.dim() == 1:
         vals = vals[:, None]
     if kernel == "tiles":
-        layout = TileLayout(src, dst, w, vals.shape[0], n_rows, semiring,
-                            dtype=dtype)
+        layout = build_tiles(src, dst, w, vals.shape[0], n_rows, semiring,
+                             dtype=dtype)
         return layout(vals)[:n_rows]
     sv = vals[torch.as_tensor(np.asarray(src, np.int64), device=dev)]
     wj = torch.as_tensor(np.asarray(w, dtype), dtype=tdt, device=dev)[:, None]
     msgs = sv * wj if semiring == "plus_times" else sv + wj
-    layout = WindowLayout(dst, n_rows)
+    layout = window_align_edges(dst, n_rows)
     comb = "sum" if semiring == "plus_times" else "min"
     return layout(msgs, combiner=comb)[:n_rows]

@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from repro.kernels import ops as rops
+from repro.kernels import ref as rref
 from repro.kernels.bsp_spmv import bsp_spmv as rbsp
 from repro.kernels.segment_combine import segment_combine_windowed as rseg
 from repro_torch.graphgen import powerlaw_graph
@@ -267,3 +268,94 @@ def test_library_name_follows_included_headers(tmp_path, monkeypatch):
     monkeypatch.undo()
     for name in _build.SOURCES:
         assert "chunked.cuh" in {p.name for p in _build._sources_of(name)}
+
+
+# --------------------------------------------------------------------------- #
+# ops.build_tiles / ops.window_align_edges against the reference builders
+# --------------------------------------------------------------------------- #
+def _sparse_rows_edges(n=700, seed=4):
+    """Edges whose dst fall in tile rows 0 and 3 only: rows 1, 2, 4 and 5
+    of the 700-row layout get identity filler tiles."""
+    rng = np.random.default_rng(seed)
+    dst = np.concatenate([rng.integers(0, TM, 400),
+                          rng.integers(3 * TM, 4 * TM, 300)])
+    src = rng.integers(0, n, dst.shape[0])
+    w = rng.uniform(0.5, 4.0, dst.shape[0]).astype(np.float32)
+    return src, dst, w
+
+
+def _tile_graph(case):
+    if case == "powerlaw":
+        g = powerlaw_graph(700, seed=3, weighted=True)
+        return g.src, g.dst, g.weights
+    return _sparse_rows_edges()
+
+
+@pytest.mark.parametrize("case", ["powerlaw", "empty-dst-rows"])
+@pytest.mark.parametrize("semiring,dtype", [("plus_times", np.float32),
+                                            ("min_plus", np.float32),
+                                            ("min_plus", np.int32)])
+def test_build_tiles_bit_identical(case, semiring, dtype):
+    src, dst, w = _tile_graph(case)
+    if np.dtype(dtype) == np.int32:
+        w = np.round(w * 10).astype(np.int32)
+    r = rops.build_tiles(src, dst, w, 700, 700, semiring, dtype=dtype)
+    t = tops.build_tiles(src, dst, w, 700, 700, semiring, dtype=dtype)
+    assert isinstance(t, tops.TileLayout)
+    for name in ("tiles", "tile_dst", "tile_src"):
+        _check(getattr(t, name), getattr(r, name), True)
+    assert t.density == r.density
+    assert (t.n_src_tiles, t.n_dst_tiles) == (r.n_src_tiles, r.n_dst_tiles)
+    if case == "empty-dst-rows":
+        assert set(np.unique(t.tile_dst)) == set(range(6))
+        assert {0, 3} == set(np.unique(dst // TM))
+    # the plain version through the layout against the reference's oracle
+    rng = np.random.default_rng(11)
+    K = 3
+    if np.dtype(dtype) == np.int32:
+        vals = rng.integers(0, 1000, size=(700, K)).astype(np.int32)
+        want = r(jnp.asarray(vals))
+    else:
+        vals = rng.uniform(0, 3, size=(700, K)).astype(np.float32)
+        ident = tile_pad_identity(semiring, dtype)
+        v = np.full((r.n_src_tiles * TN, K), ident, dtype)
+        v[:700] = vals
+        want = rref.ref_tile_spmv(
+            jnp.asarray(r.tiles), jnp.asarray(r.tile_dst),
+            jnp.asarray(r.tile_src),
+            jnp.asarray(v.reshape(r.n_src_tiles, TN, K)), r.n_dst_tiles,
+            semiring).reshape(-1, K)
+    got = t(torch.from_numpy(vals))
+    _check(got.numpy(), np.asarray(want), semiring == "min_plus")
+
+
+def _window_dst(case):
+    rng = np.random.default_rng(6)
+    if case == "powerlaw":
+        return np.sort(powerlaw_graph(700, seed=3).dst), 700, 256
+    # window 1 holds 1,000 edges in blocks of 128 (8 blocks); windows 0 and
+    # 3-7 are empty and get one identity block each
+    return np.sort(rng.integers(W, 2 * W, 1000)), 1000, 128
+
+
+@pytest.mark.parametrize("case", ["powerlaw", "multi-block"])
+@pytest.mark.parametrize("combiner", ["sum", "min", "max"])
+def test_window_align_edges_bit_identical(case, combiner):
+    dst, n_rows, Be = _window_dst(case)
+    r = rops.window_align_edges(dst, n_rows, block_edges=Be)
+    t = tops.window_align_edges(dst, n_rows, block_edges=Be)
+    assert isinstance(t, tops.WindowLayout)
+    for name in ("order", "edge_slot", "local_dst", "block_window",
+                 "pad_mask"):
+        _check(getattr(t, name), getattr(r, name), True)
+    assert (t.n_blocks, t.n_windows) == (r.n_blocks, r.n_windows)
+    if case == "multi-block":
+        assert int((t.block_window == 1).sum()) == 8
+    rng = np.random.default_rng(12)
+    msgs = rng.uniform(-2, 2, size=(dst.shape[0], 2)).astype(np.float32)
+    want = rref.ref_segment_combine(jnp.asarray(msgs),
+                                    jnp.asarray(dst.astype(np.int32)),
+                                    r.n_windows * W, combiner)
+    got = t(torch.from_numpy(msgs), combiner=combiner)
+    _check(got.numpy(), np.asarray(want), combiner != "sum")
+
