@@ -131,7 +131,11 @@ Phases (the run exits non-zero if any of them fails):
      on a ``(4,)`` mesh SSSP from phase 3's two sources, CC and PageRank
      on kron-20 P = 4, on ``pallas_windows`` and on ``coo``, and on a
      ``(2, 2)`` sub x edge mesh SSSP, CC and PageRank on kron-20 P = 2
-     (windows) and CC on the grid P = 2 (tiles). Every rank's results must
+     (windows, and on ``coo`` in trace mode: each rank reports its
+     ``DeviceSubgraph`` block's bytes, each superstep's collective payload
+     bytes and sweeps, and its peak device memory above its memory before
+     the query, which phase 18b reads) and CC on the grid P = 2 (tiles).
+     Every rank's results must
      equal a one-process ``run_sim`` of the same partitioned graph on the
      card (bit for bit, PageRank within PR_RTOL; supersteps, messages and
      per-partition sweeps equal for every program), and each P = 4
@@ -350,6 +354,22 @@ Phases (the run exits non-zero if any of them fails):
      those layouts against its plain version (min exact, sums within 1e-5
      of the sum over |terms|), timed beside its bound, the plain version
      and a library call.
+ 18. The capacity dry run (``repro_torch.launch.dryrun_graph``), in a
+     subprocess, on fake tensors in fake worlds of ranks. 18a: every cell
+     of the four scales x three programs x {one pod, two pods}, the
+     trillion point on its (8, 16, 16) world of 2,048 ranks, through
+     ``run_cell``, then ``launch.roofline`` against the card's
+     ``total_memory``: each cell's status and meta must equal the JAX
+     package's (``DRY_CELLS``: the three kron33-100B one-pod cells
+     skipped, every other ``ok``), none an error; each prints its
+     arguments and temporaries per rank, its collective payload per
+     superstep, ``fits_hbm`` and its three roofline terms. 18b: for each of
+     phase 10b's ``(2, 2)`` ``coo`` queries, the dry run of the same meta
+     and configuration (each rank of a fake (2, 2) world, with the
+     runner's closing gathers) must give each rank's block bytes exactly,
+     each superstep's payload bytes exactly (its base plus its sweeps
+     times the per-sweep bytes), and temporaries at least
+     ``DRY_TEMP_RATIO`` of the rank's measured peak above its block.
 
 A small-graph check holds the three programs against independent numpy
 oracles on all three backends. The kernel JSON line gives each kernel's
@@ -361,7 +381,8 @@ serving calls; ``launches_shard`` = phase 10b's queries over every rank
 and phase 10c's sharded sessions, ``launches_ops`` = phase 17c's
 ``ops.spmv`` calls), its K = 16 rows (``k16``) and its phase 17c rows
 (``ops17``). The line before it gives each phase's seconds
-(``phase_seconds``; phase 10 is 10a and 10b-c together). The line
+(``phase_seconds``; phase 10 is 10a and 10b-c together, 10b's ``coo``
+queries for phase 18b included). The line
 before the last is the card's name and power limit from ``nvidia-smi``;
 the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -3205,7 +3226,18 @@ def shard_queries(g20):
             None, "pallas_windows"),
            ("gridp2-cc-pallas_tiles", "grid_p2", "22", "cc", None,
             "pallas_tiles")]
+    # the coo twins on the (2, 2) mesh: phase 18b's dry run holds them
+    qs += [("k20p2-sssp_a-coo", "kron20_p2", "22", "sssp", s0, "coo"),
+           ("k20p2-cc-coo", "kron20_p2", "22", "cc", None, "coo"),
+           ("k20p2-pagerank-coo", "kron20_p2", "22", "pagerank", None,
+            "coo")]
     return qs
+
+
+def dry_query(mk: str, eb: str) -> bool:
+    """Whether a phase 10b query is one phase 18b's dry run holds: the
+    ``coo`` queries of the (2, 2) mesh (the dry run runs ``coo`` only)."""
+    return mk == "22" and eb == "coo"
 
 
 def _shard_program(name, source, n_vertices):
@@ -3223,7 +3255,10 @@ def _shard_rank(rank: int, world: int, store: str, work: str, queries,
     Loads the parent's host arrays, runs every query through
     ``repro_torch.core.run`` on its block of the (4,) or (2, 2) mesh, and
     writes its results and a report (launches per query, counted from 0
-    just before it; seconds; peak device memory). After each kernel query
+    just before it; seconds; peak device memory; for phase 18b's queries,
+    run in trace mode, the meta, the block's bytes, each superstep's
+    payload bytes and sweeps and the peak above the memory held before
+    the query). After each kernel query
     it holds the kernel against its plain version on its own list, the one
     the query ran on: for the query's program and for min_plus (SSSP) and
     plus_times (PageRank), on seeded values."""
@@ -3240,6 +3275,7 @@ def _shard_rank(rank: int, world: int, store: str, work: str, queries,
                             rank=rank, world_size=world)
     from repro_torch.algos import SSSP, PageRank
     from repro_torch.core import EngineConfig, run
+    from repro_torch.core.engine import _device_subgraph
     from repro_torch.core.mesh import placement
     from repro_torch.interop import partitioned_graph_from_arrays
     from repro_torch.kernels import bsp_spmv as bk
@@ -3260,14 +3296,21 @@ def _shard_rank(rank: int, world: int, store: str, work: str, queries,
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     rec = {}
+    peak = 0
     for qid, gk, mk, pname, source, eb in queries:
         mesh, sub, edge = meshes[mk]
         pg = pgs[gk]
         prog, params = _shard_program(pname, source, pg.n_vertices)
+        dry = dry_query(mk, eb)
         cfg = EngineConfig(backend="shard_map", subgraph_axes=sub,
-                           edge_axes=edge, edge_backend=eb)
+                           edge_axes=edge, edge_backend=eb, trace=dry)
         bk.bsp_spmv.launches = 0
         sk.segment_combine_windowed.launches = 0
+        if dry and cuda:
+            torch.cuda.synchronize()
+            peak = max(peak, torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
         t = time.perf_counter()
         res, st = run(prog, pg, params, cfg, mesh=mesh, device=device)
         if cuda:
@@ -3281,6 +3324,22 @@ def _shard_rank(rank: int, world: int, store: str, work: str, queries,
                  host_syncs=st.host_syncs, collectives=st.collectives,
                  bsp_spmv=bk.bsp_spmv.launches,
                  segment_combine_windowed=sk.segment_combine_windowed.launches)
+        if dry:
+            pl = placement(mesh, sub, edge)
+            blk = _device_subgraph(pg, torch.device("meta"),
+                                   block=(pl.part, pl.shard, pl.n_edge))
+            args = sum(x.numel() * x.element_size() for x in blk
+                       if x is not None)
+            q["dry"] = dict(
+                meta=dict(e_max=pg.e_max, v_max=pg.v_max,
+                          n_slots=pg.n_slots),
+                program=pname, n_vertices=pg.n_vertices, source=source,
+                args_bytes=args,
+                step_bytes=st.collective_bytes_per_step,
+                step_sweeps=st.rank_sweeps_per_step,
+                payload=st.collective_bytes,
+                peak_above_held=(torch.cuda.max_memory_allocated() - held)
+                if cuda else 0)
         if eb != "coo":
             pl = placement(mesh, sub, edge)
             lay = pg.ensure_edge_layouts()
@@ -3299,7 +3358,8 @@ def _shard_rank(rank: int, world: int, store: str, work: str, queries,
                                    max_err=err))
             q["list_checks"] = checks
         report["queries"].append(q)
-    report["peak_bytes"] = torch.cuda.max_memory_allocated() if cuda else 0
+    report["peak_bytes"] = max(peak, torch.cuda.max_memory_allocated()) \
+        if cuda else 0
     report["total_s"] = time.perf_counter() - t0
     np.savez(os.path.join(work, f"rank{rank}.npz"), **rec)
     dist.destroy_process_group()
@@ -6094,6 +6154,178 @@ def graph_tools_path(sm: Smoke, ident: str) -> dict:
     return rec
 
 
+# --------------------------------------------------------------------------- #
+# phase 18: the capacity dry run
+# --------------------------------------------------------------------------- #
+DRY_TEMP_RATIO = 0.8          # 18b: dry temporaries >= this x the measured
+DRY_TIMEOUT_S = 300           # the dry-run subprocess is killed past this
+# the JAX package's launch/dryrun_graph.py per (scale, mesh): status,
+# partitions, e_max, v_max, n_slots (GraphScale.meta and its v_max guard)
+DRY_CELLS = {
+    ("kron26", "single"): ("ok", 16, 140929024, 17616128, 33554432),
+    ("kron26", "multipod"): ("ok", 32, 70465536, 8808064, 33554432),
+    ("kron30", "single"): ("ok", 16, 2254858240, 281857280, 536870912),
+    ("kron30", "multipod"): ("ok", 32, 1127430144, 140928640, 536870912),
+    ("kron33-100B", "single"): ("skipped", 16, 9019432960, 2254857856,
+                                4294967296),
+    ("kron33-100B", "multipod"): ("ok", 32, 4509716480, 1127428992,
+                                  4294967296),
+    ("trillion", "single"): ("ok", 128, 9019432960, 352321536, 4294967296),
+    ("trillion", "multipod"): ("ok", 128, 9019432960, 352321536,
+                               4294967296),
+}
+
+DRY_SCRIPT = r"""
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+from repro_torch.core.engine import EngineConfig
+from repro_torch.launch import dryrun_graph as D, roofline as R
+out_dir, queries = sys.argv[2], json.loads(sys.argv[3])
+t = time.perf_counter()
+cells = [D.run_cell(s, a, mk, out_dir, force=True) for s in D.SCALES
+         for a in D.ALGOS for mk in ("single", "multipod")]
+cells_s = time.perf_counter() - t
+cap = R.hbm_capacity()
+rows = [R.analyze_record(c, cap) for c in cells]
+t = time.perf_counter()
+dry = {}
+for q in queries:
+    prog_cls, params = D.ALGOS[q["program"]]
+    params = {"sssp": {"source": q["source"]}, "cc": None,
+              "pagerank": {"n_vertices": q["n_vertices"]}}[q["program"]]
+    cfg = EngineConfig(backend="shard_map", subgraph_axes=("sub",),
+                       edge_axes=("edge",), trace=True)
+    dry[q["query"]] = [D.dry_run(q["meta"], (2, 2), ("sub", "edge"), cfg,
+                                 prog_cls(), params, rank=r,
+                                 gather_results=True) for r in range(4)]
+with open(out_dir + "/phase18.json", "w") as f:
+    json.dump(dict(rows=rows, cells_s=cells_s, hbm_cap=cap, dry=dry,
+                   dry_s=time.perf_counter() - t), f, default=str)
+print("DRY_OK")
+"""
+
+
+def dry_cells_part(sm: Smoke, rows: list, cap: int) -> list:
+    """18a: every cell's status and meta against the JAX package's."""
+    seen, out = set(), []
+    for r in rows:
+        key = (r["scale"], r["mesh"])
+        seen.add((key, r["algo"]))
+        status, parts, e_max, v_max, n_slots = DRY_CELLS[key]
+        label = f"18a {r['scale']} {r['algo']} {r['mesh']}"
+        if r["status"] == "error":
+            sm.check(False, f"{label}: error {r.get('error')}")
+            continue
+        meta = dict(e_max=e_max, v_max=v_max, n_slots=n_slots)
+        if r["status"] == "skipped":
+            sm.check(status == "skipped", f"{label}: skipped as the "
+                     f"reference's ({r['reason'][:60]}...)")
+            continue
+        sm.check(status == "ok" and r["meta"] == meta
+                 and r["n_parts"] == parts,
+                 f"{label}: ok with the reference's meta {meta} and "
+                 f"{parts} partitions")
+        m, t, w = r["memory"], r["terms"], r["walk"]
+        row = dict(scale=r["scale"], algo=r["algo"], mesh=r["mesh"],
+                   n_devices=r["n_devices"], mesh_s=r["mesh_s"],
+                   args_gib=m["argument_size_in_bytes"] / 2**30,
+                   temp_gib=m["temp_size_in_bytes"] / 2**30,
+                   coll_mib=w["collective_bytes_per_device"] / 2**20,
+                   sbs_mib=r["superstep_base"]["collective_by_group"]["sub"]
+                   / 2**20, fits_hbm=r["fits_hbm"], **t)
+        out.append(row)
+        sm.note(f"{label} ({r['n_devices']} ranks): args "
+                f"{row['args_gib']:.3f} GiB, temp {row['temp_gib']:.3f} "
+                f"GiB, collectives {row['coll_mib']:.1f} MiB a superstep "
+                f"(SBS {row['sbs_mib']:.1f}), fits {cap} B: "
+                f"{r['fits_hbm']}; compute {t['compute_s']:.3e} s, memory "
+                f"{t['memory_s']:.3e} s, collective {t['collective_s']:.3e}"
+                f" s")
+    want = {(k, a) for k in DRY_CELLS for a in ("cc", "sssp", "pagerank")}
+    sm.check(seen == want, f"18a: all {len(want)} cells ran "
+             f"(missing {sorted(want - seen)})")
+    return out
+
+
+def dry_ranks_part(sm: Smoke, reports: list, dry: dict) -> list:
+    """18b: each 10b (2, 2) coo query's ranks against the dry run of the
+    same meta and configuration."""
+    from repro_torch.launch.dryrun_graph import expected_step_bytes
+    out = []
+    for qid, per_rank in dry.items():
+        for r, d in enumerate(per_rank):
+            q = next(x for x in reports[r]["queries"] if x["query"] == qid)
+            got = q["dry"]
+            args = d["memory"]["argument_size_in_bytes"]
+            want = expected_step_bytes(d, got["step_sweeps"])
+            measured = got["peak_above_held"] - got["args_bytes"]
+            temp = d["memory"]["temp_size_in_bytes"]
+            ratio = temp / measured if measured > 0 else float("inf")
+            label = f"18b {qid} rank {r}"
+            sm.check(args == got["args_bytes"],
+                     f"{label}: block bytes {got['args_bytes']} = dry "
+                     f"{args}")
+            sm.check(want == got["step_bytes"],
+                     f"{label}: payload bytes of each of "
+                     f"{len(want)} supersteps equal the dry run's (per "
+                     f"sweep {d['per_sweep']['collective_bytes_per_device']}"
+                     f", base {d['superstep_base']['collective_bytes_per_device']}"
+                     f", first {d['first_superstep_base']['collective_bytes_per_device']}"
+                     f"; got {got['step_bytes'][:4]}..., want {want[:4]}...)")
+            sm.check(ratio >= DRY_TEMP_RATIO,
+                     f"{label}: dry temporaries {temp} B / measured peak "
+                     f"above the block {measured} B = {ratio:.4f} (>= "
+                     f"{DRY_TEMP_RATIO})")
+            out.append(dict(query=qid, rank=r, args=args, temp=temp,
+                            measured=measured, ratio=ratio,
+                            per_sweep=d["per_sweep"]
+                            ["collective_bytes_per_device"],
+                            base=d["superstep_base"]
+                            ["collective_bytes_per_device"],
+                            supersteps=len(want)))
+    sm.check(len(out) == 3 * SHARD_WORLD,
+             f"18b: {len(out)} (query, rank) pairs held")
+    return out
+
+
+def dryrun_path(sm: Smoke, reports: list) -> dict:
+    """Phase 18 (see the module docstring). ``reports`` are phase 10b's
+    rank reports."""
+    import shutil
+    t0 = time.perf_counter()
+    work = ROOT / "build" / "dryrun"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    queries = [dict(query=q["query"], **{k: q["dry"][k] for k in (
+        "meta", "program", "source", "n_vertices")})
+        for q in (reports[0]["queries"] if reports else []) if "dry" in q]
+    proc = subprocess.run(
+        [sys.executable, "-c", DRY_SCRIPT, str(ROOT / "src"), str(work),
+         json.dumps(queries)], capture_output=True, text=True,
+        timeout=DRY_TIMEOUT_S)
+    rec = dict(seconds=0.0, cells=[], ranks=[])
+    if not sm.check(proc.returncode == 0 and "DRY_OK" in proc.stdout,
+                    f"18: the dry-run subprocess exited {proc.returncode} "
+                    f"{proc.stderr[-1500:]}"):
+        return rec
+    got = json.loads((work / "phase18.json").read_text())
+    trill = next(r for r in got["rows"] if r["scale"] == "trillion"
+                 and r["status"] == "ok")
+    sm.note(f"18a: {len(got['rows'])} cells in {got['cells_s']:.1f}s in "
+            f"the subprocess; the (8, 16, 16) mesh of 2,048 fake ranks and "
+            f"its placement's groups built in {trill['mesh_s']:.4f}s; fits "
+            f"against total_memory {got['hbm_cap']} B")
+    rec["cells"] = dry_cells_part(sm, got["rows"], got["hbm_cap"])
+    sm.check(len(queries) == 3, f"18b: phase 10b reported {len(queries)} "
+             f"(2, 2) coo queries")
+    rec["ranks"] = dry_ranks_part(sm, reports, got["dry"])
+    rec.update(subprocess_cells_s=got["cells_s"], dry_s=got["dry_s"],
+               hbm_cap=got["hbm_cap"])
+    rec["seconds"] = time.perf_counter() - t0
+    sm.note(f"phase 18: {rec['seconds']:.1f}s")
+    return rec
+
+
 def main() -> int:
     try:
         import torch
@@ -6114,7 +6346,7 @@ def main() -> int:
     from repro_torch.kernels import segment_combine as sk
 
     sm = Smoke()
-    phase_s = {}                  # seconds per phase, 1-17
+    phase_s = {}                  # seconds per phase, 1-18
     t_phase = time.perf_counter()
     ident = gpu_identity()
     sm.note(f"gpu: {ident}; torch {torch.__version__} cuda "
@@ -6255,8 +6487,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     graph_tools = graph_tools_path(sm, ident)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dryrun = dryrun_path(sm, ranks["reports"])
     for k, rec in (("11", lm), ("12", moe), ("13", jamba), ("14", xlstm),
-                   ("15", encdec), ("16", train), ("17", graph_tools)):
+                   ("15", encdec), ("16", train), ("17", graph_tools),
+                   ("18", dryrun)):
         phase_s[k] = rec["seconds"]
     phase_s = {k: round(phase_s[k], 1) for k in sorted(phase_s, key=int)}
     lm_s = sum(phase_s[k] for k in ("11", "12", "13", "14", "15", "16"))
@@ -6306,7 +6542,8 @@ def main() -> int:
                                    launches=shard_launches),
                         lm=lm, moe=moe, jamba=jamba, xlstm=xlstm,
                         encdec=encdec, train=train,
-                        graph_tools=graph_tools, phase_seconds=phase_s,
+                        graph_tools=graph_tools, dryrun=dryrun,
+                        phase_seconds=phase_s,
                         peak_memory_bytes=peak,
                         algo_row_launches=algos["row_launches"],
                         kernel_shapes={r["name"]: r["shape"] for r in recs},

@@ -75,7 +75,7 @@ from repro_torch.kernels.ref import combine_identity, tile_pad_identity
 from repro_torch.kernels.segment_combine import W, segment_combine_windowed
 from repro_torch.npz_io import load_flat, save_flat
 
-__all__ = ["EngineConfig", "EdgeCombine", "run", "run_sim",
+__all__ = ["EngineConfig", "EdgeCombine", "ShardStep", "run", "run_sim",
            "run_shard_map", "make_sim_runner", "make_bsp_runner",
            "resolve_edge_backend", "normalize_edge_backend",
            "resolve_partition_backends", "resolve_mesh_backends",
@@ -89,16 +89,19 @@ class EdgeCombine:
     without edge sharding) every partition's edges are local and this is
     the identity; under ``shard_map`` with ``edge_axes`` it all-reduces
     over the edge group, the ranks holding the partition's edge shards.
-    ``calls`` counts the collectives issued."""
+    ``calls`` counts the collectives issued, ``bytes`` their payload bytes
+    by kind, as ``sbs.ShardExchange`` does."""
 
     def __init__(self, group=None):
         self.group = group
         self.calls = 0
+        self.bytes = {"all_reduce": 0, "all_gather": 0}
 
     def _reduce(self, x, combiner: str):
         if self.group is None:
             return x
         self.calls += 1
+        self.bytes["all_reduce"] += x.numel() * x.element_size()
         return sbs.all_combine(x, combiner, self.group)
 
     def sum(self, x):
@@ -517,16 +520,27 @@ def _state_where(live: torch.Tensor, new: dict, old: dict) -> dict:
     return out
 
 
+def _any_live(live: torch.Tensor) -> bool:
+    """The local phase's continue test: one flag read from the device."""
+    return bool(live.any())
+
+
 def _batched_local_phase(program: VertexProgram, sgs: DeviceSubgraph,
                          lay_blk, params, state, merged_v,
                          ec: EdgeCombine, bound: int, first: bool,
-                         edge_backend: str):
+                         edge_backend: str,
+                         keep_going: Callable[[torch.Tensor], bool]
+                         = _any_live):
     """apply incoming -> sweep the whole stack to every partition's local
     fixed point (or one hop). A partition whose fixed point is reached is
     select-frozen while the others continue, giving the per-partition sweep
     counts of the reference's vmapped ``_local_phase``. Under ``'auto'``
-    ``lay_blk`` is the group list of ``_mixed_inputs``. Returns
-    ``(state, out, sweeps [P], last_changed [P], host_syncs)``."""
+    ``lay_blk`` is the group list of ``_mixed_inputs``. ``keep_going(live)``
+    decides, before each further sweep, whether to run it (``live`` the
+    [P] partitions still below their fixed point and the bound): the
+    engine reads the flag; the capacity dry run counts sweeps instead, so
+    that a superstep runs with no host read. Returns ``(state, out,
+    sweeps [P], last_changed [P], host_syncs)``."""
     if not first:       # superstep 0 has no incoming messages (Alg. 1)
         state = program.apply_frontier(sgs, params, state, merged_v, ec)[0]
     spec = program.sweep_spec
@@ -555,7 +569,7 @@ def _batched_local_phase(program: VertexProgram, sgs: DeviceSubgraph,
     while True:
         live = (ch > 0) & (i < bound)
         syncs += 1
-        if not bool(live.any()):
+        if not keep_going(live):
             break
         st2, ch2 = sweep_all(state)
         state = _state_where(live, st2, state)
@@ -778,15 +792,122 @@ def make_sim_runner(program: VertexProgram, cfg: EngineConfig, n_slots: int,
 # --------------------------------------------------------------------------- #
 # shard_map backend (SPMD over torch.distributed)
 # --------------------------------------------------------------------------- #
+class ShardStep:
+    """One ``shard_map`` rank's share of a BSP query over its block ``sgs``
+    (a stacked ``DeviceSubgraph`` of one), built per query: the pieces of
+    ``make_bsp_runner``'s loop, split out so that a superstep can run with
+    no host read (the capacity dry run, ``launch/dryrun_graph.py``, runs
+    them on fake tensors in a fake world of ranks).
+
+      - ``start(warm)`` -> ``(state, merged_v, last_out)``: the initial
+        state (warm-started when ``warm`` is given) and merged view;
+      - ``self(state, merged_v, last_out, first, keep_going)`` -> one
+        superstep, ``(state, merged_v, last_out, counts, sweeps,
+        host_syncs)``: ``counts`` is the int32 pair ``(messages, active
+        partitions)`` all-reduced over the subgraph group and left on the
+        device, ``keep_going`` the local phase's continue test;
+      - ``finish(state, tot_sweeps)`` -> the global [P, ...] results and
+        [P] sweeps, all-gathered over the subgraph group in partition
+        order (still on the device).
+
+    ``ex`` (a ``sbs.ShardExchange`` over ``pl.sub_group``) and ``ec`` (an
+    ``EdgeCombine`` over ``pl.edge_group``) count the collectives' calls
+    and payload bytes; ``payload()`` sums their bytes by kind."""
+
+    def __init__(self, program: VertexProgram, cfg: EngineConfig, pl,
+                 n_slots: int, sweep_backend: str, sgs: DeviceSubgraph, lay,
+                 params, ex: "sbs.ShardExchange", ec: EdgeCombine):
+        self.program, self.cfg, self.pl = program, cfg, pl
+        self.n_slots, self.sweep_backend = n_slots, sweep_backend
+        self.sgs, self.lay, self.params, self.ex, self.ec = (
+            sgs, lay, params, ex, ec)
+        self.ident = program.identity
+        self.S = pl.n_edge
+        self.n_loc = -(-(n_slots + 1) // self.S)
+        self.exchange = self._exchange_sharded \
+            if cfg.shard_slots and self.S > 1 else self._exchange_dense
+        self.slot = sgs.slot.long()
+        self.own = (self.slot % self.S) == pl.shard
+
+    def payload(self) -> dict:
+        """Payload bytes both contexts' collectives moved so far, by kind."""
+        return {k: self.ex.bytes[k] + self.ec.bytes[k] for k in self.ex.bytes}
+
+    def _exchange_dense(self, out, changed):
+        sgs, n_slots, ident = self.sgs, self.n_slots, self.ident
+        buf = sbs.scatter_combine(out, sgs.slot, changed, n_slots,
+                                  self.program.combiner, ident)[0]
+        if self.cfg.sparse_sync_capacity > 0:
+            merged = sbs.compact_allgather_exchange(
+                buf, ident, self.program.combiner, n_slots,
+                self.cfg.sparse_sync_capacity, self.ex)
+        else:
+            merged = self.ex.all_combine(buf, self.program.combiner)
+        merged[n_slots] = ident.item()
+        return sbs.gather_merged(merged, sgs.slot)
+
+    def _exchange_sharded(self, out, changed):
+        # frontier slots belong to the edge shard slot % S; the subgraph
+        # all-reduce runs on that 1/S slice and the merged view is rebuilt
+        # with an edge-group combine
+        S, n_loc, slot, iv = self.S, self.n_loc, self.slot, self.ident.item()
+        owned = changed & self.own
+        slot_loc = torch.where(owned, slot // S, n_loc)
+        buf = sbs.scatter_combine(out, slot_loc, owned, n_loc,
+                                  self.program.combiner, self.ident)[0]
+        merged = self.ex.all_combine(buf, self.program.combiner)
+        gather_own = self.sgs.frontier & self.own
+        mv = torch.where(gather_own[..., None],
+                         merged[torch.clamp(slot // S, 0, n_loc)], iv)
+        if self.program.combiner == "min":
+            return self.ec.min(mv)
+        if self.program.combiner == "max":
+            return self.ec.max(mv)
+        return self.ec.sum(torch.where(gather_own[..., None], mv,
+                                       torch.zeros_like(mv)))
+
+    def start(self, warm=None):
+        program, sgs = self.program, self.sgs
+        state = program.init(sgs, self.params, self.ec)
+        if warm is not None:
+            state = program.warm_init(sgs, self.params, state, warm)
+        merged_v = torch.full((1, sgs.v_max, program.payload),
+                              self.ident.item(), dtype=program.torch_dtype,
+                              device=sgs.device)
+        return state, merged_v, merged_v
+
+    def __call__(self, state, merged_v, last_out, first: bool,
+                 keep_going: Callable[[torch.Tensor], bool] = _any_live):
+        program, sgs, cfg = self.program, self.sgs, self.cfg
+        state, out, sweeps, last_ch, syncs = _batched_local_phase(
+            program, sgs, self.lay, self.params, state, merged_v, self.ec,
+            cfg.local_bound, first, self.sweep_backend, keep_going)
+        ref = merged_v if cfg.lean_frontier else last_out
+        changed = program.changed_mask(out, ref) & sgs.frontier
+        merged_v = self.exchange(out, changed)
+        counts = self.ex.all_sum(torch.stack([
+            changed.sum(dtype=torch.int32),
+            (last_ch > 0).sum(dtype=torch.int32)]))
+        return state, merged_v, out, counts, sweeps, syncs
+
+    def finish(self, state, tot_sweeps):
+        order = np.argsort(np.asarray(self.pl.sub_parts))  # rank -> part
+        res = self.program.result(self.sgs, self.params, state)
+        parts = self.ex.all_gather(res)
+        sw = self.ex.all_gather(tot_sweeps)
+        return (torch.cat([parts[i] for i in order]),
+                torch.cat([sw[i] for i in order]))
+
+
 def make_bsp_runner(program: VertexProgram, mesh, cfg: EngineConfig,
                     n_slots: int, *, warm_start: bool = False,
                     batch: bool = False,
                     partition_backends=None) -> Callable:
     """Build this rank's ``shard_map`` BSP loop
 
-        runner(sgs, lay, params, warm=None) ->
+        runner(sgs, lay, params, warm=None, on_step=None) ->
             (results, supersteps, total_messages, sweeps_per_part,
-             host_syncs, collectives)
+             host_syncs, collectives, payload_bytes)
 
     over the rank's block of ``mesh`` (``core/mesh.py``): ``sgs`` is its
     stacked ``DeviceSubgraph`` of one (``_device_subgraph(block=)``),
@@ -794,7 +915,13 @@ def make_bsp_runner(program: VertexProgram, mesh, cfg: EngineConfig,
     ``warm`` (``warm_start=True``) its [1, v_max, K] warm block. Every rank
     of the mesh calls the runner together. ``results`` is the global
     [P, v_max(, ...)] result on every rank, ``sweeps_per_part`` a [P]
-    int64 array, ``collectives`` the collective calls this rank issued.
+    int64 array, ``collectives`` the collective calls this rank issued and
+    ``payload_bytes`` their payload bytes by kind (``{"all_reduce": n,
+    "all_gather": n}``: the bytes of the tensor the rank contributes, a
+    bool as the uint8 it sends). ``on_step(msgs, active, sweeps, moved)``
+    is called after every superstep with the rank's [1] sweeps tensor and
+    the payload bytes that superstep moved, by kind. The superstep itself
+    is ``ShardStep``.
 
     Per superstep, as the reference's ``shard_map`` body: apply the merged
     view, sweep to the local fixed point (``_batched_local_phase``; each
@@ -818,7 +945,7 @@ def make_bsp_runner(program: VertexProgram, mesh, cfg: EngineConfig,
 
         runner(sgs, lay, params_list, warm=None) ->
             (results [B, ...], supersteps [B], messages [B],
-             sweeps [B, P], host_syncs, collectives)
+             sweeps [B, P], host_syncs, collectives, payload_bytes)
 
     running the lanes in turn, as the reference's ``lax.scan`` over
     lanes does."""
@@ -832,93 +959,43 @@ def make_bsp_runner(program: VertexProgram, mesh, cfg: EngineConfig,
         sweep_backend = partition_backends[pl.part]
     else:
         sweep_backend = edge_backend
-    K = program.payload
-    ident = program.identity
-    iv = ident.item()
-    S = pl.n_edge
-    shard_slots = cfg.shard_slots and S > 1
-    n_loc = -(-(n_slots + 1) // S)
-    order = np.argsort(np.asarray(pl.sub_parts))     # group rank -> part
 
-    def runner(sgs: DeviceSubgraph, lay, params, warm=None):
+    def runner(sgs: DeviceSubgraph, lay, params, warm=None,
+               on_step: Optional[Callable] = None):
         if (warm is not None) != warm_start:
             raise ValueError(f"this runner was built with warm_start="
                              f"{warm_start}; pass warm accordingly")
         if sgs.n_parts != 1:
             raise ValueError(f"a shard_map rank holds one partition's "
                              f"block, got {sgs.n_parts}")
-        dev = sgs.device
         ex = sbs.ShardExchange(pl.sub_group)
         ec = EdgeCombine(pl.edge_group)
-        params = params_to_device(params, dev)
-        slot = sgs.slot.long()
-        own = (slot % S) == pl.shard
-
-        def exchange_dense(out, changed):
-            buf = sbs.scatter_combine(out, sgs.slot, changed, n_slots,
-                                      program.combiner, ident)[0]
-            if cfg.sparse_sync_capacity > 0:
-                merged = sbs.compact_allgather_exchange(
-                    buf, ident, program.combiner, n_slots,
-                    cfg.sparse_sync_capacity, ex)
-            else:
-                merged = ex.all_combine(buf, program.combiner)
-            merged[n_slots] = iv
-            return sbs.gather_merged(merged, sgs.slot)
-
-        def exchange_sharded(out, changed):
-            # frontier slots belong to the edge shard slot % S; the
-            # subgraph all-reduce runs on that 1/S slice and the merged
-            # view is rebuilt with an edge-group combine
-            owned = changed & own
-            slot_loc = torch.where(owned, slot // S, n_loc)
-            buf = sbs.scatter_combine(out, slot_loc, owned, n_loc,
-                                      program.combiner, ident)[0]
-            merged = ex.all_combine(buf, program.combiner)
-            gather_own = sgs.frontier & own
-            mv = torch.where(gather_own[..., None],
-                             merged[torch.clamp(slot // S, 0, n_loc)], iv)
-            if program.combiner == "min":
-                return ec.min(mv)
-            if program.combiner == "max":
-                return ec.max(mv)
-            return ec.sum(torch.where(gather_own[..., None], mv,
-                                      torch.zeros_like(mv)))
-
-        exchange = exchange_sharded if shard_slots else exchange_dense
-        state = program.init(sgs, params, ec)
-        if warm_start:
-            state = program.warm_init(sgs, params, state, warm)
-        merged_v = torch.full((1, sgs.v_max, K), iv,
-                              dtype=program.torch_dtype, device=dev)
-        last_out = merged_v
+        params = params_to_device(params, sgs.device)
+        rs = ShardStep(program, cfg, pl, n_slots, sweep_backend, sgs, lay,
+                       params, ex, ec)
+        state, merged_v, last_out = rs.start(warm)
         step = tot_msgs = syncs = 0
         msgs = active = 1
-        tot_sweeps = torch.zeros(1, dtype=torch.int32, device=dev)
+        tot_sweeps = torch.zeros(1, dtype=torch.int32, device=sgs.device)
+        moved = rs.payload()
         while step == 0 or ((msgs > 0 or active > 0)
                             and step < cfg.max_supersteps):
-            state, out, sweeps, last_ch, s = _batched_local_phase(
-                program, sgs, lay, params, state, merged_v, ec,
-                cfg.local_bound, step == 0, sweep_backend)
-            ref = merged_v if cfg.lean_frontier else last_out
-            changed = program.changed_mask(out, ref) & sgs.frontier
-            merged_v = exchange(out, changed)
-            last_out = out
-            counts = ex.all_sum(torch.stack([
-                changed.sum(dtype=torch.int32),
-                (last_ch > 0).sum(dtype=torch.int32)]))
+            state, merged_v, last_out, counts, sweeps, s = rs(
+                state, merged_v, last_out, step == 0)
             msgs, active = counts.tolist()
             tot_sweeps += sweeps
             tot_msgs += msgs
             syncs += s + 1
             step += 1
-        res = program.result(sgs, params, state)
-        parts = ex.all_gather(res)
-        results = torch.cat([parts[i] for i in order])
-        sw = ex.all_gather(tot_sweeps)
-        sweeps_h = torch.cat([sw[i] for i in order]).cpu().numpy()
-        return (results, step, tot_msgs, sweeps_h.astype(np.int64), syncs,
-                ex.calls + ec.calls)
+            if on_step is not None:
+                now = rs.payload()
+                on_step(msgs, active, sweeps,
+                        {k: now[k] - moved[k] for k in now})
+                moved = now
+        results, sweeps_all = rs.finish(state, tot_sweeps)
+        return (results, step, tot_msgs,
+                sweeps_all.cpu().numpy().astype(np.int64), syncs,
+                ex.calls + ec.calls, rs.payload())
 
     if not batch:
         return runner
@@ -929,10 +1006,10 @@ def make_bsp_runner(program: VertexProgram, mesh, cfg: EngineConfig,
                              f"{warm_start}; pass warm accordingly")
         lanes = [runner(sgs, lay, p, None if warm is None else warm[i])
                  for i, p in enumerate(params_list)]
-        res, steps, msgs, sweeps, syncs, calls = zip(*lanes)
+        res, steps, msgs, sweeps, syncs, calls, moved = zip(*lanes)
         return (torch.stack(res), np.asarray(steps, np.int64),
                 np.asarray(msgs, np.int64), np.stack(sweeps), sum(syncs),
-                sum(calls))
+                sum(calls), {k: sum(m[k] for m in moved) for k in moved[0]})
 
     return batched
 
@@ -974,12 +1051,20 @@ def run_shard_map(program: VertexProgram, pg: PartitionedGraph, mesh,
     if warm:
         wblk = torch.from_numpy(np.ascontiguousarray(_warm_block(
             program, pg, init_state)[pl.part:pl.part + 1])).to(dev)
+    stats = ExecutionStats()
+
+    def on_step(msgs, active, sweeps, moved):
+        stats.messages_per_step.append(msgs)
+        stats.active_parts_per_step.append(active)
+        stats.rank_sweeps_per_step.append(int(sweeps.item()))
+        stats.collective_bytes_per_step.append(sum(moved.values()))
+
     t0 = time.perf_counter()
-    results, steps, tot_msgs, sweeps_h, syncs, calls = runner(
-        sgs, lay_blk, params, wblk)
+    results, steps, tot_msgs, sweeps_h, syncs, calls, moved = runner(
+        sgs, lay_blk, params, wblk, on_step=on_step if cfg.trace else None)
     results = results.cpu().numpy()
-    stats = ExecutionStats(
-        supersteps=steps, total_messages=tot_msgs,
+    stats = dataclasses.replace(
+        stats, supersteps=steps, total_messages=tot_msgs,
         processed_edges=int(
             (sweeps_h * pg.edges_per_part.astype(np.int64)).sum()),
         total_bytes=steps * _exchange_bytes_per_step(
@@ -988,7 +1073,7 @@ def run_shard_map(program: VertexProgram, pg: PartitionedGraph, mesh,
         backend_flops=int((sweeps_h * _flops_per_sweep(
             program, edge_backend, pg, lay, assignment,
             n_edge_shards=pl.n_edge)).sum()),
-        host_syncs=syncs, collectives=calls,
+        host_syncs=syncs, collectives=calls, collective_bytes=moved,
         partition_sweeps=[int(x) for x in sweeps_h])
     if edge_backend in ("pallas_tiles", "auto"):
         # counted from the geometry: a rank realizes only its own tiles

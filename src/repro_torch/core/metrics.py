@@ -70,6 +70,15 @@ class ExecutionStats:
     host_syncs: int = 0                # device->host reads the loop made
     collectives: int = 0               # torch.distributed calls this rank
                                        # made (shard_map backend)
+    collective_bytes: dict = dataclasses.field(default_factory=dict)
+                                       # their payload bytes by kind
+                                       # ('all_reduce', 'all_gather')
+    collective_bytes_per_step: list = dataclasses.field(
+        default_factory=list)          # shard_map trace: payload bytes of
+                                       # each superstep, every kind
+    rank_sweeps_per_step: list = dataclasses.field(default_factory=list)
+                                       # shard_map trace: this rank's
+                                       # partition's sweeps each superstep
     queue_time: float = 0.0            # admission-queue dwell before launch
                                        # (serving/batcher.py fills it in)
     batch_size: int = 1                # lanes of the micro-batched launch

@@ -94,14 +94,18 @@ def all_combine(x: torch.Tensor, combiner: str, group) -> torch.Tensor:
 
 class ShardExchange:
     """Collectives over one process group (one rank per partition: the
-    ranks of one edge shard). ``calls`` counts the collectives issued."""
+    ranks of one edge shard). ``calls`` counts the collectives issued,
+    ``bytes`` their payload by kind: the bytes of the tensor this rank
+    contributes (an all-gather's input, a bool as the uint8 it sends)."""
 
     def __init__(self, group):
         self.group = group
         self.calls = 0
+        self.bytes = {"all_reduce": 0, "all_gather": 0}
 
     def all_combine(self, buf: torch.Tensor, combiner: str) -> torch.Tensor:
         self.calls += 1
+        self.bytes["all_reduce"] += buf.numel() * buf.element_size()
         return all_combine(buf, combiner, self.group)
 
     def all_sum(self, x: torch.Tensor) -> torch.Tensor:
@@ -117,6 +121,7 @@ class ShardExchange:
                for _ in range(dist.get_world_size(self.group))]
         dist.all_gather(out, wire, group=self.group)
         self.calls += 1
+        self.bytes["all_gather"] += wire.numel() * wire.element_size()
         return [o.to(torch.bool) for o in out] if src.dtype == torch.bool \
             else out
 

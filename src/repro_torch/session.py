@@ -541,6 +541,7 @@ class GraphSession:
         t0 = time.perf_counter()
         res, steps, msgs, sweeps, syncs, *coll = runner(sgs, lay, params,
                                                        wblk)
+        coll, moved = coll or (0, {})
         self.stats.device_launches += 1
         res = res.cpu().numpy()
         wall = time.perf_counter() - t0
@@ -550,7 +551,8 @@ class GraphSession:
         stats = self._execution_stats(program, cfg, steps, msgs, sweeps,
                                       wall, compile_time, eb)
         stats.host_syncs = syncs + 1
-        stats.collectives = sum(coll)
+        stats.collectives = coll
+        stats.collective_bytes = moved
         stats.evicted_runners = evicted
         if program.monotone:
             self._remember(program, wkey, res)
@@ -657,6 +659,7 @@ class GraphSession:
         t0 = time.perf_counter()
         res_b, steps_b, msgs_b, sweeps_b, syncs, *coll = runner(
             sgs, lay, list(params_list), wstack)
+        coll, moved = coll or (0, {})
         self.stats.device_launches += 1
         res_b = res_b.cpu().numpy()
         wall = time.perf_counter() - t0
@@ -669,7 +672,8 @@ class GraphSession:
                                        int(msgs_b[i]), sweeps_b[i], wall,
                                        compile_time, eb)
             st.host_syncs = syncs + 1
-            st.collectives = sum(coll)
+            st.collectives = coll
+            st.collective_bytes = moved
             st.evicted_runners = evicted
             st.batch_size = B
             if use_warm:

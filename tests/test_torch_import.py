@@ -219,6 +219,29 @@ def test_graph_engine_loads_no_lm_stack():
     assert out.returncode == 0, out.stderr + out.stdout
 
 
+def test_launch_dry_run_tools_load_no_jax(tmp_path):
+    """``repro_torch.launch.mesh``, ``dryrun_graph``, ``fake_stats`` and
+    ``roofline`` load no ``jax`` and no module of the JAX package, nor
+    does running a dry-run cell, the roofline over it and
+    ``param_counts``; the cell leaves no process group behind."""
+    code = ("import sys, torch.distributed as dist\n"
+            "import repro_torch.launch.mesh, repro_torch.launch.fake_stats\n"
+            "from repro_torch.launch import dryrun_graph as D, roofline as R\n"
+            "rec = D.run_cell('kron26', 'sssp', 'multipod', sys.argv[1])\n"
+            "assert rec['status'] == 'ok', rec\n"
+            "assert not dist.is_initialized()\n"
+            "R.main(['--dry', sys.argv[1], '--out', sys.argv[1] + '/r.md'])\n"
+            "R.param_counts('olmo_1b')\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]\n"
+            "print(bad); assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr + out.stdout
+
+
 def test_lm_stack_loads_no_jax():
     """``repro_torch.models`` (``ssm`` too), ``repro_torch.configs`` (every
     arch module), ``repro_torch.training`` (every module) and
