@@ -370,6 +370,35 @@ Phases (the run exits non-zero if any of them fails):
      each superstep's payload bytes exactly (its base plus its sweeps
      times the per-sweep bytes), and temporaries at least
      ``DRY_TEMP_RATIO`` of the rank's measured peak above its block.
+ 19. The LM dry run (``repro_torch.launch.dryrun``), in a subprocess of
+     ``LM_DRY_WORKERS`` processes, on fake tensors in fake worlds of 256
+     and 512 ranks. Its two jobs use the CPU only: they start right after
+     phase 7 and run beside phases 10a-18, and phase 19 waits for them
+     and checks them. 19a: every cell of the 10 LM archs x 4 shapes x {one
+     pod, two pods}, base variant, through ``run_cell``, then the ``opt``
+     variant of the three MoE archs on both meshes, then
+     ``launch.roofline`` against the card's ``total_memory``: each
+     cell's status and skip reason must be the JAX package's
+     ``shape_applicable`` (``LM_SUBQUADRATIC`` run ``long_500k``, the
+     other eight skip it with ``LM_SKIP_REASON``), none an error; each
+     prints its arguments and temporaries per rank, its collective
+     payload bytes by kind, its three roofline terms and ``fits_hbm``.
+     19b: olmo-1b at full width, cut to ``LM22_LAYERS`` layers, float32,
+     on a real ``(2, 2)`` gloo job of 4 CPU processes (``LM22_DEVICE``:
+     gloo over CUDA tensors did not finish the train step's collectives
+     with torch 2.11 on an H100, and on a CPU mesh DTensor's gloo
+     collectives hand back host tensors): a ``LM22_PROMPT``-token prefill and
+     ``LM22_STEPS`` decode steps across the cache's two sequence blocks,
+     then one decode step and one train step counted by ``OpCounter``,
+     on DTensors placed by the rules. The dry run of each rank (a fake
+     (2, 2) world, same config and shapes) must give its argument bytes
+     and its collective payload bytes by kind exactly; the sharded
+     prefill and decode logits of every step and the train loss must
+     equal the unsharded port's on the same weights within
+     ``LM22_ATOL``. On the card, the same train step runs as rank 0 of a
+     fake (2, 2) world over real CUDA tensors (``LM_PEAK_SCRIPT``): the
+     dry run's temporaries must be at least ``LM_PEAK_RATIO`` of the
+     peak it allocates above what it holds before.
 
 A small-graph check holds the three programs against independent numpy
 oracles on all three backends. The kernel JSON line gives each kernel's
@@ -6325,6 +6354,435 @@ def dryrun_path(sm: Smoke, reports: list) -> dict:
     sm.note(f"phase 18: {rec['seconds']:.1f}s")
     return rec
 
+# --------------------------------------------------------------------------- #
+# phase 19: the LM dry run
+# --------------------------------------------------------------------------- #
+LM_DRY_WORKERS = 4            # 19a: cells run in this many processes
+LM_DRY_TIMEOUT_S = 900        # the 19a subprocess is killed this long
+                              # after its start (beside phases 10a-18)
+LM_ARCHS = ("deepseek_v3_671b", "phi35_moe_42b", "olmo_1b", "phi4_mini_3p8b",
+            "llama3_405b", "stablelm_3b", "internvl2_26b",
+            "seamless_m4t_large_v2", "jamba_v01_52b", "xlstm_350m")
+LM_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
+LM_OPT_ARCHS = ("deepseek_v3_671b", "phi35_moe_42b", "jamba_v01_52b")
+# the JAX package's models/config.py shape_applicable: long_500k runs only
+# for the sub-quadratic archs, every other cell runs
+LM_SUBQUADRATIC = ("jamba_v01_52b", "xlstm_350m")
+LM_SKIP_REASON = ("full softmax attention at 524288-token context is "
+                  "quadratic; config defines no sub-quadratic attention "
+                  "(skip per spec; run for ssm/hybrid archs)")
+LM22_LAYERS = 2               # 19b: olmo-1b at full width, this deep
+# 19b's ranks run on the CPU: with torch 2.11 on an H100 a gloo job over
+# CUDA tensors never finished the train step's collectives (all four ranks
+# ran to the time limit), a "cuda" DeviceMesh over gloo crashed, and on a
+# "cpu" mesh DTensor's gloo collectives hand back host tensors, so the
+# decode step ran on the CPU whatever its inputs' device (no CUDA
+# allocation at all)
+LM22_DEVICE = "cpu"
+LM22_TRAIN = dict(kind="train", seq_len=128, global_batch=4)
+LM22_DECODE = dict(kind="decode", seq_len=64, global_batch=4)
+LM22_PROMPT, LM22_STEPS = 28, 8   # 19b's decode: a 28-token prefill, then
+# 8 steps at positions 28-35, across the cache's two blocks of 32
+LM22_ATOL = 1e-4              # float32, the bar of tests/test_torch_models.py
+LM22_TIMEOUT_S = 240
+# 19b: the dry run's temporaries of 19b's train step against the peak that
+# step allocates on the card as rank 0 of a fake (2, 2) world (real CUDA
+# tensors, collectives that allocate their outputs and move nothing);
+# like 18b's DRY_TEMP_RATIO, an under-count would call a misfit a fit
+LM_PEAK_RATIO = 0.8
+LM_PEAK_TIMEOUT_S = 180
+
+LM_PEAK_SCRIPT = r"""
+import dataclasses, json, sys
+sys.path.insert(0, sys.argv[1])
+import numpy as np, torch
+from torch.distributed.device_mesh import DeviceMesh
+from repro_torch.configs import get_config
+from repro_torch.launch import dryrun as D
+from repro_torch.launch.mesh import fake_world
+from repro_torch.models import model as M, sharded
+from repro_torch.sharding import rules as R
+from repro_torch.training import steps as S
+from repro_torch.training.optimizer import adamw_init
+spec = json.loads(sys.argv[2])
+cfg = dataclasses.replace(D.cut_config(get_config("olmo_1b"),
+                                       {"group0": spec["layers"]}),
+                          activation_dtype="float32")
+tr = spec["train"]
+tok = torch.from_numpy(np.random.default_rng(19).integers(
+    0, cfg.vocab, (tr["global_batch"], tr["seq_len"])).astype(np.int32))
+dev = torch.device("cuda")
+with fake_world(4, rank=0):
+    mesh = DeviceMesh("cuda", torch.arange(4).reshape(2, 2),
+                      mesh_dim_names=("data", "model"))
+    with R.set_mesh(mesh):
+        model = M.init_model(cfg, seed=0, device=dev)
+        sharded.shard_params(model, mesh)
+        bpl = R.to_placements((("data",), None), mesh)
+        tb = {k: sharded.shard_tensor(tok.to(dev), mesh, bpl)
+              for k in ("tokens", "labels")}
+        state = S.TrainState(params=model, opt=adamw_init(model))
+        step = S.make_train_step(cfg)
+        step(state, tb)               # the libraries' workspaces, once
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        step(state, tb)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+args = sum(t.to_local().numel() * t.to_local().element_size()
+           for t in list(model.parameters()) + list(state.opt.m.values())
+           + list(state.opt.v.values()) + list(tb.values())) + 4
+print(json.dumps(dict(held=held, peak=peak, args=args)))
+"""
+
+LM_DRY_SCRIPT = r"""
+import dataclasses, json, os, sys, time
+src, out = sys.argv[1], sys.argv[2]
+sys.path.insert(0, src)
+os.environ["OMP_NUM_THREADS"] = "1"
+from repro_torch.configs import get_config
+from repro_torch.launch import dryrun as D, roofline as R
+from repro_torch.launch.mesh import fake_world, make_mesh
+from repro_torch.models.config import SHAPES
+if __name__ == "__main__":
+    t = time.perf_counter()
+    tasks = [(a, s, m, out, True, "base") for a in D.LM_ARCHS
+             for s in SHAPES for m in ("single", "multipod")]
+    tasks += [(a, s, m, out, True, "opt") for a in sys.argv[4].split(",")
+              for s in SHAPES for m in ("single", "multipod")]
+    recs = list(D.run_cells(D.longest_first(tasks), int(sys.argv[3])))
+    cells_s = time.perf_counter() - t
+    cap = R.hbm_capacity()
+    rows = [R.analyze_record(r, cap) for r in recs]
+    t = time.perf_counter()
+    cfg = dataclasses.replace(D.cut_config(get_config("olmo_1b"),
+                                           {"group0": int(sys.argv[5])}),
+                              activation_dtype="float32")
+    dry = {}
+    for kind, shape in json.loads(sys.argv[6]).items():
+        dry[kind] = []
+        for r in range(4):
+            with fake_world(4, rank=r):
+                d = D.lower_cell("olmo_1b", shape, None, cfg=cfg,
+                                 mesh=make_mesh((2, 2), ("data", "model")))
+            dry[kind].append(dict(memory=d["memory"], walk=d["walk"]))
+    with open(out + "/phase19.json", "w") as f:
+        json.dump(dict(rows=rows, cells_s=cells_s, hbm_cap=cap, dry=dry,
+                       dry_s=time.perf_counter() - t), f, default=str)
+    print("LM_DRY_OK")
+"""
+
+LM22_SCRIPT = r"""
+import copy, dataclasses, json, os, sys
+sys.path.insert(0, sys.argv[1])
+import numpy as np, torch, torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+dev = torch.device(sys.argv[3])
+torch.set_num_threads(2)
+dist.init_process_group("gloo", init_method=sys.argv[2], rank=rank,
+                        world_size=world)
+from repro_torch.configs import get_config
+from repro_torch.launch import dryrun as D
+from repro_torch.launch.fake_stats import OpCounter
+from repro_torch.models import model as M, sharded
+from repro_torch.sharding import rules as R
+from repro_torch.training import steps as S
+from repro_torch.training.optimizer import adamw_init
+spec = json.loads(sys.argv[4])
+cfg = dataclasses.replace(D.cut_config(get_config("olmo_1b"),
+                                       {"group0": spec["layers"]}),
+                          activation_dtype="float32")
+mesh = DeviceMesh(dev.type, torch.arange(4).reshape(2, 2),
+                  mesh_dim_names=("data", "model"))
+rng = np.random.default_rng(19)
+tr, de = spec["train"], spec["decode"]
+P, N = spec["prompt"], spec["steps"]
+tok = torch.from_numpy(rng.integers(0, cfg.vocab, (tr["global_batch"],
+                       tr["seq_len"])).astype(np.int32))
+tok = tok.to(dev)
+dtok = tok[:de["global_batch"], :P + N].contiguous()
+model = M.init_model(cfg, seed=0, device=dev)
+
+def serve(put):
+    # a P-token prefill into a cache of the decode shape's length, then N
+    # decode steps across the cache's blocks: each step's logits
+    lg, caches = M.prefill(model, {"tokens": put(dtok[:, :P].contiguous())},
+                           cfg, de["seq_len"])
+    out = [lg]
+    for i in range(N):
+        lg, caches = M.decode_step(model, caches, {"tokens": put(
+            dtok[:, P + i:P + i + 1].contiguous())}, cfg)
+        out.append(lg)
+    return out, caches
+
+with torch.no_grad():
+    lg_ref, _ = serve(lambda t: t)
+    loss_ref = S.loss_fn(model, {"tokens": tok, "labels": tok},
+                         cfg)[0].item()
+
+def nbytes(ts):
+    return sum(t.to_local().numel() * t.to_local().element_size()
+               for t in ts)
+
+def measure(fn):
+    c = OpCounter()
+    with c:
+        out = fn()
+    return out, c.counts()
+
+rep = {}
+with R.set_mesh(mesh):
+    sharded.shard_params(model, mesh)
+    bpl = R.to_placements((("data",), None), mesh)
+
+    def put(t):
+        return sharded.shard_tensor(t, mesh, bpl)
+
+    with torch.no_grad():
+        lgs, caches = serve(put)
+    # each rank's block of each step's logits against the same rows and
+    # vocab columns of the one-card port's
+    err = max((lg.to_local().cpu() - sharded.local_block(
+        want, mesh, lg.placements).cpu()).abs().max().item()
+        for lg, want in zip(lgs, lg_ref))
+    # the serve step's counts on the filled cache, at position P + N
+    db = {"tokens": put(dtok[:, -1:].contiguous())}
+    args = nbytes(list(model.parameters()) + list(db.values())
+                  + [t for c in caches for t in c.values()
+                     if isinstance(t, torch.Tensor)])
+    _, counts = measure(lambda: S.make_serve_step(cfg)(model, caches, db))
+    rep["decode"] = dict(args=args, counts=counts, err=err,
+                         idx=caches[0]["idx"])
+    del caches
+    tb = {k: sharded.shard_tensor(tok, mesh, bpl) for k in ("tokens",
+                                                          "labels")}
+    state = S.TrainState(params=model, opt=adamw_init(model))
+    args = nbytes(list(model.parameters()) + list(state.opt.m.values())
+                  + list(state.opt.v.values()) + list(tb.values())) + 4
+    (_, met), counts = measure(lambda: S.make_train_step(cfg)(state, tb))
+    loss = R._redistribute(met["loss"], mesh, R.to_placements(
+        (), mesh)).to_local().item()
+    rep["train"] = dict(args=args, counts=counts, loss=loss,
+                        loss_ref=loss_ref, err=abs(loss - loss_ref))
+with open(os.path.join(sys.argv[5], f"rank_{rank}.json"), "w") as f:
+    json.dump(rep, f)
+dist.destroy_process_group()
+print("LM22_OK", rank)
+"""
+
+
+def lm_dry_cells_part(sm: Smoke, rows: list) -> list:
+    """19a: every cell's status against the JAX package's, and its
+    numbers."""
+    out, seen = [], set()
+    for r in rows:
+        key = (r["arch"], r["shape"], r["mesh"], r["variant"])
+        seen.add(key)
+        label = f"19a {' '.join(key)}"
+        if r["status"] == "error":
+            sm.check(False, f"{label}: error {r.get('error')}")
+            continue
+        runs = r["shape"] != "long_500k" or r["arch"] in LM_SUBQUADRATIC
+        if r["status"] == "skipped":
+            sm.check(not runs and r["reason"] == LM_SKIP_REASON,
+                     f"{label}: skipped with the reference's reason")
+            continue
+        sm.check(runs, f"{label}: ok where the reference runs it")
+        m, t, w = r["memory"], r["terms"], r["walk"]
+        row = dict(arch=r["arch"], shape=r["shape"], mesh=r["mesh"],
+                   variant=r["variant"], n_devices=r["n_devices"],
+                   run_s=r["run_s"],
+                   args_gib=m["argument_size_in_bytes"] / 2**30,
+                   temp_gib=m["temp_size_in_bytes"] / 2**30,
+                   coll_gib=w["collective_bytes_per_device"] / 2**30,
+                   by_kind=w["collective_by_kind"],
+                   dot_flops=w["dot_flops_per_device"],
+                   model_flops=r["model_flops"],
+                   useful_ratio=r["useful_ratio"],
+                   fits_hbm=r["fits_hbm"], dominant=r["dominant"], **t)
+        out.append(row)
+        kinds = ", ".join(f"{k} {v / 2**30:.3f}"
+                          for k, v in sorted(row["by_kind"].items()))
+        sm.note(f"{label} ({r['n_devices']} ranks, {r['run_s']:.1f}s): "
+                f"args {row['args_gib']:.3f} GiB, temp "
+                f"{row['temp_gib']:.3f} GiB, collectives GiB {{{kinds}}}, "
+                f"compute {t['compute_s']:.3e} s, memory "
+                f"{t['memory_s']:.3e} s, collective {t['collective_s']:.3e}"
+                f" s ({row['dominant']}), fits {r['fits_hbm']}")
+    want = {(a, s, m, "base") for a in LM_ARCHS for s in LM_SHAPES
+            for m in ("single", "multipod")}
+    want |= {(a, s, m, "opt") for a in LM_OPT_ARCHS for s in LM_SHAPES
+             for m in ("single", "multipod")}
+    sm.check(seen == want, f"19a: all {len(want)} cells ran (missing "
+             f"{sorted(want - seen)[:6]})")
+    n_ok = sum(1 for r in rows if r["status"] == "ok"
+               and r["variant"] == "base")
+    sm.check(n_ok == 64, f"19a: {n_ok} base cells ok (64 expected, 16 "
+             f"skipped)")
+    return out
+
+
+def lm_peak_run(sm: Smoke) -> "dict | None":
+    """19b's train step as rank 0 of a fake (2, 2) world on the card: the
+    bytes held before the step and its peak (``LM_PEAK_SCRIPT``)."""
+    spec = json.dumps(dict(layers=LM22_LAYERS, train=LM22_TRAIN))
+    try:
+        p = subprocess.run([sys.executable, "-c", LM_PEAK_SCRIPT,
+                            str(ROOT / "src"), spec], capture_output=True,
+                           text=True, timeout=LM_PEAK_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        sm.check(False, f"19b: the peak run passed {LM_PEAK_TIMEOUT_S} s")
+        return None
+    if not sm.check(p.returncode == 0, f"19b: the peak run exited "
+                    f"{p.returncode}: {(p.stdout + p.stderr)[-1500:]}"):
+        return None
+    return json.loads(p.stdout.strip().splitlines()[-1])
+
+
+def lm_ranks_part(sm: Smoke, reports: list, dry: dict,
+                  peak: "dict | None") -> list:
+    """19b: each rank's decode and train step against the dry run of the
+    same rank, and rank 0's train temporaries against the peak it
+    allocates on the card."""
+    out = []
+    if peak is not None:
+        d = dry["train"][0]["memory"]
+        temp, args = d["temp_size_in_bytes"], d["argument_size_in_bytes"]
+        measured = peak["peak"] - peak["held"]
+        ratio = temp / measured if measured > 0 else float("inf")
+        sm.check(peak["args"] == args, f"19b train rank 0 on the card: "
+                 f"argument bytes {peak['args']} = dry {args}")
+        sm.check(ratio >= LM_PEAK_RATIO,
+                 f"19b train rank 0 on the card: dry temporaries {temp} B "
+                 f"/ measured peak above the {peak['held']} B held "
+                 f"{measured} B = {ratio:.4f} (>= {LM_PEAK_RATIO})")
+        out.append(dict(kind="train_peak", rank=0, args=args, temp=temp,
+                        held=peak["held"], measured=measured, ratio=ratio))
+    for kind in ("decode", "train"):
+        for r, rep in enumerate(reports):
+            got, d = rep[kind], dry[kind][r]
+            label = f"19b {kind} rank {r}"
+            args = d["memory"]["argument_size_in_bytes"]
+            sm.check(got["args"] == args, f"{label}: argument bytes "
+                     f"{got['args']} = dry {args}")
+            want = d["walk"]["collective_by_kind"]
+            sm.check(got["counts"]["collective_bytes"] == want,
+                     f"{label}: collective payload bytes by kind "
+                     f"{got['counts']['collective_bytes']} = dry {want}")
+            temp = d["memory"]["temp_size_in_bytes"]
+            what = ("logits of a prefill and " f"{LM22_STEPS} decode steps"
+                    if kind == "decode" else "loss")
+            sm.check(got["err"] <= LM22_ATOL,
+                     f"{label}: sharded {what} within {LM22_ATOL} of the "
+                     f"one-card port's (max |diff| {got['err']:.3e})")
+            out.append(dict(kind=kind, rank=r, args=args, temp=temp,
+                            err=got["err"], by_kind=want,
+                            dot_flops=d["walk"]["dot_flops_per_device"]))
+    return out
+
+
+def lm22_start(work: Path, device: str) -> list:
+    """Start 19b's real (2, 2) gloo job of 4 processes on ``device``."""
+    store = work / "store22"
+    store.unlink(missing_ok=True)
+    spec = json.dumps(dict(layers=LM22_LAYERS, train=LM22_TRAIN,
+                           decode=LM22_DECODE, prompt=LM22_PROMPT,
+                           steps=LM22_STEPS))
+    env = dict(os.environ, WORLD_SIZE="4", OMP_NUM_THREADS="2")
+    procs = []
+    for r in range(4):
+        with open(work / f"rank22_{r}.log", "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", LM22_SCRIPT, str(ROOT / "src"),
+                 f"file://{store}", device, spec, str(work)],
+                env=dict(env, RANK=str(r)), stdout=log,
+                stderr=subprocess.STDOUT))
+    return procs
+
+
+def lm22_wait(sm: Smoke, procs: list, work: Path, device: str) -> list:
+    """Wait for 19b's job under one deadline; the ranks' reports."""
+    deadline = time.monotonic() + LM22_TIMEOUT_S
+    for p in procs:
+        try:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            p.wait()
+    outs = [(work / f"rank22_{r}.log").read_text() for r in range(4)]
+    ok = all(p.returncode == 0 for p in procs)
+    if not sm.check(ok, f"19b: the 4 gloo ranks on {device} exited "
+                    f"{[p.returncode for p in procs]}: "
+                    + " | ".join(o[-1200:] for o in outs
+                                 if "LM22_OK" not in o)):
+        return []
+    return [json.loads((work / f"rank_{r}.json").read_text())
+            for r in range(4)]
+
+
+def lm_dry_start(sm: Smoke) -> dict:
+    """Start phase 19's two jobs, which use the CPU only, in the
+    background, so that they run beside the card phases after phase 7:
+    19b's gloo ranks and 19a's dry-run subprocess (its output to
+    ``cells.log``)."""
+    import shutil
+    work = ROOT / "build" / "lmdry"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    sm.note(f"19: started beside the card phases: 19a's {LM_DRY_WORKERS} "
+            f"workers and 19b's 4 gloo ranks on {LM22_DEVICE} (gloo cannot "
+            f"carry DTensor's collectives over CUDA tensors here)")
+    procs = lm22_start(work, LM22_DEVICE)
+    with open(work / "cells.log", "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", LM_DRY_SCRIPT, str(ROOT / "src"),
+             str(work / "cells"), str(LM_DRY_WORKERS),
+             ",".join(LM_OPT_ARCHS), str(LM22_LAYERS),
+             json.dumps(dict(train=LM22_TRAIN, decode=LM22_DECODE))],
+            stdout=log, stderr=subprocess.STDOUT)
+    return dict(work=work, procs=procs, proc=proc, t0=time.perf_counter())
+
+
+def lm_dry_path(sm: Smoke, started: dict) -> dict:
+    """Phase 19 (see the module docstring): wait for the jobs
+    ``lm_dry_start`` began, then check them."""
+    t0 = time.perf_counter()
+    work, proc = started["work"], started["proc"]
+    rec = dict(seconds=0.0, cells=[], ranks=[])
+    peak = lm_peak_run(sm)            # the card is free after phase 18
+    left = LM_DRY_TIMEOUT_S - (time.perf_counter() - started["t0"])
+    try:
+        proc.wait(timeout=max(1.0, left))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    reports = lm22_wait(sm, started["procs"], work, LM22_DEVICE)
+    rec["waited_s"] = time.perf_counter() - t0
+    rec["background_s"] = time.perf_counter() - started["t0"]
+    out = (work / "cells.log").read_text()
+    ok = proc.returncode == 0 and "LM_DRY_OK" in out
+    if not sm.check(ok, f"19: the LM dry-run subprocess exited "
+                    f"{proc.returncode}" + ("" if ok else f" {out[-1500:]}")):
+        return rec
+    got = json.loads((work / "cells" / "phase19.json").read_text())
+    sm.note(f"19a: {len(got['rows'])} cells in {got['cells_s']:.1f}s with "
+            f"{LM_DRY_WORKERS} worker processes; fits against total_memory "
+            f"{got['hbm_cap']} B")
+    rec["cells"] = lm_dry_cells_part(sm, got["rows"])
+    if reports:
+        rec["ranks"] = lm_ranks_part(sm, reports, got["dry"], peak)
+    rec.update(cells_s=got["cells_s"], dry_s=got["dry_s"],
+               hbm_cap=got["hbm_cap"], device22=LM22_DEVICE)
+    rec["seconds"] = time.perf_counter() - t0
+    sm.note(f"phase 19: {rec['seconds']:.1f}s here, after "
+            f"{rec['background_s'] - rec['waited_s']:.1f}s beside phases "
+            f"10a-18 (19a's cells {got['cells_s']:.1f}s)")
+    return rec
+
 
 def main() -> int:
     try:
@@ -6346,7 +6804,7 @@ def main() -> int:
     from repro_torch.kernels import segment_combine as sk
 
     sm = Smoke()
-    phase_s = {}                  # seconds per phase, 1-18
+    phase_s = {}                  # seconds per phase, 1-19
     t_phase = time.perf_counter()
     ident = gpu_identity()
     sm.note(f"gpu: {ident}; torch {torch.__version__} cuda "
@@ -6418,6 +6876,7 @@ def main() -> int:
     algos = algos_path(sm, log, errs, win, tile)
     peak.update({f"algorithms, {k}": v for k, v in algos["peak"].items()})
     phase_s["7"] = time.perf_counter() - t_phase
+    lm_started = lm_dry_start(sm)
     t = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     shard_lists = shard_lists_path(sm, errs, win, tile)
@@ -6490,9 +6949,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     dryrun = dryrun_path(sm, ranks["reports"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_dry = lm_dry_path(sm, lm_started)
     for k, rec in (("11", lm), ("12", moe), ("13", jamba), ("14", xlstm),
                    ("15", encdec), ("16", train), ("17", graph_tools),
-                   ("18", dryrun)):
+                   ("18", dryrun), ("19", lm_dry)):
         phase_s[k] = rec["seconds"]
     phase_s = {k: round(phase_s[k], 1) for k in sorted(phase_s, key=int)}
     lm_s = sum(phase_s[k] for k in ("11", "12", "13", "14", "15", "16"))
@@ -6543,6 +7005,7 @@ def main() -> int:
                         lm=lm, moe=moe, jamba=jamba, xlstm=xlstm,
                         encdec=encdec, train=train,
                         graph_tools=graph_tools, dryrun=dryrun,
+                        lm_dryrun=lm_dry,
                         phase_seconds=phase_s,
                         peak_memory_bytes=peak,
                         algo_row_launches=algos["row_launches"],

@@ -890,9 +890,15 @@ class ShardStep:
             (last_ch > 0).sum(dtype=torch.int32)]))
         return state, merged_v, out, counts, sweeps, syncs
 
-    def finish(self, state, tot_sweeps):
-        order = np.argsort(np.asarray(self.pl.sub_parts))  # rank -> part
+    def finish(self, state, tot_sweeps, gather_results: bool = True):
+        """(results, sweeps): the global [P, ...] result and [P] sweeps
+        all-gathered over the subgraph group, or with ``gather_results=
+        False`` this rank's own [1, ...] block and [1] sweeps, with no
+        collective (the reference's sharded ``out_specs``)."""
         res = self.program.result(self.sgs, self.params, state)
+        if not gather_results:
+            return res, tot_sweeps
+        order = np.argsort(np.asarray(self.pl.sub_parts))  # rank -> part
         parts = self.ex.all_gather(res)
         sw = self.ex.all_gather(tot_sweeps)
         return (torch.cat([parts[i] for i in order]),
@@ -902,7 +908,8 @@ class ShardStep:
 def make_bsp_runner(program: VertexProgram, mesh, cfg: EngineConfig,
                     n_slots: int, *, warm_start: bool = False,
                     batch: bool = False,
-                    partition_backends=None) -> Callable:
+                    partition_backends=None,
+                    gather_results: bool = True) -> Callable:
     """Build this rank's ``shard_map`` BSP loop
 
         runner(sgs, lay, params, warm=None, on_step=None) ->
@@ -915,7 +922,8 @@ def make_bsp_runner(program: VertexProgram, mesh, cfg: EngineConfig,
     ``warm`` (``warm_start=True``) its [1, v_max, K] warm block. Every rank
     of the mesh calls the runner together. ``results`` is the global
     [P, v_max(, ...)] result on every rank, ``sweeps_per_part`` a [P]
-    int64 array, ``collectives`` the collective calls this rank issued and
+    int64 array (with ``gather_results=False``: the rank's own [1,
+    v_max(, ...)] block and its [1] sweeps, nothing gathered), ``collectives`` the collective calls this rank issued and
     ``payload_bytes`` their payload bytes by kind (``{"all_reduce": n,
     "all_gather": n}``: the bytes of the tensor the rank contributes, a
     bool as the uint8 it sends). ``on_step(msgs, active, sweeps, moved)``
@@ -992,7 +1000,7 @@ def make_bsp_runner(program: VertexProgram, mesh, cfg: EngineConfig,
                 on_step(msgs, active, sweeps,
                         {k: now[k] - moved[k] for k in now})
                 moved = now
-        results, sweeps_all = rs.finish(state, tot_sweeps)
+        results, sweeps_all = rs.finish(state, tot_sweeps, gather_results)
         return (results, step, tot_msgs,
                 sweeps_all.cpu().numpy().astype(np.int64), syncs,
                 ex.calls + ec.calls, rs.payload())

@@ -27,10 +27,11 @@ Per rank, the record holds the argument bytes (the ``DeviceSubgraph``
 block), the peak of what the run allocates above them, the result block,
 the collective payload bytes per superstep (``sbs.ShardExchange`` and
 ``EdgeCombine`` count them where they are issued) and the roofline inputs
-``launch/roofline.py`` reads. The port's runner all-gathers the global
-result to every rank at the end of a query; the reference keeps it
-sharded. That gather is left out of the cells (``gather_results=False``)
-and its size is recorded apart (``gathered_output_size_in_bytes``).
+``launch/roofline.py`` reads. The runner all-gathers the global result
+to every rank at the end of a query by default; the cells run it with
+``gather_results=False``, each rank keeping its own block as the
+reference's sharded ``out_specs`` do, and record the gathered size apart
+(``gathered_output_size_in_bytes``).
 """
 from __future__ import annotations
 
@@ -236,10 +237,7 @@ def dry_run(meta: dict, mesh_shape, axes, cfg: EngineConfig, program,
                         tot_sweeps += sweeps
                     wins[name] = dict(_diff(_payloads(ex, ec), before),
                                       **counter.windows[name])
-                if gather_results:
-                    outs = rs.finish(state, tot_sweeps)
-                else:
-                    outs = (program.result(sgs, params, state), tot_sweeps)
+                outs = rs.finish(state, tot_sweeps, gather_results)
             out_bytes = sum(t.numel() * t.element_size() for t in outs)
     per_sweep = _diff(wins["two"], wins["one"])
     return dict(

@@ -1,7 +1,8 @@
 """Roofline analysis of the dry-run records: reads the JSON files
-``launch.dryrun_graph`` writes and derives three terms per cell, per
-superstep, on the constants of an NVIDIA H100 80GB HBM3 at its 700.00 W
-power limit (as ``nvidia-smi`` reports the card the port is measured on):
+``launch.dryrun_graph`` (per superstep) and ``launch.dryrun`` (per LM
+step) write and derives three terms per cell on the constants of an
+NVIDIA H100 80GB HBM3 at its 700.00 W power limit (as ``nvidia-smi``
+reports the card the port is measured on):
 
   compute term    = dot_FLOPs / 989e12 + semiring ops / 67e12      [s]
   memory term     = bytes every op reads and writes / 3.35e12      [s]
@@ -12,9 +13,10 @@ The link rate is NVLink's 450 GB/s a direction when the mesh fits in one
 collective over more than 8 cards crosses. The counts come from running
 the program on fake tensors (``launch/fake_stats.py``). ``fits_hbm`` holds
 one rank's arguments plus temporaries against the card's memory
-(``hbm_capacity``). ``model_flops`` (6·N·D for training, 2·N·D otherwise;
-N the MoE-aware active parameters) is kept for the LM rows, which wait
-for an LM dry run.
+(``hbm_capacity``). An LM row also carries ``model_flops`` (6·N·D for
+training, 2·N·D otherwise; N the MoE-aware active parameters, as the JAX
+package counts them), ``useful_ratio`` (model FLOPs over the dot FLOPs
+the ranks run) and ``roofline_fraction``.
 
     PYTHONPATH=src python -m repro_torch.launch.roofline \\
         [--dry results/dryrun] [--out results/roofline.md]
@@ -133,13 +135,19 @@ def suggestion(row: dict) -> str:
     d = row["dominant"]
     coll = row["walk"].get("collective_by_kind", {})
     top_coll = max(coll, key=coll.get) if coll else ""
+    graph = row.get("kind") == "graph_engine"
     if d == "collective":
         return (f"dominated by {top_coll}; reduce via sharding that keeps "
                 "the operand local, comm-compute overlap, or smaller "
-                "payloads (the per-sweep edge-group combine first)")
+                "payloads " + ("(the per-sweep edge-group combine first)"
+                               if graph else
+                               "(activation partial sums in bf16, fewer "
+                               "gathers of replicated weights)"))
     if d == "memory":
         return ("HBM-bound: fuse the sweep's gather/scatter passes, or "
-                "shard the live tensors further")
+                "shard the live tensors further" if graph else
+                "HBM-bound: fuse the elementwise passes around the "
+                "matmuls, or shard the replicated mixers over model")
     if (row.get("useful_ratio") or 1) < 0.4:
         return "compute-bound but low useful ratio: cut remat recompute"
     return "compute-bound: near the right regime; raise per-card utilization"
@@ -196,7 +204,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
     cap = hbm_capacity()
     rows = load_all(args.dry, cap)
-    md = [f"# Roofline per superstep ({CARD}: 989 TFLOP/s bf16 dot, "
+    md = [f"# Roofline per superstep (graph) / per step (LM) ({CARD}: "
+          f"989 TFLOP/s bf16 dot, "
           f"67 TFLOP/s fp32, 3.35 TB/s HBM, 450 GB/s NVLink within "
           f"{NODE_CARDS} cards, 50 GB/s across nodes; fits against "
           f"{cap} B)", "", markdown_table(rows), "", "## Bottleneck notes",

@@ -23,6 +23,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.sharding import rules as R
+
 
 # --------------------------------------------------------------------------- #
 # initializers
@@ -65,15 +67,33 @@ def _param(generator: Optional[torch.Generator], shape, in_axis_size: int,
 
 def _cast_params(module: nn.Module, dtype: Optional[torch.dtype]) -> dict:
     """``module``'s own parameters by name, the float ones cast to
-    ``dtype`` (``None`` leaves them as stored)."""
-    return {n: p if dtype is None or not p.is_floating_point()
-            else p.to(dtype)
-            for n, p in module.named_parameters(recurse=False)}
+    ``dtype`` (``None`` leaves them as stored). On a mesh, inside a block
+    under ``fsdp_gather_weights``, each is then redistributed with its
+    FSDP axis gathered (``rules.constrain_gathered``)."""
+    out = {n: p if dtype is None or not p.is_floating_point()
+           else p.to(dtype)
+           for n, p in module.named_parameters(recurse=False)}
+    if R.gathering_weights():
+        out = R.constrain_gathered(out, module.logical_axes())
+    return out
+
+
+def _own(specs: dict) -> dict:
+    """A module's own leaves of a specs tree (its submodules' dropped)."""
+    return {k: v for k, v in specs.items() if not isinstance(v, dict)}
 
 
 # --------------------------------------------------------------------------- #
 # norms
 # --------------------------------------------------------------------------- #
+def norm_specs(kind: str) -> dict:
+    if kind == "rmsnorm":
+        return {"scale": ("embed",)}
+    if kind == "layernorm":
+        return {"scale": ("embed",), "bias": ("embed",)}
+    return {}
+
+
 def norm_apply(params: dict, x: torch.Tensor, kind: str,
                eps: float = 1e-6) -> torch.Tensor:
     xf = x.float()
@@ -103,6 +123,9 @@ class Norm(nn.Module):
         if kind == "layernorm":
             self.bias = nn.Parameter(torch.zeros(d, dtype=dtype,
                                                  device=device))
+
+    def logical_axes(self) -> dict:
+        return norm_specs(self.kind)
 
     def forward(self, x: torch.Tensor,
                 dtype: Optional[torch.dtype] = None) -> torch.Tensor:
@@ -134,6 +157,13 @@ def rope(x: torch.Tensor, positions: torch.Tensor, *, theta: float = 10000.0,
 # --------------------------------------------------------------------------- #
 # dense MLP (swiglu / gelu)
 # --------------------------------------------------------------------------- #
+def mlp_specs(act: str) -> dict:
+    if act == "swiglu":
+        return {"w_gate": ("embed", "ff"), "w_up": ("embed", "ff"),
+                "w_down": ("ff", "embed")}
+    return {"w_in": ("embed", "ff"), "w_out": ("ff", "embed")}
+
+
 def mlp_apply(params: dict, x: torch.Tensor, act: str) -> torch.Tensor:
     if act == "swiglu":
         h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
@@ -156,17 +186,40 @@ class MLP(nn.Module):
             self.w_in = _param(generator, (d, d_ff), d, dtype, device)
             self.w_out = _param(generator, (d_ff, d), d_ff, dtype, device)
 
+    def logical_axes(self) -> dict:
+        return mlp_specs(self.act)
+
     def forward(self, x: torch.Tensor,
                 dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        if R.get_mesh() is not None:
+            from repro_torch.models import sharded
+            return sharded.mlp(_cast_params(self, dtype), x, self.act)
         return mlp_apply(_cast_params(self, dtype), x, self.act)
 
 
 # --------------------------------------------------------------------------- #
 # GQA attention (with optional decode cache)
 # --------------------------------------------------------------------------- #
+def attention_specs(cfg) -> dict:
+    return {"wq": ("embed", "heads", "qkv"),
+            "wk": ("embed", "kv_heads", "qkv"),
+            "wv": ("embed", "kv_heads", "qkv"),
+            "wo": ("heads", "qkv", "embed")}
+
+
 _SDPA_BLOCK_THRESHOLD = 4096 * 4096   # T*S above this -> blockwise path
 _SDPA_KV_BLOCK = 1024
 _MASKED = -1e30
+
+
+def _scores(qg, k, soft_cap: float = 0.0):
+    """Grouped queries qg [B,T,Hkv,G,D] against keys k [B,S,Hkv,D]: the
+    float32 scores [B,Hkv,G,T,S], scaled by 1/sqrt(D) and soft-capped."""
+    s = torch.einsum("bthgd,bshd->bhgts", qg, k) / math.sqrt(qg.shape[-1])
+    s = s.float()
+    if soft_cap > 0:
+        s = soft_cap * torch.tanh(s / soft_cap)
+    return s
 
 
 def _sdpa_dense(q, k, v, *, causal: bool, q_offset: int,
@@ -175,11 +228,7 @@ def _sdpa_dense(q, k, v, *, causal: bool, q_offset: int,
     B, T, H, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     G = H // Hkv
-    qg = q.reshape(B, T, Hkv, G, D)
-    scores = torch.einsum("bthgd,bshd->bhgts", qg, k) / math.sqrt(D)
-    scores = scores.float()
-    if soft_cap > 0:
-        scores = soft_cap * torch.tanh(scores / soft_cap)
+    scores = _scores(q.reshape(B, T, Hkv, G, D), k, soft_cap)
     tpos = torch.arange(T, device=q.device)[:, None] + q_offset
     spos = torch.arange(S, device=q.device)[None, :]
     mask = torch.ones((T, S), dtype=torch.bool, device=q.device)
@@ -260,6 +309,18 @@ def _write_cache(buf: torch.Tensor, new: torch.Tensor, idx: int) -> None:
     buf[:, idx:idx + T] = new
 
 
+def _project(x, w, cfg, positions):
+    """``x`` [B,T,d] through ``w`` [d,H,Dh] into heads, rope applied."""
+    h = (x @ w.flatten(1)).unflatten(-1, w.shape[1:])
+    return rope(h, positions, theta=cfg.rope_theta, pct=cfg.rotary_pct)
+
+
+def attention_kv(params: dict, x: torch.Tensor, cfg, positions):
+    """The keys (rope applied) and values [B,T,Hkv,Dh] of ``x``."""
+    v = (x @ params["wv"].flatten(1)).unflatten(-1, params["wv"].shape[1:])
+    return _project(x, params["wk"], cfg, positions), v
+
+
 def attention_apply(params: dict, x: torch.Tensor, cfg, *,
                     positions: torch.Tensor, causal: bool = True,
                     cache: Optional[dict] = None):
@@ -272,11 +333,8 @@ def attention_apply(params: dict, x: torch.Tensor, cfg, *,
     where the reference's ``dynamic_update_slice`` clamps the start and
     overwrites earlier positions."""
     T = x.shape[1]
-    q = (x @ params["wq"].flatten(1)).unflatten(-1, params["wq"].shape[1:])
-    k = (x @ params["wk"].flatten(1)).unflatten(-1, params["wk"].shape[1:])
-    v = (x @ params["wv"].flatten(1)).unflatten(-1, params["wv"].shape[1:])
-    q = rope(q, positions, theta=cfg.rope_theta, pct=cfg.rotary_pct)
-    k = rope(k, positions, theta=cfg.rope_theta, pct=cfg.rotary_pct)
+    q = _project(x, params["wq"], cfg, positions)
+    k, v = attention_kv(params, x, cfg, positions)
     if cache is None:
         out = _sdpa(q, k, v, causal=causal, q_offset=0,
                     soft_cap=cfg.attn_logit_soft_cap)
@@ -306,9 +364,17 @@ class Attention(nn.Module):
         self.wv = _param(generator, (d, Hkv, Dh), d, dtype, device)
         self.wo = _param(generator, (H, Dh, d), H * Dh, dtype, device)
 
+    def logical_axes(self) -> dict:
+        return attention_specs(self.cfg)
+
     def forward(self, x: torch.Tensor, *, positions: torch.Tensor,
                 causal: bool = True, cache: Optional[dict] = None,
                 dtype: Optional[torch.dtype] = None):
+        if R.get_mesh() is not None:
+            from repro_torch.models import sharded
+            return sharded.attention(_cast_params(self, dtype), x, self.cfg,
+                                     positions=positions, causal=causal,
+                                     cache=cache)
         return attention_apply(_cast_params(self, dtype), x, self.cfg,
                                positions=positions, causal=causal,
                                cache=cache)
@@ -317,6 +383,15 @@ class Attention(nn.Module):
 # --------------------------------------------------------------------------- #
 # MLA: multi-head latent attention (DeepSeek-V2/V3)
 # --------------------------------------------------------------------------- #
+def mla_specs(cfg) -> dict:
+    return {"wdq": ("embed", "lora"), "q_norm": norm_specs("rmsnorm"),
+            "wuq": ("lora", "heads", "qkv"), "wdkv": ("embed", "lora"),
+            "kv_norm": norm_specs("rmsnorm"),
+            "wuk": ("lora", "heads", "qkv"),
+            "wuv": ("lora", "heads", "qkv"),
+            "wo": ("heads", "qkv", "embed")}
+
+
 def mla_apply(params: dict, x: torch.Tensor, cfg, *,
               positions: torch.Tensor, causal: bool = True,
               cache: Optional[dict] = None):
@@ -408,8 +483,15 @@ class MLA(nn.Module):
         params = _cast_params(self, dtype)
         params["q_norm"] = _cast_params(self.q_norm, dtype)
         params["kv_norm"] = _cast_params(self.kv_norm, dtype)
+        if R.get_mesh() is not None:
+            from repro_torch.models import sharded
+            return sharded.mla(params, x, self.cfg, positions=positions,
+                               causal=causal, cache=cache)
         return mla_apply(params, x, self.cfg, positions=positions,
                          causal=causal, cache=cache)
+
+    def logical_axes(self) -> dict:
+        return _own(mla_specs(self.cfg))
 
 
 # --------------------------------------------------------------------------- #

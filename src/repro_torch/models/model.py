@@ -35,9 +35,19 @@ for MLA, in the activation dtype; ``prefill`` and ``decode_step`` write it
 in place and return it with ``idx`` advanced. A Mamba, mLSTM or sLSTM
 layer's is a fixed-size state (``models/ssm.py``), replaced by each call;
 its ``idx`` advances as an attention layer's does, so ``decode_step``
-reads the position from layer 0 whatever its mixer. There is one card,
-so the reference's sharding hints have no counterpart, and
-``fsdp_gather_weights`` / ``tp_bf16_payload`` change no number.
+reads the position from layer 0 whatever its mixer.
+
+Sharding: ``model_specs`` and ``cache_specs`` give every parameter and
+cache field its logical axes, keyed by the port's names (the reference's
+trees unstacked: its leading ``"layers"`` axis has no counterpart).
+Under an ambient mesh (``sharding.rules.set_mesh``) with DTensor
+parameters placed by ``rules.param_shardings``, each layer runs its mesh
+path (``models/sharded.py``), the activations are constrained at the
+reference's sites (``maybe_constrain``), ``fsdp_gather_weights`` gathers
+each block's weights at its entry (``constrain_gathered``) and
+``tp_bf16_payload`` reduces a block output's partial sums while it is
+still in the activation dtype. Without a mesh none of this runs, and
+every number is the single card's.
 
 Remat: while autograd records (``torch.is_grad_enabled()``), ``forward``
 and ``_encode`` run each block under ``torch.utils.checkpoint``
@@ -59,22 +69,105 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.config import BlockSpec, ModelConfig
 from repro_torch.models.layers import (MLA, MLP, Attention, Norm, _cast_params,
-                                       _param, cross_attention_apply,
-                                       mla_cache_shape)
-from repro_torch.models.moe import MoE
+                                       _param, attention_specs,
+                                       cross_attention_apply, mla_cache_shape,
+                                       mla_specs, mlp_specs, norm_specs)
+from repro_torch.models.moe import MoE, moe_specs
 from repro_torch.models.ssm import (MLSTM, SLSTM, Mamba, mamba_cache_shape,
-                                    mlstm_cache_shape, slstm_cache_shape)
+                                    mamba_specs, mlstm_cache_shape,
+                                    mlstm_specs, slstm_cache_shape,
+                                    slstm_specs)
+from repro_torch.sharding import rules as R
 
 _MIXERS = {"attn": Attention, "mla": MLA, "mamba": Mamba, "mlstm": MLSTM,
            "slstm": SLSTM}
 _STATE_CACHES = {"mamba": mamba_cache_shape, "mlstm": mlstm_cache_shape,
                  "slstm": slstm_cache_shape}
+_MIXER_SPECS = {"attn": attention_specs, "mla": mla_specs,
+                "mamba": mamba_specs, "mlstm": mlstm_specs,
+                "slstm": slstm_specs}
 # the encoder's blocks and the MTP module's
 _ATTN_DENSE = BlockSpec(mixer="attn", mlp="dense")
+# activations: batch over the DP axes, d_model replicated
+_ACT = (R.DP_AXES, None, None)
 
 
 def _dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
+
+
+# --------------------------------------------------------------------------- #
+# logical axes, keyed by the port's parameter names
+# --------------------------------------------------------------------------- #
+def block_specs(spec: BlockSpec, cfg: ModelConfig) -> dict:
+    s = {"norm1": norm_specs(cfg.norm),
+         "mixer": _MIXER_SPECS[spec.mixer](cfg)}
+    if spec.cross:
+        s["norm_cross"] = norm_specs(cfg.norm)
+        s["cross"] = attention_specs(cfg)
+    if spec.mlp != "none":
+        s["norm2"] = norm_specs(cfg.norm)
+        s["mlp"] = moe_specs(cfg) if spec.mlp == "moe" \
+            else mlp_specs(cfg.act)
+    return s
+
+
+def _flat(tree: dict, prefix: str) -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = tuple(v)
+    return out
+
+
+def model_specs(cfg: ModelConfig) -> dict:
+    """``{parameter name: logical axes}`` for every parameter of
+    ``Model(cfg)``: the reference's ``model_specs`` with its stacked
+    blocks split into the port's layers (no ``"layers"`` axis)."""
+    specs = {"embed": ("vocab", "embed")}
+    specs.update(_flat({"final_norm": norm_specs(cfg.norm)}, ""))
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = ("embed", "vocab")
+    for i, spec in enumerate(cfg.layer_pattern()):
+        specs.update(_flat(block_specs(spec, cfg), f"blocks.{i}."))
+    if cfg.n_enc_layers:
+        for i in range(cfg.n_enc_layers):
+            specs.update(_flat(block_specs(_ATTN_DENSE, cfg),
+                               f"encoder.{i}."))
+        specs.update(_flat({"enc_norm": norm_specs(cfg.norm)}, ""))
+    if cfg.frontend:
+        specs["frontend_adapter"] = ("frontend", "embed")
+    if cfg.mtp_depth:
+        specs["mtp_proj"] = ("embed", "embed")
+        specs.update(_flat(block_specs(_ATTN_DENSE, cfg), "mtp_block."))
+        specs.update(_flat({"mtp_norm": norm_specs(cfg.norm)}, ""))
+    return specs
+
+
+def _one_cache_spec(s: BlockSpec) -> dict:
+    if s.mixer == "attn":
+        return {"k": ("batch", "kv_seq", "kv_heads", None),
+                "v": ("batch", "kv_seq", "kv_heads", None)}
+    if s.mixer == "mla":
+        return {"ckv": ("batch", "kv_seq", None),
+                "kr": ("batch", "kv_seq", None)}
+    if s.mixer == "mamba":
+        return {"conv": ("batch", None, "inner"),
+                "h": ("batch", "inner", None)}
+    if s.mixer == "mlstm":
+        return {"C": ("batch", "heads", None, None),
+                "n": ("batch", "heads", None),
+                "m": ("batch", "heads")}
+    return {"h": ("batch", "embed"), "c": ("batch", "embed"),
+            "n": ("batch", "embed"), "m": ("batch", "embed")}
+
+
+def cache_specs(cfg: ModelConfig) -> list:
+    """Logical axes of each layer's cache fields (``idx`` is a host int
+    and has none)."""
+    return [_one_cache_spec(s) for s in cfg.layer_pattern()]
 
 
 # --------------------------------------------------------------------------- #
@@ -119,21 +212,35 @@ class Block(nn.Module):
         """Returns (x, new_cache, aux): aux is the MoE's stats ({"load",
         "dropped"}), or None for a dense MLP or none. ``memory`` [B, L, d]
         is the encoder's output, which a cross-attention block needs."""
+        with R.gather_weights(self.cfg.fsdp_gather_weights):
+            return self._forward(x, positions, causal, cache, memory)
+
+    def _settle(self, out, x):
+        out = out.to(x.dtype)
+        if self.cfg.tp_bf16_payload:
+            out = R.replicate_partial(out)
+        return out
+
+    def _forward(self, x, positions, causal, cache, memory):
         dtype = _dtype(self.cfg.activation_dtype)
         h = self.norm1(x, dtype)
         out, new_cache = self.mixer(h, positions=positions, causal=causal,
                                     cache=cache, dtype=dtype)
-        x = x + out.to(x.dtype)
+        x = x + self._settle(out, x)
         if self.cross is not None:
             if memory is None:
                 raise ValueError("a cross-attention block needs the "
                                  "encoder's memory (batch['memory'] in "
                                  "decode_step)")
             h = self.norm_cross(x, dtype)
-            out = cross_attention_apply(_cast_params(self.cross, dtype), h,
-                                        memory, self.cfg,
-                                        positions=positions)
-            x = x + out.to(x.dtype)
+            params = _cast_params(self.cross, dtype)
+            if R.get_mesh() is not None:
+                from repro_torch.models import sharded
+                out = sharded.cross_attention(params, h, memory, self.cfg)
+            else:
+                out = cross_attention_apply(params, h, memory, self.cfg,
+                                            positions=positions)
+            x = x + self._settle(out, x)
         aux = None
         if self.mlp is not None:
             h = self.norm2(x, dtype)
@@ -141,7 +248,7 @@ class Block(nn.Module):
                 out, aux = self.mlp(h, dtype)
             else:
                 out = self.mlp(h, dtype)
-            x = x + out.to(x.dtype)
+            x = x + self._settle(out, x)
         return x, new_cache, aux
 
 
@@ -205,15 +312,34 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
     return Model(cfg, device=dev, generator=gen)
 
 
+def embed_lookup(model: Model, ids: torch.Tensor) -> torch.Tensor:
+    """``model.embed[ids]`` in the parameter dtype (vocab-parallel on a
+    mesh)."""
+    if R.get_mesh() is not None:
+        from repro_torch.models import sharded
+        return sharded.embed(model.embed, ids)
+    return model.embed[ids.long()]
+
+
+def _matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` (on a mesh: ``w`` gathered, ``x`` batch-sharded)."""
+    if R.get_mesh() is not None:
+        from repro_torch.models import sharded
+        return sharded.linear(x, w)
+    return x @ w
+
+
 def _embed_tokens(model: Model, tokens: torch.Tensor, cfg: ModelConfig):
-    return model.embed[tokens.long()].to(_dtype(cfg.activation_dtype))
+    return R.maybe_constrain(
+        embed_lookup(model, tokens).to(_dtype(cfg.activation_dtype)), *_ACT)
 
 
 def _adapt_frontend(model: Model, batch: dict, cfg: ModelConfig):
     """The precomputed frontend features [B, L, frontend_dim] through the
     adapter -> [B, L, d], in the activation dtype."""
     dtype = _dtype(cfg.activation_dtype)
-    return batch["frontend"].to(dtype) @ model.frontend_adapter.to(dtype)
+    return _matmul(batch["frontend"].to(dtype),
+                   model.frontend_adapter.to(dtype))
 
 
 def _embed_inputs(model: Model, batch: dict, cfg: ModelConfig):
@@ -222,18 +348,18 @@ def _embed_inputs(model: Model, batch: dict, cfg: ModelConfig):
     x = _embed_tokens(model, batch["tokens"], cfg)
     if cfg.frontend and "frontend" in batch:
         x = torch.cat([_adapt_frontend(model, batch, cfg), x], dim=1)
-    return x
+    return R.maybe_constrain(x, *_ACT)
 
 
 def _encode(model: Model, batch: dict, cfg: ModelConfig):
     """An encoder-decoder's encoder: the adapted frontend features through
     the encoder blocks (non-causal, positions 0..L-1) and ``enc_norm`` ->
     memory [B, L, d] in the activation dtype."""
-    h = _adapt_frontend(model, batch, cfg)
+    h = R.maybe_constrain(_adapt_frontend(model, batch, cfg), *_ACT)
     pos = torch.arange(h.shape[1], device=h.device)
     for blk in model.encoder:
         h, _, _ = _remat(blk)(h, positions=pos, causal=False)
-    return model.enc_norm(h)
+    return R.maybe_constrain(model.enc_norm(h), *_ACT)
 
 
 def _decoder_inputs(model: Model, batch: dict, cfg: ModelConfig):
@@ -248,6 +374,9 @@ def _decoder_inputs(model: Model, batch: dict, cfg: ModelConfig):
 
 def _lm_logits(model: Model, h: torch.Tensor, cfg: ModelConfig):
     head = model.embed.T if cfg.tie_embeddings else model.lm_head
+    if R.get_mesh() is not None:
+        from repro_torch.models import sharded
+        return sharded.logits(h, head.to(h.dtype))
     return h @ head.to(h.dtype)
 
 
@@ -299,7 +428,8 @@ def mtp_logits(model: Model, h: torch.Tensor, next_embed: torch.Tensor,
     token's embedding, projected, one attention + dense block, its norm and
     the shared head -> the depth-2 prediction logits [B, S, V]."""
     dtype = h.dtype
-    z = torch.cat([h, next_embed.to(dtype)], -1) @ model.mtp_proj.to(dtype)
+    z = _matmul(torch.cat([h, next_embed.to(dtype)], -1),
+                model.mtp_proj.to(dtype))
     pos = torch.arange(z.shape[1], device=z.device)
     z, _, _ = model.mtp_block(z, positions=pos)
     z = model.mtp_norm(z)
@@ -314,8 +444,18 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     """A zeroed decode cache of capacity ``max_len``, one dict per layer
     by its mixer (the reference's ``block_cache_shape``; the reference
     returns the shapes, the port allocates them). A Mamba, mLSTM or sLSTM
-    layer's state has a fixed size whatever ``max_len``."""
+    layer's state has a fixed size whatever ``max_len``. On a mesh each
+    tensor field is a DTensor placed by ``cache_specs``' rules."""
     dev = resolve_device(device)
+    if R.get_mesh() is not None:
+        from repro_torch.models import sharded
+        return sharded.init_cache(cfg, batch, max_len, dev)
+    return cache_layers(cfg, batch, max_len, dev)
+
+
+def cache_layers(cfg: ModelConfig, batch: int, max_len: int,
+                 dev: torch.device) -> list:
+    """``init_cache``'s per-layer dicts of plain tensors on ``dev``."""
     dtype = _dtype(cfg.activation_dtype)
     shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
 

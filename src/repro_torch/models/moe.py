@@ -18,10 +18,10 @@ added in the activation dtype one by one in ascending expert order, the
 order of the sorted dispatch. That sum has no atomics, so a run on the card
 gives the same bits every time.
 
-``moe_apply_hierarchical`` dispatches per data-parallel group. The port has
-no mesh for the LM (its sharding rules are not ported), so ``_dp_groups``
-is 1, as the reference's is without a mesh; ``_moe_apply_grouped`` takes
-the group count ``G`` itself.
+``moe_apply_hierarchical`` dispatches per data-parallel group:
+``_dp_groups`` reads the ambient mesh's ``pod x data`` (1 without a mesh,
+as the reference's); ``_moe_apply_grouped`` takes the group count ``G``
+itself. On a mesh the layer runs ``models.sharded.moe``.
 """
 from __future__ import annotations
 
@@ -33,7 +33,20 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.layers import MLP, _cast_params, _param, mlp_apply
+from repro_torch.models.layers import (MLP, _cast_params, _own, _param,
+                                       mlp_apply, mlp_specs)
+from repro_torch.sharding import rules as R
+
+
+def moe_specs(cfg) -> dict:
+    m = cfg.moe
+    specs = {"router": ("embed", "experts"), "router_bias": ("experts",),
+             "w_gate": ("experts", "embed", "ff_expert"),
+             "w_up": ("experts", "embed", "ff_expert"),
+             "w_down": ("experts", "ff_expert", "embed")}
+    if m.n_shared:
+        specs["shared"] = mlp_specs(cfg.act)
+    return specs
 
 
 def _capacity(capacity_factor: float, T: int, k: int, E: int) -> int:
@@ -148,9 +161,11 @@ def _dropped(keep: torch.Tensor) -> torch.Tensor:
 
 
 def _dp_groups(total_tokens: int) -> int:
-    """Data-parallel groups of the hierarchical dispatch. The port has no
-    mesh for the LM, so 1, as the reference's without a mesh."""
-    return 1
+    """Data-parallel groups of the hierarchical dispatch: the ambient
+    mesh's ``pod x data`` where it divides the tokens, else 1 (1 without
+    a mesh)."""
+    from repro_torch.models.sharded import dp_groups
+    return dp_groups(total_tokens)
 
 
 def moe_apply(params: dict, x: torch.Tensor, cfg):
@@ -203,8 +218,14 @@ class MoE(nn.Module):
                            device=device, generator=generator)
                        if m.n_shared else None)
 
+    def logical_axes(self) -> dict:
+        return _own(moe_specs(self.cfg))
+
     def forward(self, x: torch.Tensor, dtype: Optional[torch.dtype] = None):
         params = _cast_params(self, dtype)
         if self.shared is not None:
             params["shared"] = _cast_params(self.shared, dtype)
+        if R.get_mesh() is not None:
+            from repro_torch.models import sharded
+            return sharded.moe(params, x, self.cfg)
         return moe_apply(params, x, self.cfg)

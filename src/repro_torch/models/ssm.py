@@ -55,14 +55,96 @@ the reference's cells have none (``XLSTMCfg.conv_dim`` and the
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional
+from typing import Iterator, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models.layers import _cast_params, _param
+from repro_torch.sharding import rules as R
+
+
+def mamba_specs(cfg) -> dict:
+    return {"in_proj": ("embed", "inner"), "conv_w": (None, "inner"),
+            "conv_b": ("inner",), "x_proj": ("inner", None),
+            "dt_proj": (None, "inner"), "dt_bias": ("inner",),
+            "A_log": ("inner", None), "D": ("inner",),
+            "out_proj": ("inner", "embed")}
+
+
+def mlstm_specs(cfg) -> dict:
+    return {"wq": ("embed", "heads", "qkv"), "wk": ("embed", "heads", "qkv"),
+            "wv": ("embed", "heads", "qkv"), "wi": ("embed", "heads"),
+            "wf": ("embed", "heads"), "wo": ("heads", "qkv", "embed"),
+            "og": ("embed", "heads", "qkv")}
+
+
+def slstm_specs(cfg) -> dict:
+    return {"w": ("embed", "ff"), "r": ("embed", "ff"), "b": ("ff",)}
+
+
+class _Trips:
+    # trip windows of the recurrences' loops (None: every trip): the
+    # sLSTM's time steps, the chunkwise mLSTM's and the Mamba scan's
+    # chunks, and the window's factory of stand-ins for the skipped
+    # trips; set only through ``trip_window``
+    slstm = None
+    mlstm = None
+    mamba = None
+    stand_in = None
+
+
+_TRIPS = _Trips()
+
+#: the windowed loops and their full trip counts at ``S`` tokens
+TRIP_LOOPS = {"slstm": lambda S: S,
+              "mlstm": lambda S: -(-S // _MLSTM_CHUNK),
+              "mamba": lambda S: -(-S // _MAMBA_CHUNK)}
+
+
+@contextlib.contextmanager
+def trip_window(stand_in, **trips) -> Iterator[None]:
+    """Run at most ``trips[loop]`` trips of each named loop in the block
+    (``slstm``: time steps, ``mlstm`` / ``mamba``: chunks): a dry run's
+    window. ``stand_in(outs, n)`` pads a loop's list of per-trip outputs
+    to ``n`` entries of the same shapes for the trips it skipped (the
+    dry run makes them uncounted). Their values are garbage, so the
+    window is refused outside ``FakeTensorMode``."""
+    from torch._guards import detect_fake_mode
+    if detect_fake_mode() is None:
+        raise RuntimeError("a trip window runs only under FakeTensorMode")
+    prev = {k: getattr(_TRIPS, k) for k in (*trips, "stand_in")}
+    for k, v in dict(trips, stand_in=stand_in).items():
+        setattr(_TRIPS, k, v)
+    try:
+        yield
+    finally:
+        for k, v in prev.items():
+            setattr(_TRIPS, k, v)
+
+
+def _trips(loop: str, n: int) -> int:
+    """The trips of ``loop`` to run out of ``n``."""
+    w = getattr(_TRIPS, loop)
+    return n if w is None else min(n, w)
+
+
+def _all_trips(outs: list, n: int) -> list:
+    """``outs`` with the window's stand-ins for the trips it skipped."""
+    return outs if len(outs) >= n else _TRIPS.stand_in(outs, n)
+
+
+def _run(module, apply, x, cache, dtype):
+    """A recurrent mixer's forward: ``apply`` on its cast parameters, or
+    on a mesh ``models.sharded.recurrent``."""
+    params = _cast_params(module, dtype)
+    if R.get_mesh() is not None:
+        from repro_torch.models import sharded
+        return sharded.recurrent(apply, params, x, module.cfg, cache)
+    return apply(params, x, module.cfg, cache=cache)
 
 _MAMBA_CHUNK = 512
 
@@ -122,11 +204,11 @@ def _mamba_scan(u, dt, B, C, A, D, chunk: int = _MAMBA_CHUNK):
     u, dt, B, C = _pad(u), _pad(dt), _pad(B), _pad(C)
     h = torch.zeros((b, di, n), dtype=u.dtype, device=u.device)
     ys = []
-    for j in range(nb):
+    for j in range(_trips("mamba", nb)):
         sl = slice(j * chunk, (j + 1) * chunk)
         y, h = block(u[:, sl], dt[:, sl], B[:, sl], C[:, sl], h)
         ys.append(y)
-    return torch.cat(ys, 1)[:, :s], h
+    return torch.cat(_all_trips(ys, nb), 1)[:, :s], h
 
 
 def mamba_apply(params: dict, x: torch.Tensor, cfg, *,
@@ -233,8 +315,10 @@ class Mamba(nn.Module):
     def forward(self, x: torch.Tensor, *, positions: torch.Tensor = None,
                 causal: bool = True, cache: Optional[dict] = None,
                 dtype: Optional[torch.dtype] = None):
-        return mamba_apply(_cast_params(self, dtype), x, self.cfg,
-                           cache=cache)
+        return _run(self, mamba_apply, x, cache, dtype)
+
+    def logical_axes(self) -> dict:
+        return mamba_specs(self.cfg)
 
 
 # --------------------------------------------------------------------------- #
@@ -259,14 +343,15 @@ def _cumsum(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
     cumulative reduce-window into blocks of 16), so the decay exponents
     ``a[t] - a[s]`` agree bit for bit; ``torch.cumsum`` adds in another
     order (on the CPU in float64), which moves a 512-token ``a`` by ~1e-4.
-    About 15 small ops per level, ``ceil(log16 S)`` levels."""
+    About 20 small ops per level, ``ceil(log16 S)`` levels."""
     x = x.movedim(dim, -1)
     n = x.shape[-1]
     nb = -(-n // _SUM_BLOCK)
-    out = F.pad(x, (0, nb * _SUM_BLOCK - n)).unflatten(-1, (nb, _SUM_BLOCK))
-    out = out.clone()
+    cols = list(F.pad(x, (0, nb * _SUM_BLOCK - n))
+                .unflatten(-1, (nb, _SUM_BLOCK)).unbind(-1))
     for i in range(1, _SUM_BLOCK):
-        out[..., i] += out[..., i - 1]
+        cols[i] = cols[i] + cols[i - 1]
+    out = torch.stack(cols, -1)
     if nb > 1:
         pre = _cumsum(out[..., -1], -1)
         out = out + F.pad(pre[..., :-1], (1, 0))[..., None]
@@ -296,7 +381,7 @@ def _mlstm_chunked(q, k, v, i_pre, f_pre, chunk: int = _MLSTM_CHUNK):
     m_in = torch.full((B, H), _NO_STATE, dtype=torch.float32,
                       device=q.device)
     hs = []
-    for j in range(nb):
+    for j in range(_trips("mlstm", nb)):
         sl = slice(j * chunk, (j + 1) * chunk)
         qj, kj, vj, lfj, ij = q[:, sl], k[:, sl], v[:, sl], lf[:, sl], \
             ic[:, sl]
@@ -329,7 +414,7 @@ def _mlstm_chunked(q, k, v, i_pre, f_pre, chunk: int = _MLSTM_CHUNK):
             "bshd,bshe->bhde", kw, _f32(vj))
         nst = carry[..., None] * nst + kw.sum(dim=1)
         m_in = m_out
-    return torch.cat(hs, dim=1)[:, :S], (Cst, nst, m_in)
+    return torch.cat(_all_trips(hs, nb), dim=1)[:, :S], (Cst, nst, m_in)
 
 
 def _mlstm_parallel(q, k, v, i_pre, f_pre):
@@ -455,8 +540,10 @@ class MLSTM(nn.Module):
     def forward(self, x: torch.Tensor, *, positions: torch.Tensor = None,
                 causal: bool = True, cache: Optional[dict] = None,
                 dtype: Optional[torch.dtype] = None):
-        return mlstm_apply(_cast_params(self, dtype), x, self.cfg,
-                           cache=cache)
+        return _run(self, mlstm_apply, x, cache, dtype)
+
+    def logical_axes(self) -> dict:
+        return mlstm_specs(self.cfg)
 
 
 # --------------------------------------------------------------------------- #
@@ -501,10 +588,10 @@ def slstm_apply(params: dict, x: torch.Tensor, cfg, *,
               else cache["m"])
         carry = (cache["h"], cache["c"], cache["n"], m0)
     hs = []
-    for t in range(S):
+    for t in range(_trips("slstm", S)):
         carry, h_t = _slstm_step(params, carry, xw[:, t])
         hs.append(h_t)
-    y = torch.stack(hs, dim=1).to(x.dtype)
+    y = torch.stack(_all_trips(hs, S), dim=1).to(x.dtype)
     new_cache = None
     if cache is not None:
         h, c, n, m = carry
@@ -544,5 +631,7 @@ class SLSTM(nn.Module):
     def forward(self, x: torch.Tensor, *, positions: torch.Tensor = None,
                 causal: bool = True, cache: Optional[dict] = None,
                 dtype: Optional[torch.dtype] = None):
-        return slstm_apply(_cast_params(self, dtype), x, self.cfg,
-                           cache=cache)
+        return _run(self, slstm_apply, x, cache, dtype)
+
+    def logical_axes(self) -> dict:
+        return slstm_specs(self.cfg)

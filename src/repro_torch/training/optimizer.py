@@ -50,9 +50,9 @@ def adamw_init(params: ParamTree) -> AdamWState:
     dev = next(iter(named.values())).device
     return AdamWState(
         step=torch.zeros((), dtype=torch.int32, device=dev),
-        m={n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        m={n: torch.zeros_like(p, dtype=torch.float32)
            for n, p in named.items()},
-        v={n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        v={n: torch.zeros_like(p, dtype=torch.float32)
            for n, p in named.items()})
 
 
@@ -120,8 +120,8 @@ def adamw_update(params: ParamTree, grads: Mapping, state: AdamWState, *,
     for name, p in named.items():
         g = grads.get(name)
         m, v = state.m[name], state.v[name]
-        gf = torch.zeros(p.shape, dtype=torch.float32, device=p.device) \
-            if g is None else g.float()
+        gf = torch.zeros_like(p, dtype=torch.float32) if g is None \
+            else g.float()
         m.mul_(b1).add_(gf * (1 - b1))
         v.mul_(b2).add_(gf * (1 - b2) * gf)
         del gf

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from repro_torch.device import DeviceLike
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import rules as R
 from repro_torch.training.optimizer import (AdamWState, adamw_init,
                                             adamw_update,
                                             clip_by_global_norm, lr_schedule)
@@ -42,13 +43,26 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     """Mean negative log-likelihood over the positions where ``mask`` is
     1: ``logsumexp`` in float32 less the gold logit. The gold logit is a
     gather (the reference's iota-compare reduction adds only exact zeros
-    to it, so the value is the same) and no one-hot [B, S, V] is built."""
+    to it, so the value is the same) and no one-hot [B, S, V] is built.
+    On a mesh: the vocab-parallel form (``models.sharded``)."""
+    if R.get_mesh() is not None:
+        from repro_torch.models import sharded
+        return sharded.cross_entropy(logits, labels, mask)
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.take_along_dim(logits, labels.long()[..., None],
                                 dim=-1)[..., 0]
     nll = (logz - gold) * mask
     return nll.sum() / torch.clamp_min(mask.sum(), 1.0)
+
+
+def _shift(t: torch.Tensor, n: int) -> torch.Tensor:
+    """``t[:, n:]`` padded with ``n`` zeros (on a mesh, per batch
+    shard)."""
+    if R.get_mesh() is not None:
+        from repro_torch.models import sharded
+        return sharded.shift_left(t, n)
+    return F.pad(t[:, n:], (0, n))
 
 
 def loss_fn(model: M.Model, batch: dict, cfg: ModelConfig):
@@ -74,10 +88,10 @@ def loss_fn(model: M.Model, batch: dict, cfg: ModelConfig):
         h = aux["mtp_hidden"]
         if prefix:
             h = h[:, cfg.frontend_len:]
-        nxt = F.pad(labels[:, 1:], (0, 1))
-        mtp_lg = M.mtp_logits(model, h, model.embed[nxt.long()], cfg)
-        lbl2 = F.pad(labels[:, 2:], (0, 2))
-        msk2 = F.pad(mask[:, 2:], (0, 2))
+        nxt = _shift(labels, 1)
+        mtp_lg = M.mtp_logits(model, h, M.embed_lookup(model, nxt), cfg)
+        lbl2 = _shift(labels, 2)
+        msk2 = _shift(mask, 2)
         mtp_loss = cross_entropy(mtp_lg, lbl2, msk2)
         metrics["mtp_loss"] = mtp_loss.detach()
         loss = loss + 0.3 * mtp_loss
@@ -112,6 +126,9 @@ def make_train_step(cfg: ModelConfig, *, peak_lr=3e-4, warmup=200,
 
 
 def _greedy(logits: torch.Tensor) -> torch.Tensor:
+    if R.get_mesh() is not None:
+        from repro_torch.models import sharded
+        return sharded.greedy(logits)
     return torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
 
 

@@ -258,6 +258,30 @@ for cid, mk, eb in spec["warm"]:
     keep(cid, run_shard_map(prog, pgs["pl"], mesh, params, cfg,
                             init_state=warm_init(pgs["pl"], cold[0]),
                             device="cpu"))
+if world == 4:
+    # the runner's result layout: gathered (the default) against each
+    # rank's own block, on a (2, 2) mesh of subgraphs x edge shards
+    from repro_torch.core.engine import _device_subgraph, make_bsp_runner
+    from repro_torch.core.mesh import placement
+    m22 = init_device_mesh("cpu", (2, 2), mesh_dim_names=("sub", "edge"))
+    pg2 = partition_and_build(gs["pl"], 2, "cdbh")
+    cfg = EngineConfig(backend="shard_map", subgraph_axes=("sub",),
+                       edge_axes=("edge",))
+    pl = placement(m22, cfg.subgraph_axes, cfg.edge_axes)
+    sgs = _device_subgraph(pg2, torch.device("cpu"),
+                           block=(pl.part, pl.shard, pl.n_edge))
+    rec["f2/part"] = np.array(pl.part)
+    for pname in ("sssp", "cc"):
+        prog, params = program(A, pname, gs["pl"])
+        for gather in (True, False):
+            go = make_bsp_runner(prog, m22, cfg, pg2.n_slots,
+                                 gather_results=gather)
+            res, steps, msgs, sweeps, _, calls, moved = go(sgs, None, params)
+            key = f"f2/{pname}/{'gathered' if gather else 'block'}"
+            rec[key + "/res"] = res.numpy()
+            rec[key + "/sweeps"] = np.asarray(sweeps)
+            rec[key + "/counts"] = np.array(
+                [steps, msgs, calls, moved["all_gather"]], np.int64)
 for k, pg in pgs.items():
     rec["gvid/" + k] = pg.gvid
 np.savez(os.path.join(out, f"port_{world}_{rank}.npz"), **rec)
@@ -496,3 +520,27 @@ def test_total_bytes_follow_the_exchange(runs):
     n_loc = -(-(ns + 1) // 2)
     steps, _, nbytes = ref["222-slots-cc/counts"]
     assert nbytes == steps * (n_loc + 1) * 4 * 4 * 2
+
+
+@pytest.mark.parametrize("pname", ["sssp", "cc"])
+def test_ungathered_results_are_each_ranks_block(runs, pname):
+    """``gather_results=False``: each rank of a (2, 2) gloo mesh returns
+    its own [1, v_max] block and [1] sweeps, bit for bit its rows of the
+    gathered default, with the same supersteps and messages and two
+    all-gathers fewer."""
+    _, port = runs
+    for key in _ranks("4"):
+        got = port[key]
+        part = int(got["f2/part"])
+        full = f"f2/{pname}/gathered"
+        blk = f"f2/{pname}/block"
+        assert got[full + "/res"].shape[0] == 2
+        assert got[blk + "/res"].shape[0] == 1
+        np.testing.assert_array_equal(got[blk + "/res"],
+                                      got[full + "/res"][part:part + 1])
+        np.testing.assert_array_equal(got[blk + "/sweeps"],
+                                      got[full + "/sweeps"][part:part + 1])
+        steps, msgs, calls, gathered = got[full + "/counts"]
+        assert list(got[blk + "/counts"]) == [steps, msgs, calls - 2,
+                                              gathered - got[blk + "/res"]
+                                              .nbytes - 4]
