@@ -67,7 +67,7 @@ from repro_torch.core.api import (DeviceSubgraph, SemiringSweep,
                                   numpy_dtype)
 from repro_torch.core.layouts import EdgeLayouts, TileBlock, WindowBlock
 from repro_torch.core.mesh import placement
-from repro_torch.core.metrics import ExecutionStats
+from repro_torch.core.metrics import ExecutionStats, span
 from repro_torch.core.subgraph import PartitionedGraph
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.bsp_spmv import TM, TN, bsp_spmv
@@ -522,7 +522,8 @@ def _state_where(live: torch.Tensor, new: dict, old: dict) -> dict:
 
 def _any_live(live: torch.Tensor) -> bool:
     """The local phase's continue test: one flag read from the device."""
-    return bool(live.any())
+    with span("drone.engine.sync"):
+        return bool(live.any())
 
 
 def _batched_local_phase(program: VertexProgram, sgs: DeviceSubgraph,
@@ -552,18 +553,20 @@ def _batched_local_phase(program: VertexProgram, sgs: DeviceSubgraph,
         vals = program.sweep_values(sgs, params, st)
         squeeze = vals.dim() == 2
         v = vals[..., None] if squeeze else vals
-        if edge_backend == "auto":
-            agg = _mixed_product(spec, lay_blk, v, v_max)
-        elif edge_backend == "pallas_tiles":
-            agg = _tile_product(lay_blk, v, spec, v_max)
-        else:
-            agg = _window_product(sgs, lay_blk, v, spec, v_max)
+        with span("drone.edge.product"):
+            if edge_backend == "auto":
+                agg = _mixed_product(spec, lay_blk, v, v_max)
+            elif edge_backend == "pallas_tiles":
+                agg = _tile_product(lay_blk, v, spec, v_max)
+            else:
+                agg = _window_product(sgs, lay_blk, v, spec, v_max)
         agg = ec.min(agg) if spec.semiring == "min_plus" else ec.sum(agg)
         if squeeze:
             agg = agg[..., 0]
         return program.sweep_fold(sgs, params, st, agg)
 
-    state, ch = sweep_all(state)
+    with span("drone.engine.sweep"):
+        state, ch = sweep_all(state)
     i = torch.ones(sgs.n_parts, dtype=torch.int32, device=sgs.device)
     syncs = 0
     while True:
@@ -571,7 +574,8 @@ def _batched_local_phase(program: VertexProgram, sgs: DeviceSubgraph,
         syncs += 1
         if not keep_going(live):
             break
-        st2, ch2 = sweep_all(state)
+        with span("drone.engine.sweep"):
+            st2, ch2 = sweep_all(state)
         state = _state_where(live, st2, state)
         i = torch.where(live, i + 1, i)
         ch = torch.where(live, ch2, ch)
@@ -728,50 +732,55 @@ def make_sim_runner(program: VertexProgram, cfg: EngineConfig, n_slots: int,
 
     def runner(sgs: DeviceSubgraph, lay, params, warm=None,
                on_step: Optional[Callable] = None, resume=None):
-        if (warm is not None) != warm_start:
-            raise ValueError(f"this runner was built with warm_start="
-                             f"{warm_start}; pass warm accordingly")
-        dev = sgs.device
-        dt = program.torch_dtype
-        params = params_to_device(params, dev)
-        if sweep_backend == "auto":
-            lay = _mixed_inputs(groups, sgs, lay)
-        elif groups is not None:
-            lay = {"coo": None, "pallas_tiles": lay[0],
-                   "pallas_windows": lay[1]}[sweep_backend]
-        if resume is None:
-            state = program.init(sgs, params, ec)
-            if warm_start:
-                state = program.warm_init(sgs, params, state, warm)
-            last_out = torch.full((sgs.n_parts, sgs.v_max, K), ident,
-                                  dtype=dt, device=dev)
-            merged_buf = torch.full((n_slots + 1, K), ident, dtype=dt,
-                                    device=dev)
-            step = 0
-        else:
-            state, last_out, merged_buf = (resume["state"],
-                                           resume["last_out"],
-                                           resume["merged"])
-            step = int(resume["step"])
-        tot_msgs = syncs = 0
-        tot_sweeps = torch.zeros(sgs.n_parts, dtype=torch.int32, device=dev)
-        msgs = active = 1
-        while step == 0 or ((msgs > 0 or active > 0)
-                            and step < cfg.max_supersteps):
-            state, last_out, merged_buf, m, a, sweeps, s = superstep(
-                sgs, lay, params, state, last_out, merged_buf, step == 0)
-            tot_sweeps += sweeps
-            msgs, active = torch.stack([m, a]).tolist()
-            syncs += s + 1
-            tot_msgs += msgs
-            step += 1
-            if on_step is not None:
-                on_step(msgs, active, sweeps.cpu().numpy(),
-                        dict(state=state, last_out=last_out,
-                             merged=merged_buf, step=step))
-        results = program.result(sgs, params, state)
-        return (results, step, tot_msgs,
-                tot_sweeps.cpu().numpy().astype(np.int64), syncs)
+        with span("drone.engine.run"):
+            if (warm is not None) != warm_start:
+                raise ValueError(f"this runner was built with warm_start="
+                                 f"{warm_start}; pass warm accordingly")
+            dev = sgs.device
+            dt = program.torch_dtype
+            params = params_to_device(params, dev)
+            if sweep_backend == "auto":
+                lay = _mixed_inputs(groups, sgs, lay)
+            elif groups is not None:
+                lay = {"coo": None, "pallas_tiles": lay[0],
+                       "pallas_windows": lay[1]}[sweep_backend]
+            if resume is None:
+                state = program.init(sgs, params, ec)
+                if warm_start:
+                    state = program.warm_init(sgs, params, state, warm)
+                last_out = torch.full((sgs.n_parts, sgs.v_max, K), ident,
+                                      dtype=dt, device=dev)
+                merged_buf = torch.full((n_slots + 1, K), ident, dtype=dt,
+                                        device=dev)
+                step = 0
+            else:
+                state, last_out, merged_buf = (resume["state"],
+                                               resume["last_out"],
+                                               resume["merged"])
+                step = int(resume["step"])
+            tot_msgs = syncs = 0
+            tot_sweeps = torch.zeros(sgs.n_parts, dtype=torch.int32,
+                                     device=dev)
+            msgs = active = 1
+            while step == 0 or ((msgs > 0 or active > 0)
+                                and step < cfg.max_supersteps):
+                with span("drone.engine.superstep"):
+                    state, last_out, merged_buf, m, a, sweeps, s = superstep(
+                        sgs, lay, params, state, last_out, merged_buf,
+                        step == 0)
+                tot_sweeps += sweeps
+                with span("drone.engine.sync"):
+                    msgs, active = torch.stack([m, a]).tolist()
+                syncs += s + 1
+                tot_msgs += msgs
+                step += 1
+                if on_step is not None:
+                    on_step(msgs, active, sweeps.cpu().numpy(),
+                            dict(state=state, last_out=last_out,
+                                 merged=merged_buf, step=step))
+            results = program.result(sgs, params, state)
+            return (results, step, tot_msgs,
+                    tot_sweeps.cpu().numpy().astype(np.int64), syncs)
 
     if not batch:
         return runner

@@ -8,14 +8,49 @@ Execution metrics (gathered by the engine): supersteps, network messages
 ((key,value) pairs, i.e. changed frontier slots per superstep), bytes moved,
 PEPS (processed edges per second, paper Fig 9), and the port's count of
 device-to-host synchronisations (one per local sweep and superstep).
+
+Spans: ``span(name)`` marks a stretch of the query path under
+``torch.profiler``, on the clock and timeline of the kernels it launches,
+so that the device's idle gaps can be put down to a layer of the program.
+Every name is in ``SPANS``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+
+import torch
 
 from repro_torch.core.subgraph import PartitionedGraph
 
-__all__ = ["PartitionMetrics", "partition_metrics", "ExecutionStats"]
+__all__ = ["PartitionMetrics", "partition_metrics", "ExecutionStats",
+           "SPANS", "span"]
+
+#: every span of the query path, outermost first
+SPANS = (
+    "drone.query",              # GraphSession.query, whole
+    "drone.session.prepare",    # warm lookup, device graph, layouts, runner
+    "drone.session.fetch",      # the result's copy to the host
+    "drone.session.stats",      # ExecutionStats of the call
+    "drone.session.remember",   # the warm-start memory of a converged result
+    "drone.engine.run",         # the simulator runner's BSP loop
+    "drone.engine.superstep",   # one superstep: local phase and exchange
+    "drone.engine.sweep",       # one batched sweep of every partition
+    "drone.edge.product",       # the edge product: message buffer, kernel
+    "drone.engine.sync",        # a flag or count read from the device
+)
+
+_NO_SPAN = contextlib.nullcontext()
+_profiler_on = torch._C._autograd._profiler_enabled
+
+
+def span(name: str):
+    """``torch.profiler.record_function(name)`` while a profiler runs, else
+    one shared no-op context: an idle span costs a flag test and allocates
+    nothing."""
+    if _profiler_on():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 @dataclasses.dataclass

@@ -83,7 +83,7 @@ from repro_torch.core.engine import (EngineConfig, _auto_layout_blocks,
                                      resolve_partition_backends, run_sim)
 from repro_torch.core.graph import Graph
 from repro_torch.core.mesh import MeshPlacement, placement
-from repro_torch.core.metrics import ExecutionStats
+from repro_torch.core.metrics import ExecutionStats, span
 from repro_torch.core.partition import (PARTITIONERS, STREAM_ROUTERS,
                                         is_stateful_router)
 from repro_torch.core.subgraph import (PartitionedGraph, ShapePolicy,
@@ -169,6 +169,13 @@ class SessionStats:
     tile_density_min: float = 0.0  # spread of the per-partition tile
     tile_density_mean: float = 0.0  # densities of the latest tiles or
     tile_density_max: float = 0.0  # 'auto' query
+    setup_seconds: dict = dataclasses.field(default_factory=dict)
+                                   # host seconds of the set-up work, the
+                                   # latest of each: 'route' (partitioner
+                                   # or router) and 'build' (partitioned
+                                   # graph and session) in from_graph,
+                                   # 'upload' (device graph), 'layouts'
+                                   # (edge layouts and their device copy)
 
 
 class _SessionBuffer(DeltaBuffer):
@@ -314,12 +321,14 @@ class GraphSession:
                              f"{sorted(PARTITIONERS)}")
         entry = STREAM_ROUTERS.get(partitioner)
         router_state = None
+        t0 = time.perf_counter()
         if is_stateful_router(entry):
             router_state = entry.make_state(n_parts, g.n_vertices, seed)
             part = np.minimum(router_state.route_adds(g.src, g.dst),
                               n_parts - 1)
         else:
             part = PARTITIONERS[partitioner](g, n_parts, seed=seed)
+        t1 = time.perf_counter()
         pg = build_partitioned_graph(g, part, n_parts, shape_policy=policy)
         ctx = None
         if partitioner in STREAM_ROUTERS:
@@ -327,8 +336,11 @@ class GraphSession:
                                 seed=seed, n_vertices=g.n_vertices,
                                 routing_degrees=g.total_degrees(),
                                 router_state=router_state)
-        return cls(pg, ctx=ctx, mesh=mesh, cfg=cfg, shape_policy=policy,
+        sess = cls(pg, ctx=ctx, mesh=mesh, cfg=cfg, shape_policy=policy,
                    device=dev, **kwargs)
+        sess.stats.setup_seconds.update(route=t1 - t0,
+                                        build=time.perf_counter() - t1)
+        return sess
 
     @classmethod
     def from_edge_log(cls, log, n_parts: int, partitioner: str = "cdbh",
@@ -469,8 +481,10 @@ class GraphSession:
                 or self._device_version != self._host_version \
                 or self._device_block != block:
             self._device_graph = None      # free the old copy first
+            t0 = time.perf_counter()
             self._device_graph = _device_subgraph(self.pg, self.device,
                                                   block=block)
+            self.stats.setup_seconds["upload"] = time.perf_counter() - t0
             self._device_version = self._host_version
             self._device_block = block
             self.stats.uploads += 1
@@ -496,66 +510,75 @@ class GraphSession:
         (``ExecutionStats.result_cache_tier`` names the tier);
         ``use_result_cache=False`` forces a run. Buffered updates are
         flushed first."""
-        self._check_open()
-        if self.buffer is not None and len(self.buffer):
-            self.flush()
-        cfg = self._normalize_cfg(cfg or self.cfg)
-        params_c = canonical_params(params)
-        pkey = program_key(program)
-        if isinstance(pkey[1], int):
-            self._keepalive[pkey[1]] = program
-        entry, wkey, use_warm = self._warm_lookup(program, pkey, params_c,
-                                                  warm)
-        if cfg.trace:
-            init = entry.global_values if use_warm else None
-            return run_sim(program, self.pg, params, cfg, init_state=init,
-                           device=self.device)
+        with span("drone.query"):
+            return self._query(program, params, warm, cfg, use_result_cache)
 
-        self.stats.queries += 1
-        eb, cfg = normalize_edge_backend(program, cfg)
-        use_rc = use_result_cache and self.result_cache is not None
-        rkey = None
-        if use_rc:
-            rkey = result_key(self.tenant, self._host_version, program,
-                              params_c, cfg)
-            t0 = time.perf_counter()
-            val, tier = self.result_cache.get(rkey)
-            if not self._mesh_all(val is not None, cfg):
-                val = None      # another rank missed (its own TTL clock)
-            if val is not None:
-                self._bill_hit(tier)
-                return np.asarray(val["results"]), ExecutionStats(
-                    supersteps=int(val["supersteps"]),
-                    wall_time=time.perf_counter() - t0,
-                    edge_backend=str(val.get("edge_backend", eb)),
-                    result_cache_tier=tier)
-            self.stats.result_cache_misses += 1
+    def _query(self, program, params, warm, cfg, use_result_cache):
+        with span("drone.session.prepare"):
+            self._check_open()
+            if self.buffer is not None and len(self.buffer):
+                self.flush()
+            cfg = self._normalize_cfg(cfg or self.cfg)
+            params_c = canonical_params(params)
+            pkey = program_key(program)
+            if isinstance(pkey[1], int):
+                self._keepalive[pkey[1]] = program
+            entry, wkey, use_warm = self._warm_lookup(program, pkey,
+                                                      params_c, warm)
+            if cfg.trace:
+                init = entry.global_values if use_warm else None
+                return run_sim(program, self.pg, params, cfg,
+                               init_state=init, device=self.device)
 
-        warm_in = bool(program.monotone)
-        sgs = self.device_graph(cfg)
-        lay = self._layout_arg(program, eb, cfg) if eb != "coo" else None
-        wblk = self._warm_arg(program, entry, use_warm, cfg) \
-            if warm_in else None
-        runner, compile_time, evicted = self._get_runner(
-            program, pkey, params_c, cfg, warm_in, eb)
+            self.stats.queries += 1
+            eb, cfg = normalize_edge_backend(program, cfg)
+            use_rc = use_result_cache and self.result_cache is not None
+            rkey = None
+            if use_rc:
+                rkey = result_key(self.tenant, self._host_version, program,
+                                  params_c, cfg)
+                t0 = time.perf_counter()
+                val, tier = self.result_cache.get(rkey)
+                if not self._mesh_all(val is not None, cfg):
+                    val = None  # another rank missed (its own TTL clock)
+                if val is not None:
+                    self._bill_hit(tier)
+                    return np.asarray(val["results"]), ExecutionStats(
+                        supersteps=int(val["supersteps"]),
+                        wall_time=time.perf_counter() - t0,
+                        edge_backend=str(val.get("edge_backend", eb)),
+                        result_cache_tier=tier)
+                self.stats.result_cache_misses += 1
+
+            warm_in = bool(program.monotone)
+            sgs = self.device_graph(cfg)
+            lay = self._layout_arg(program, eb, cfg) if eb != "coo" \
+                else None
+            wblk = self._warm_arg(program, entry, use_warm, cfg) \
+                if warm_in else None
+            runner, compile_time, evicted = self._get_runner(
+                program, pkey, params_c, cfg, warm_in, eb)
         t0 = time.perf_counter()
         res, steps, msgs, sweeps, syncs, *coll = runner(sgs, lay, params,
                                                        wblk)
         coll, moved = coll or (0, {})
         self.stats.device_launches += 1
-        res = res.cpu().numpy()
+        with span("drone.session.fetch"):
+            res = res.cpu().numpy()
         wall = time.perf_counter() - t0
         if use_warm:
             self.stats.warm_queries += 1
         self.stats.host_syncs += syncs + 1
-        stats = self._execution_stats(program, cfg, steps, msgs, sweeps,
-                                      wall, compile_time, eb)
+        with span("drone.session.stats"):
+            stats = self._execution_stats(program, cfg, steps, msgs, sweeps,
+                                          wall, compile_time, eb)
         stats.host_syncs = syncs + 1
         stats.collectives = coll
         stats.collective_bytes = moved
         stats.evicted_runners = evicted
         if program.monotone:
-            self._remember(program, wkey, res)
+            with span("drone.session.remember"):
+                self._remember(program, wkey, res)
         if use_rc:
             stats.result_cache_tier = "miss"
             self.result_cache.put(rkey, dict(
@@ -761,6 +784,23 @@ class GraphSession:
         return asg
 
     def _layout_arg(self, program, eb, cfg):
+        """The device layout input of a kernel-backend runner; a call that
+        builds the host layouts or a device copy of them is timed
+        (``setup_seconds['layouts']``)."""
+        before = self._layout_builds()
+        t0 = time.perf_counter()
+        blk = self._layout_block(program, eb, cfg)
+        if self._layout_builds() != before:
+            self.stats.setup_seconds["layouts"] = time.perf_counter() - t0
+        return blk
+
+    def _layout_builds(self) -> tuple:
+        """The layouts object and how many device copies it caches: a
+        change between two reads is a build."""
+        lay = self.pg.edge_layouts
+        return (None, 0) if lay is None else (id(lay), len(lay._device))
+
+    def _layout_block(self, program, eb, cfg):
         lay = self.pg.ensure_edge_layouts(shape_policy=self.shape_policy)
         pl = self._placement(cfg)
         if pl is not None:
