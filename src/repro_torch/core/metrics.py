@@ -33,6 +33,8 @@ SPANS = (
     "drone.session.fetch",      # the result's copy to the host
     "drone.session.stats",      # ExecutionStats of the call
     "drone.session.remember",   # the warm-start memory of a converged result
+    "drone.session.warm_collect",  # a warm result's global array, built
+                                   # on its first read
     "drone.engine.run",         # the simulator runner's BSP loop
     "drone.engine.superstep",   # one superstep: local phase and exchange
     "drone.engine.sweep",       # one batched sweep of every partition

@@ -108,25 +108,73 @@ from repro_torch.stream.ingest import StreamContext, streaming_ingest
 __all__ = ["GraphSession", "SessionStats", "ShapePolicy"]
 
 
-@dataclasses.dataclass
+@dataclasses.dataclass(eq=False)
+class _CollectPlan:
+    """Where one membership version of a ``PartitionedGraph`` keeps its
+    rows, flat over the [P * v_max] local layout: ``pad_rows`` (a tensor)
+    outside every partition's members, ``src_rows`` the master replicas and
+    ``dst_gids`` their global ids. The arrays are fresh, so no later
+    in-place edit of the graph reaches a plan."""
+    n_vertices: int
+    pad_rows: torch.Tensor
+    src_rows: np.ndarray
+    dst_gids: np.ndarray
+
+    @classmethod
+    def of(cls, pg: PartitionedGraph) -> "_CollectPlan":
+        src = np.flatnonzero(pg.vmask & pg.is_master)
+        return cls(pg.n_vertices,
+                   torch.from_numpy(np.flatnonzero(~pg.vmask)), src,
+                   pg.gvid.ravel()[src])
+
+    def collect(self, block: np.ndarray, fill, tail: tuple) -> np.ndarray:
+        """``pg.collect`` of a [P, v_max, K] block under this plan's
+        membership, as a [n_vertices, *tail] array."""
+        out = np.full((self.n_vertices,) + tail, fill, dtype=block.dtype)
+        out.reshape(self.n_vertices, -1)[self.dst_gids] = \
+            block.reshape(-1, block.shape[2])[self.src_rows]
+        return out
+
+
+@dataclasses.dataclass(eq=False)
 class _WarmEntry:
     """Last converged result of one (program, params) query.
 
-    ``global_values`` ([n_vertices(, K)], combiner identity where no master
-    holds a value) survives any membership change; ``device_block``
-    ([P, v_max, K] numpy) is valid at ``device_epoch`` of the session's
+    ``device_block`` ([P, v_max, K] numpy, the entry's own copy, combiner
+    identity at padded rows) is valid at ``device_epoch`` of the session's
     remap log and is brought forward lazily on the entry's next use
-    (``GraphSession._sync_warm_entry``). ``polarity`` is the program's
-    ``warm_under``: the delta polarity the entry survives."""
-    global_values: np.ndarray
+    (``GraphSession._sync_warm_entry``). ``global_values`` ([n_vertices(,
+    K)], combiner identity where no master holds a value) survives any
+    membership change; it is gathered from the block as remembered, under
+    ``plan`` (the membership of that moment), on its first read, and the
+    session builds it before a remap replaces the block.
+    ``SessionStats.warm_collects`` counts the gathers. ``nbytes`` charges
+    both arrays, built or not, so the memory's bounds evict as they would
+    with the global array held from the start. ``polarity`` is the
+    program's ``warm_under``: the delta polarity the entry survives."""
     device_block: np.ndarray
     identity: object
+    plan: _CollectPlan
+    tail: tuple                  # the result's shape past [P, v_max]
+    stats: "SessionStats" = dataclasses.field(repr=False)
     device_epoch: int = 0
     polarity: str = "inserts"
+    _global: Optional[np.ndarray] = dataclasses.field(default=None,
+                                                      repr=False)
+
+    @property
+    def global_values(self) -> np.ndarray:
+        if self._global is None:
+            with span("drone.session.warm_collect"):
+                self._global = self.plan.collect(self.device_block,
+                                                 self.identity, self.tail)
+            self.stats.warm_collects += 1
+        return self._global
 
     @property
     def nbytes(self) -> int:
-        return self.global_values.nbytes + self.device_block.nbytes
+        n = self.plan.n_vertices * int(np.prod(self.tail, dtype=np.int64))
+        return n * self.device_block.itemsize + self.device_block.nbytes
 
 
 @dataclasses.dataclass
@@ -158,6 +206,9 @@ class SessionStats:
     result_cache_l2_hits: int = 0  # in-process / external tier
     result_cache_misses: int = 0   # result-cache consultations that ran
     host_syncs: int = 0            # device->host reads across all queries
+    warm_collects: int = 0         # warm results' global arrays gathered
+                                   # (on first read: cfg.trace, the shape
+                                   # fallback, a remap)
     rebalances: int = 0            # online migrations executed
     load_imbalance: float = 1.0    # the LoadMonitor's latest blended gauge
                                    # (1.0 when no monitor is attached)
@@ -282,6 +333,7 @@ class GraphSession:
         self._device_block = None      # (part, shard, n_shards) under a mesh
         self._host_version = 0         # bumped by every applied flush/compact
         self._warm: OrderedDict = OrderedDict()
+        self._warm_plan: Optional[tuple] = None  # (_host_version, plan)
         self._identity_blocks: dict = {}
         self._auto_pin: dict = {}      # (shape, tiles, windows keys) ->
                                        # pinned 'auto' assignment
@@ -859,6 +911,9 @@ class GraphSession:
         was last brought forward (insert-only flushes, compactions)."""
         if entry.device_epoch == self._warm_epoch:
             return
+        # the global array is gathered from the block as remembered: build
+        # it before the first remap replaces the block
+        entry.global_values
         for ep, st in self._remap_log:
             if ep > entry.device_epoch:
                 entry.device_block = st.remap_state(entry.device_block,
@@ -1050,16 +1105,22 @@ class GraphSession:
 
     def _remember(self, program, wkey, res):
         """Cache this converged result as the warm seed for the next
-        identical query (padded rows set to the combiner identity)."""
-        pg = self.pg
-        blk = res if res.ndim == 3 else res[..., None]
-        blk = np.where(pg.vmask[..., None], blk,
-                       np.asarray(program.identity, blk.dtype))
+        identical query: one copy of it, which the caller's ``res`` does not
+        share, with the padded rows set to the combiner identity. Its global
+        array waits for a first read (``_WarmEntry.global_values``)."""
+        if self._warm_plan is None or \
+                self._warm_plan[0] != self._host_version:
+            self._warm_plan = (self._host_version, _CollectPlan.of(self.pg))
+        plan = self._warm_plan[1]
+        blk = torch.from_numpy(res if res.ndim == 3 else res[..., None])
+        # torch copies and fills on every core; numpy on one
+        blk = blk.clone(memory_format=torch.contiguous_format)
+        blk.view(-1, blk.shape[2]).index_fill_(
+            0, plan.pad_rows, np.asarray(program.identity, res.dtype).item())
         self._warm[wkey] = _WarmEntry(
-            global_values=pg.collect(res, fill=program.identity),
-            device_block=blk, identity=program.identity,
-            device_epoch=self._warm_epoch,
-            polarity=program.warm_under)
+            device_block=blk.numpy(), identity=program.identity, plan=plan,
+            tail=res.shape[2:], stats=self.stats,
+            device_epoch=self._warm_epoch, polarity=program.warm_under)
         self._warm.move_to_end(wkey)
         self.stats.warm_evictions += self._evict_lru(
             self._warm, self.max_warm_entries, self.max_warm_bytes)
