@@ -55,6 +55,7 @@ class CallRecord:
     host_syncs: Optional[int]
     sweeps: Optional[List[int]]          # per partition
     edges: Optional[List[int]]           # real directed edges per partition
+    supersteps: Optional[int]            # exchange rounds
 
 
 @dataclasses.dataclass
@@ -106,7 +107,8 @@ class Port:
     @staticmethod
     def counters(st):
         return (int(st.host_syncs), [int(x) for x in st.partition_sweeps],
-                [int(x) for x in st.partition_edge_counts])
+                [int(x) for x in st.partition_edge_counts],
+                int(st.supersteps))
 
     def answer(self, res) -> np.ndarray:
         out = self.session.pg.collect(res, fill=np.inf)
@@ -134,7 +136,7 @@ class Control:
 
     @staticmethod
     def counters(st):
-        return None, None, None
+        return None, None, None, None
 
     def answer(self, res) -> np.ndarray:
         return res.numpy()
@@ -227,6 +229,7 @@ def measure(workload: str, seed: int, seconds: float, trace: bool, *,
     program's place; ``cfg_override`` replaces configuration keys (the
     tests' small sizes)."""
     t0 = time.perf_counter() if t0 is None else t0
+    start_s = time.perf_counter() - t0
     man = mf.load_manifest() if man is None else man
     cell = mf.cell(man, workload)
     cfg = dict(mf.config(man, cell["config"]), **(cfg_override or {}))
@@ -243,6 +246,7 @@ def measure(workload: str, seed: int, seconds: float, trace: bool, *,
     warm, it = calls(keys, tr)
     _sync(device)
     graph_s = time.perf_counter() - t
+    t = time.perf_counter()
     if control is None:
         host_edges = EdgeList(edges.n_vertices, *(x.cpu() for x in
                                                   (edges.src, edges.dst,
@@ -255,12 +259,15 @@ def measure(workload: str, seed: int, seconds: float, trace: bool, *,
         system = Port(host_edges, cfg, query, lanes, device)
     else:
         system = Control(edges, query, control)
+    handoff_s = time.perf_counter() - t - (system.partition_s or 0.0)
     t = time.perf_counter()
     system.call(warm)
     _sync(device)
     warmup_s = time.perf_counter() - t
-    setup = dict(setup_s=time.perf_counter() - t0, graph_s=graph_s,
-                 partition_s=system.partition_s, warmup_s=warmup_s)
+    setup = dict(setup_s=time.perf_counter() - t0, start_s=start_s,
+                 graph_s=graph_s, handoff_s=handoff_s,
+                 partition_s=system.partition_s, warmup_s=warmup_s,
+                 setup_cpu_s=time.process_time())
 
     if trace:
         seconds = min(seconds, TRACE_SECONDS)

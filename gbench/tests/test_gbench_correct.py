@@ -7,17 +7,16 @@ import torch
 
 from gbench.harness import manifest as mf
 from gbench.harness.cell import is_correct, measure
+from gbench.tests.sizes import CHECK
 
 MAN = mf.load_manifest()
 CELLS = [w["name"] for w in MAN["workloads"]]
-SMALL = {"g500-s20": dict(scale=8, n_parts=4)}
 SEED = 2**31 + 77
 
 
 def _correct(cell, **kw):
-    cfg = SMALL[mf.cell(MAN, cell)["config"]]
     run, checks, attempted, failed, compared = measure(
-        cell, SEED, 0.1, False, device="cpu", cfg_override=cfg, man=MAN,
+        cell, SEED, 0.1, False, device="cpu", cfg_override=CHECK, man=MAN,
         **kw)
     assert run.calls and compared
     return is_correct(checks, failed, compared), checks, failed

@@ -10,6 +10,7 @@ from pathlib import Path
 import pytest
 
 from gbench.harness.cell import FORBIDDEN
+from gbench.tests.sizes import TRACE
 
 GBENCH = Path(__file__).resolve().parents[1]
 ROOT = GBENCH.parent
@@ -50,7 +51,7 @@ def test_a_run_loads_no_jax():
         "import sys; sys.path[:0] = ['src', '.']\n"
         "from gbench.harness.cell import measure, forbidden_modules\n"
         "measure('g500-s20.sssp', 5, 0.05, False, device='cpu',\n"
-        "        cfg_override=dict(scale=7, n_parts=2))\n"
+        f"        cfg_override={TRACE!r})\n"
         "held = forbidden_modules()\n"
         "assert 'repro_torch.session' in sys.modules\n"
         "print('HELD', held)\n")

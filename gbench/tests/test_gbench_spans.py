@@ -12,6 +12,7 @@ from gbench import trace_spans
 from gbench.harness import manifest as mf
 from gbench.harness import spans
 from gbench.harness import trace as tr
+from gbench.tests.sizes import TRACE
 from repro_torch.core.metrics import SPANS
 
 METRICS = Path(__file__).resolve().parents[1] / "metrics"
@@ -156,8 +157,7 @@ def test_traced_run_on_the_cpu_reads_every_span_metric(cell):
     """A small traced run: every span metric is read, and the spans agree
     with the program's counters."""
     run, checks, attempted, failed, compared = trace_spans.traced_run(
-        cell, 2**31 + 11, 0.2, device="cpu",
-        cfg_override=dict(scale=7, n_parts=2))
+        cell, 2**31 + 11, 0.2, device="cpu", cfg_override=TRACE)
     line = trace_spans.result_line(run, checks, attempted, failed, compared)
     assert line["correct"]
     assert set(trace_spans.SPAN_METRICS) <= set(line["metrics"])
@@ -166,5 +166,9 @@ def test_traced_run_on_the_cpu_reads_every_span_metric(cell):
     syncs = sum(c.host_syncs for c in run.calls)
     assert spans.count(t, "drone.query") == n
     assert spans.count(t, "drone.engine.sync") == syncs - n
+    steps = [c.supersteps for c in run.calls]
+    assert min(steps) >= 1
+    assert line["metrics"]["supersteps_per_query"]["value"] == \
+        pytest.approx(sum(steps) / n)
     assert sum(line["idle_by_span"].values()) == pytest.approx(
         t.window_s - t.busy_s)
